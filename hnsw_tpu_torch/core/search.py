@@ -1,0 +1,299 @@
+"""Batched hierarchical beam search (port of hnsw_tpu/core/search.py).
+
+B queries traverse the graph in lockstep. Each hop:
+
+  1. select each query's best unexpanded pool entries      (stable sort)
+  2. gather their M neighbor ids + vectors                 (row gathers)
+  3. score all candidates at once                          (batched matmul)
+  4. merge into the per-query pool                         (bitonic / sort)
+
+The bounded result/candidate heap pair of the reference becomes a single
+fixed-width pool of size P = max(ef, k) with per-entry "expanded" flags.
+A query goes inactive when its best unexpanded candidate is no better
+than its worst pool entry (reference graph.go:164-166).
+
+The JAX ``lax.while_loop`` is a host loop here: it reads ``take.any()``
+once per hop and counts the hops (``stats["hops"]``, one entry per
+layer searched, top layer first). Multi-operand ``lax.sort`` is a stable
+``torch.sort`` plus ``gather``. This is plain PyTorch; the fused hop is
+ROADMAP Queue 2 K2.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from hnsw_tpu_torch.config import canonical_metric
+from hnsw_tpu_torch.core.state import DeviceGraph
+from hnsw_tpu_torch.ops.distance import (DEFAULT, HIGHEST, INF_DIST,
+                                         gathered_dist, pairwise_dist)
+from hnsw_tpu_torch.ops.topk import topk_smallest
+
+_INF = float(INF_DIST)
+
+#: bit 30 of the merge id operand carries the "expanded" flag (slot ids
+#: are dense int32 < 2^30; -1 sentinels stay negative).
+_EXP_BIT = 1 << 30
+
+
+def _sort_pairs(d: torch.Tensor, i: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable ascending sort of ``d`` along dim 1, carrying ``i``."""
+    sd, pos = torch.sort(d, dim=1, stable=True)
+    return sd, torch.gather(i, 1, pos)
+
+
+def _dedup_adjacent(pool_d, pool_i, expanded):
+    """Mask duplicate ids in a distance-sorted pool.
+
+    Duplicate ids carry equal distances, so after a stable sort they are
+    adjacent. Masked slots get (INF, -1, expanded=True) and are pushed
+    out at the next merge."""
+    dup = torch.zeros_like(pool_i, dtype=torch.bool)
+    dup[:, 1:] = (pool_i[:, 1:] == pool_i[:, :-1]) & (pool_i[:, 1:] >= 0)
+    return (torch.where(dup, _INF, pool_d),
+            torch.where(dup, -1, pool_i),
+            expanded | dup)
+
+
+def _bitonic_merge(pool_d, pool_i, cand_d, cand_i, P: int):
+    """Merge a sorted pool with a narrow candidate block.
+
+    pool_d/pool_i [B, P] sorted ascending; cand_d/cand_i [B, C] unsorted.
+    Ids are moved opaquely (flag bits survive). Sorting the candidates
+    ascending, reversing them and appending to the ascending pool (with
+    an INF plateau from padding in between) forms a bitonic sequence, so
+    log2(W) compare-exchange stages sort it fully. Returns the best P
+    entries, ascending."""
+    B, C = cand_d.shape
+    cd, ci = _sort_pairs(cand_d, cand_i)
+    W = P + C
+    W2 = 1 << (W - 1).bit_length()
+    pad = W2 - W
+    if pad:
+        cd = torch.nn.functional.pad(cd, (0, pad), value=_INF)
+        ci = torch.nn.functional.pad(ci, (0, pad), value=-1)
+    d = torch.cat([pool_d, cd.flip(1)], dim=1)
+    i = torch.cat([pool_i, ci.flip(1)], dim=1)
+    s = W2 // 2
+    while s >= 1:
+        d4 = d.reshape(B, -1, 2, s)
+        i4 = i.reshape(B, -1, 2, s)
+        a_d, b_d = d4[:, :, 0], d4[:, :, 1]
+        a_i, b_i = i4[:, :, 0], i4[:, :, 1]
+        swap = a_d > b_d
+        d = torch.stack([torch.where(swap, b_d, a_d),
+                         torch.where(swap, a_d, b_d)], dim=2).reshape(B, W2)
+        i = torch.stack([torch.where(swap, b_i, a_i),
+                         torch.where(swap, a_i, b_i)], dim=2).reshape(B, W2)
+        s //= 2
+    return d[:, :P], i[:, :P]
+
+
+def _score_hop(g: DeviceGraph, queries, q_sq, nb_safe, metric, precision):
+    """Distances from each query to its gathered candidate slots."""
+    idx = nb_safe.long()
+    return gathered_dist(queries, g.vectors[idx], g.sq_norms[idx], q_sq,
+                         metric=metric, precision=precision)
+
+
+def _entry_dist(g: DeviceGraph, queries, q_sq, entry_ids, metric,
+                precision):
+    safe = torch.clamp(entry_ids, 0, g.cap - 1)
+    d = _score_hop(g, queries, q_sq, safe[:, None], metric, precision)[:, 0]
+    return torch.where(entry_ids >= 0, d, _INF)
+
+
+def beam_search_layer(g: DeviceGraph, layer: int, queries: torch.Tensor,
+                      q_sq: torch.Tensor, start_ids: torch.Tensor,
+                      start_d: torch.Tensor, pool_size: int, max_hops: int,
+                      metric: str, precision: str, expand: int = 1,
+                      merge: str = "sort", stats: Optional[dict] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search one layer for a batch of queries.
+
+    ``expand`` > 1 opens the top-E unexpanded pool entries per hop.
+    ``stats`` (a dict), when given, gets this layer's hop count appended
+    to ``stats["hops"]``.
+
+    Returns (pool_dists [B, P], pool_ids [B, P] int32) sorted ascending;
+    empty slots are (INF_DIST, -1).
+
+    There is no visited set: candidates already in the pool are masked
+    by a broadcast compare before scoring, an evicted node can never
+    re-enter (the pool only improves), and same-hop duplicates are
+    masked before (bitonic) or after (sort) the merge. Edges to dead
+    nodes were prefolded to -1 by state.from_host.
+    """
+    B = queries.shape[0]
+    cap = g.cap
+    P = pool_size
+    E = max(1, min(expand, P))
+    M = g.layer_width(layer)
+    dev = queries.device
+
+    # Pool init: the start node(s) occupy the leading slots (reference
+    # graph.go:122). start_ids/start_d may be [B] or [B, S].
+    if start_ids.ndim == 1:
+        start_ids = start_ids[:, None]
+        start_d = start_d[:, None]
+    S = min(start_ids.shape[1], P)
+    pool_i = torch.full((B, P), -1, dtype=torch.int32, device=dev)
+    pool_i[:, :S] = start_ids[:, :S]
+    pool_d = torch.full((B, P), _INF, dtype=torch.float32, device=dev)
+    pool_d[:, :S] = start_d[:, :S]
+    if S > 1:
+        # keep the pool's sorted-ascending invariant for seeded entries
+        pool_d, pool_i = _sort_pairs(pool_d, pool_i)
+        pool_d, pool_i, _ = _dedup_adjacent(pool_d, pool_i, pool_i < -1)
+        if merge == "bitonic":
+            # push dedup holes to the tail: the bitonic merge requires a
+            # hole-free ascending pool
+            pool_d, pool_i = _sort_pairs(pool_d, pool_i)
+    expanded = torch.zeros((B, P), dtype=torch.bool, device=dev)
+
+    def select(pool_d, pool_i, expanded):
+        """Top-E unexpanded pool entries; take-mask per entry."""
+        sel_d = torch.where(expanded | (pool_i < 0), _INF, pool_d)
+        best, j = topk_smallest(sel_d, E)                   # [B, E]
+        worst = pool_d.max(dim=1).values                    # INF if not full
+        return j, best < worst[:, None]
+
+    j, take = select(pool_d, pool_i, expanded)
+    hops = 0
+    while hops < max_hops and bool(take.any()):
+        cur = torch.gather(pool_i, 1, j)                     # [B, E]
+        cur_safe = torch.clamp(torch.where(take, cur, 0), 0, cap - 1)
+        expanded = expanded.scatter(1, j, torch.gather(expanded, 1, j)
+                                    | take)
+
+        nbrs = g.gather_neighbors(layer, cur_safe.long())[..., :M] \
+            .reshape(B, E * M)                               # [B, E*M]
+        nb_ok = (nbrs >= 0) & take.repeat_interleave(M, dim=1)
+        # mask candidates already in the pool: without this, duplicates
+        # of the best pool entries crowd out legitimate tail entries
+        in_pool = (nbrs[:, :, None] == pool_i[:, None, :]).any(-1)
+        nb_ok = nb_ok & ~in_pool
+        nb_safe = torch.clamp(torch.where(nb_ok, nbrs, 0), 0, cap - 1)
+        d = _score_hop(g, queries, q_sq, nb_safe, metric, precision)
+        d = torch.where(nb_ok, d, _INF)
+        new_i = torch.where(nb_ok, nbrs, -1)
+
+        # the expanded flag rides in bit 30 of the id operand
+        ei = torch.where(expanded & (pool_i >= 0), pool_i | _EXP_BIT,
+                         pool_i)
+        if merge == "bitonic":
+            # same-hop diamond twins are the only possible duplicates, so
+            # dedup the candidate block by O(C^2) id equality BEFORE the
+            # merge; the pool then never develops holes
+            C = new_i.shape[1]
+            tri = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                        device=dev), diagonal=-1)
+            is_dup = ((new_i[:, :, None] == new_i[:, None, :])
+                      & (new_i[:, :, None] >= 0) & tri[None]).any(-1)
+            d = torch.where(is_dup, _INF, d)
+            new_i = torch.where(is_dup, -1, new_i)
+            pool_d, packed = _bitonic_merge(pool_d, ei, d, new_i, P)
+        else:
+            sd, si = _sort_pairs(torch.cat([pool_d, d], dim=1),
+                                 torch.cat([ei, new_i], dim=1))
+            pool_d, packed = sd[:, :P], si[:, :P]
+        expanded = packed >= _EXP_BIT
+        pool_i = torch.where(packed >= 0, packed & (_EXP_BIT - 1), packed)
+        if merge != "bitonic":
+            pool_d, pool_i, expanded = _dedup_adjacent(pool_d, pool_i,
+                                                       expanded)
+        j, take = select(pool_d, pool_i, expanded)
+        hops += 1
+    if stats is not None:
+        stats.setdefault("hops", []).append(hops)
+    # final compaction: dedup slots hold (INF, -1); one stable sort pushes
+    # them to the tail
+    pd, pi = _sort_pairs(pool_d, pool_i)
+    return pd, torch.where(pd >= _INF, -1, pi)
+
+
+def search_graph(g: DeviceGraph, queries: torch.Tensor, *, k: int, ef: int,
+                 metric: str = "cosine", max_hops: int = 128,
+                 fast_math: bool = False, expand: int = 1,
+                 ef_upper: int = 0, seed_ids: torch.Tensor | None = None,
+                 merge: str = "sort", stats: Optional[dict] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full hierarchical search for a batch of queries.
+
+    Mirrors Graph.Search's descent (graph.go:571-593): narrow beam with
+    result width 1 on upper layers, full (ef, k) beam at layer 0. Returns
+    (dists [B, k], slot ids [B, k] int32); -1 = no result.
+
+    ``ef_upper`` is the upper-layer beam width (0 -> an 8-wide pool).
+    ``fast_math`` runs hop scoring on bf16-rounded operands; the head of
+    the final pool is then reranked in f32. ``seed_ids`` ([B, S] slot
+    ids, -1 padded) replaces the upper-layer descent with pre-selected
+    layer-0 entries. ``stats`` collects per-layer hop counts.
+    """
+    metric = canonical_metric(metric)
+    precision = DEFAULT if fast_math else HIGHEST
+    B = queries.shape[0]
+    queries = queries.to(torch.float32)
+    q_sq = torch.sum(queries * queries, dim=-1)
+    L = g.num_layers
+    P0 = max(ef, k)
+    P_up = ef_upper if ef_upper > 0 else min(8, P0)
+
+    def layer_search(layer, ids, dists, pool):
+        return beam_search_layer(
+            g, layer, queries, q_sq, ids, dists, pool_size=pool,
+            max_hops=max_hops, metric=metric, precision=precision,
+            expand=min(expand, pool), merge=merge, stats=stats)
+
+    if seed_ids is not None:
+        safe = torch.clamp(seed_ids, 0, g.cap - 1)
+        seed_d = _score_hop(g, queries, q_sq, safe, metric, precision)
+        entry_d = torch.where(seed_ids >= 0, seed_d, _INF)
+        entry_ids = torch.where(seed_ids >= 0, seed_ids, -1)
+    else:
+        entry_ids = g.entry.expand(B).to(torch.int32)
+        entry_d = _entry_dist(g, queries, q_sq, entry_ids, metric,
+                              precision)
+        # upper layers: narrow beam, the best becomes the next entry
+        # (reference search(1, efSearch) + elevator, graph.go:578-585)
+        for layer in range(L - 1, 0, -1):
+            pd, pi = layer_search(layer, entry_ids, entry_d, P_up)
+            keep = pi[:, 0] >= 0
+            entry_ids = torch.where(keep, pi[:, 0], entry_ids)
+            entry_d = torch.where(keep, pd[:, 0], entry_d)
+
+    pd, pi = layer_search(0, entry_ids, entry_d, P0)
+    if fast_math:
+        # f32 rerank of the head of the pool: traversal ordering ran on
+        # bf16 operands; reported distances and the final order are
+        # recomputed at HIGHEST over a small widened window
+        R = min(P0, max(2 * k, 16))
+        ri = pi[:, :R]
+        safe = torch.clamp(ri, 0, g.cap - 1).long()
+        dd = gathered_dist(queries, g.vectors[safe], g.sq_norms[safe],
+                           q_sq, metric=metric, precision=HIGHEST)
+        dd = torch.where(ri >= 0, dd, _INF)
+        sd, si = _sort_pairs(dd, ri)
+        si = torch.where(sd >= _INF, -1, si)
+        return sd[:, :k], si[:, :k]
+    return pd[:, :k], pi[:, :k]
+
+
+def pivot_seeds(queries: torch.Tensor, pvecs: torch.Tensor,
+                psq: torch.Tensor, pids: torch.Tensor, *, s: int,
+                metric: str = "cosine", fast_math: bool = False
+                ) -> torch.Tensor:
+    """Coarse entry selection: one matmul over a pivot subset.
+
+    queries [B, D] x pvecs [P, D] -> per-query s best pivot SLOT ids
+    [B, s] (-1 = none), ties to the lower pivot index. Feeds
+    search_graph(seed_ids=...)."""
+    metric = canonical_metric(metric)
+    precision = DEFAULT if fast_math else HIGHEST
+    d = pairwise_dist(queries.to(torch.float32), pvecs, v_sq=psq,
+                      metric=metric, precision=precision)     # [B, P]
+    dv, j = topk_smallest(d, min(s, d.shape[1]))
+    return torch.where(dv < _INF, pids[j], -1)

@@ -1,0 +1,269 @@
+"""Fused exact k-NN screen: the hand-written CUDA kernel and its plain twin.
+
+Port of hnsw_tpu/ops/pallas_exact.py. The kernel
+(``csrc/exact_screen.cu``) scores a query batch against the whole table
+and keeps each query's k_sel best (distance, id) pairs on chip; the
+[Q, N] score matrix never reaches device memory. ``exact_topk_fused``
+then reranks that pool in f32, as the JAX wrapper does.
+
+Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
+takes ``exact_screen_reference``, the plain torch version of the same
+contract. The kernel's keys are int64 (distance bits high, column id
+low), so unlike the TPU's packed int32 keys they lose no distance bits
+and cannot collide; ties go to the lower id in both versions.
+
+The library is compiled with nvcc at first use into ``build/hnsw_tpu_torch``
+beside the package (rebuilt when the source is newer) and bound with
+ctypes; nothing is built when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from typing import Tuple
+
+import torch
+
+from hnsw_tpu_torch.config import canonical_metric
+from hnsw_tpu_torch.ops.distance import (HIGHEST, INF_DIST, _epilogue,
+                                         bf16_round, gathered_dist)
+from hnsw_tpu_torch.ops.topk import topk_smallest
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "exact_screen.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hnsw_tpu_torch")
+_METRIC_CODE = {"cosine": 0, "l2": 1, "sqeuclidean": 2, "dot": 3}
+_EMPTY_KEY = (1 << 63) - 1
+#: most candidates the merge kernel sorts per query (n_seg * k_sel)
+_MERGE_MAX = 4096
+K_SEL_MAX = 128
+#: table rows per matmul + sort step of the plain version
+_REF_CHUNK = 65536
+
+#: kernel launches so far (one per screen call on a CUDA tensor)
+launches = 0
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    cands.append(shutil.which("nvcc") or "")
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def build() -> str:
+    """Compile ``csrc/exact_screen.cu`` if the library is missing or older
+    than the source; returns the library's path."""
+    so = os.path.join(BUILD_DIR, "libexact_screen.so")
+    if (os.path.exists(so)
+            and os.path.getmtime(so) >= os.path.getmtime(SOURCE)):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", SOURCE, "-o", tmp]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    with open(os.path.join(BUILD_DIR, "exact_screen.ptxas.txt"), "w") as f:
+        f.write(res.stderr)
+    os.replace(tmp, so)
+    return so
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.exact_screen_launch.argtypes = [vp, vp, vp, vp] + [ci] * 8 \
+                + [vp, vp, vp]
+            lib.exact_screen_launch.restype = ci
+            lib.exact_screen_blocks_per_sm.argtypes = [ci]
+            lib.exact_screen_blocks_per_sm.restype = ci
+            lib.exact_screen_tile_queries.restype = ci
+            lib.exact_screen_tile_columns.restype = ci
+            _lib = lib
+        return _lib
+
+
+def _plan_segments(lib, device, nq: int, n: int, k_sel: int
+                   ) -> Tuple[int, int]:
+    """(n_seg, seg_len): cut N so that the (query tiles x segments) grid
+    fills about two waves of resident blocks."""
+    tq = lib.exact_screen_tile_queries()
+    tc = lib.exact_screen_tile_columns()
+    per_sm = lib.exact_screen_blocks_per_sm(k_sel)
+    if per_sm <= 0:
+        raise RuntimeError(f"exact_screen occupancy query failed "
+                           f"(cudaError {-per_sm})")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    q_tiles = -(-nq // tq)
+    col_tiles = -(-n // tc)
+    n_seg = max(1, min(2 * sms * per_sm // q_tiles, col_tiles,
+                       _MERGE_MAX // k_sel))
+    seg_len = -(-col_tiles // n_seg) * tc
+    return -(-n // seg_len), seg_len
+
+
+def _decode(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int64 keys -> (dists f32, ids int64); empty slots -> (INF, -1)."""
+    empty = keys == _EMPTY_KEY
+    hi = (keys >> 32).to(torch.int32)
+    bits = torch.where(hi >= 0, hi, torch.iinfo(torch.int32).min - hi)
+    dists = torch.where(empty, float(INF_DIST), bits.view(torch.float32))
+    ids = torch.where(empty, -1, keys & 0xFFFFFFFF)
+    return dists, ids
+
+
+def _screen_cuda(queries, vectors, v_sq, valid, k_sel, metric, fast_math):
+    global launches
+    dev = queries.device
+    for name, t, dt in (("queries", queries, torch.float32),
+                        ("vectors", vectors, torch.float32),
+                        ("v_sq", v_sq, torch.float32),
+                        ("valid", valid, torch.bool)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if queries.ndim != 2 or vectors.ndim != 2:
+        raise ValueError("queries and vectors must be 2-D")
+    nq, d = queries.shape
+    n = vectors.shape[0]
+    if d < 1 or vectors.shape[1] != d:
+        raise ValueError(f"dimension mismatch: queries {tuple(queries.shape)}"
+                         f", vectors {tuple(vectors.shape)}")
+    if v_sq.shape != (n,) or valid.shape != (n,):
+        raise ValueError("v_sq and valid must be [N]")
+    if not 1 <= k_sel <= min(K_SEL_MAX, n):
+        raise ValueError(f"k_sel must be in [1, min({K_SEL_MAX}, N)], "
+                         f"got {k_sel}")
+    if n >= 2 ** 31 or nq >= 2 ** 31:
+        raise ValueError("N and Q must be < 2^31")
+    if metric not in _METRIC_CODE:
+        raise ValueError(f"the CUDA screen takes builtin metrics only, "
+                         f"got {metric!r}")
+    keys = torch.empty((nq, k_sel), dtype=torch.int64, device=dev)
+    if nq == 0:
+        return _decode(keys)
+    lib = _load()
+    with torch.cuda.device(dev):
+        n_seg, seg_len = _plan_segments(lib, dev, nq, n, k_sel)
+        partial = torch.empty((nq, n_seg, k_sel), dtype=torch.int64,
+                              device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.exact_screen_launch(
+            queries.data_ptr(), vectors.data_ptr(), v_sq.data_ptr(),
+            valid.data_ptr(), nq, n, d, k_sel, n_seg, seg_len,
+            _METRIC_CODE[metric], int(fast_math), partial.data_ptr(),
+            keys.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"exact_screen launch failed: cudaError {rc}")
+    launches += 1
+    return _decode(keys)
+
+
+def exact_screen_reference(queries: torch.Tensor, vectors: torch.Tensor,
+                           v_sq: torch.Tensor, valid: torch.Tensor, *,
+                           k_sel: int, metric: str = "cosine",
+                           fast_math: bool = False
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of the CUDA screen, same contract: the k_sel
+    smallest (distance, id) pairs per query, ascending, ties to the lower
+    id, masked or missing slots as (INF_DIST, -1). Chunked matmul +
+    epilogue + stable sort on distance over id-ordered columns."""
+    metric = canonical_metric(metric)
+    q = queries.to(torch.float32)
+    q_sq = torch.sum(q * q, dim=-1)
+    qm = bf16_round(q) if fast_math else q
+    n = vectors.shape[0]
+    best_d = torch.empty((q.shape[0], 0), dtype=torch.float32,
+                         device=q.device)
+    best_i = torch.empty((q.shape[0], 0), dtype=torch.int64, device=q.device)
+    for c0 in range(0, n, _REF_CHUNK):
+        c1 = c0 + _REF_CHUNK
+        v = vectors[c0:c1].to(torch.float32)
+        d = _epilogue(metric, qm @ (bf16_round(v) if fast_math else v).T,
+                      q_sq, v_sq[c0:c1])
+        d = torch.where(valid[c0:c1][None, :], d, float(INF_DIST))
+        ids = torch.arange(c0, c0 + v.shape[0], device=q.device)
+        cat_d = torch.cat([best_d, d], dim=1)
+        cat_i = torch.cat([best_i, ids.expand(q.shape[0], -1)], dim=1)
+        best_d, pos = topk_smallest(cat_d, k_sel)
+        best_i = torch.gather(cat_i, 1, pos)
+    best_i = torch.where(best_d >= INF_DIST, -1, best_i)
+    return best_d, best_i
+
+
+def exact_screen(queries: torch.Tensor, vectors: torch.Tensor,
+                 v_sq: torch.Tensor, valid: torch.Tensor, *, k_sel: int,
+                 metric: str = "cosine", fast_math: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Screening pass: (dists [Q, k_sel], ids [Q, k_sel]). CUDA tensors go
+    through the kernel, CPU tensors through ``exact_screen_reference``."""
+    metric = canonical_metric(metric)
+    if queries.is_cuda:
+        return _screen_cuda(queries, vectors, v_sq, valid, k_sel, metric,
+                            fast_math)
+    if vectors.is_cuda:
+        raise ValueError("queries are on the CPU but vectors are on CUDA")
+    return exact_screen_reference(queries, vectors, v_sq, valid,
+                                  k_sel=k_sel, metric=metric,
+                                  fast_math=fast_math)
+
+
+def rerank_pool(queries: torch.Tensor, vectors: torch.Tensor,
+                v_sq: torch.Tensor, ids: torch.Tensor, *, k: int,
+                metric: str = "cosine"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 rerank of a screened pool (ids [Q, k_sel], -1 = none) ->
+    (dists [Q, k], ids [Q, k]) exact-ordered, -1/INF for misses."""
+    q = queries.to(torch.float32)
+    n = vectors.shape[0]
+    safe = torch.clamp(ids, 0, n - 1)
+    q_sq = torch.sum(q * q, dim=-1)
+    d = gathered_dist(q, vectors[safe].to(torch.float32), v_sq[safe], q_sq,
+                      metric=metric, precision=HIGHEST)
+    d = torch.where(ids >= 0, d, float(INF_DIST))
+    kk = min(k, d.shape[1])
+    dk, pos = topk_smallest(d, kk)
+    ik = torch.gather(ids, 1, pos)
+    if k > kk:
+        dk = torch.nn.functional.pad(dk, (0, k - kk), value=float(INF_DIST))
+        ik = torch.nn.functional.pad(ik, (0, k - kk), value=-1)
+    ik = torch.where(dk >= INF_DIST, -1, ik)
+    return dk, ik
+
+
+def exact_topk_fused(queries: torch.Tensor, vectors: torch.Tensor,
+                     v_sq: torch.Tensor, valid: torch.Tensor, *, k: int,
+                     metric: str = "cosine", fast_math: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused exact k-NN: screen + f32 rerank of the k_sel = min(k+8, 128,
+    N) winners. Returns (dists [Q, k], idx [Q, k]) with f32-exact
+    distances and ordering; k <= 120. (The JAX wrapper's ``interpret``
+    flag has no counterpart: the device of the tensors picks kernel or
+    plain version.)"""
+    if k > 120:
+        raise ValueError("exact_topk_fused supports k <= 120")
+    metric = canonical_metric(metric)
+    queries = queries.to(torch.float32).contiguous()
+    k_sel = min(k + 8, K_SEL_MAX, vectors.shape[0])
+    _, ids = exact_screen(queries, vectors, v_sq, valid, k_sel=k_sel,
+                          metric=metric, fast_math=fast_math)
+    return rerank_pool(queries, vectors, v_sq, ids, k=k, metric=metric)

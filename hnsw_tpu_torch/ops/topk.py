@@ -1,0 +1,116 @@
+"""Top-k selection ops (port of hnsw_tpu/ops/topk.py).
+
+Tie order: the JAX package relies on ``lax.top_k`` returning the lower
+index first among equal values. ``torch.topk`` promises no tie order, so
+every selection here is a stable ascending ``torch.sort``.
+
+Exact search over large N streams the score matrix in chunks with a
+running top-k merge (O(Q*(k+chunk)) memory instead of O(Q*N)).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from hnsw_tpu_torch.ops.distance import (HIGHEST, INF_DIST, _epilogue,
+                                         bf16_round, gathered_dist,
+                                         pairwise_dist)
+
+
+def topk_smallest(dists: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Smallest-k along the last axis, ties to the lower index.
+    Returns (dists [.., k], idx [.., k])."""
+    d, idx = torch.sort(dists, dim=-1, stable=True)
+    return d[..., :k], idx[..., :k]
+
+
+def merge_topk(d_a, i_a, d_b, i_b, k: int):
+    """Merge two top-k candidate sets (per row) into one top-k; on equal
+    distances the entries of ``a`` come first."""
+    d = torch.cat([d_a, d_b], dim=-1)
+    i = torch.cat([i_a, i_b], dim=-1)
+    dk, pos = topk_smallest(d, k)
+    return dk, torch.gather(i, -1, pos)
+
+
+def exact_topk(queries: torch.Tensor, vectors: torch.Tensor,
+               v_sq: torch.Tensor, valid: torch.Tensor,
+               k: int, metric: str = "cosine",
+               chunk: int = 16384, fast_math: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN: brute-force scan of all vectors in chunks.
+
+    queries: [Q, D]; vectors: [N, D]; v_sq: [N]; valid: [N] bool.
+    Returns (dists [Q, k], indices [Q, k] int64); invalid rows get
+    INF_DIST/-1.
+
+    ``fast_math`` scans with bf16-rounded operands over a widened
+    candidate set (k + max(4, k // 8)) and reranks the winners in f32.
+    The JAX package selects per-chunk winners with the TPU's
+    ``approx_min_k``; there is no such primitive here, so each chunk's
+    selection is exact and its ``recall_target`` has no meaning on the
+    GPU. Chunks are slices of the table, never padded copies of it.
+    """
+    n = vectors.shape[0]
+    q = queries.to(torch.float32)
+    q_sq = torch.sum(q * q, dim=-1)
+    if fast_math:
+        k_scan = min(k + max(4, k // 8), n)
+        chunk = 65536 if q.shape[0] <= 8192 else 32768
+        q_bf = bf16_round(q)
+    else:
+        k_scan = k
+    kk = min(k_scan, n)
+
+    dk = ik = None
+    for c0 in range(0, n, chunk):
+        vec = vectors[c0:c0 + chunk].to(torch.float32)
+        sq = v_sq[c0:c0 + chunk]
+        if fast_math:
+            d = _epilogue(metric, q_bf @ bf16_round(vec).T, q_sq, sq)
+        else:
+            d = pairwise_dist(q, vec, v_sq=sq, q_sq=q_sq, metric=metric)
+        d = torch.where(valid[c0:c0 + chunk][None, :], d, INF_DIST)
+        cd, ci = topk_smallest(d, min(kk, d.shape[1]))
+        ci = ci + c0
+        if dk is None:
+            dk, ik = cd, ci
+        else:
+            dk, ik = merge_topk(dk, ik, cd, ci, kk)
+
+    if fast_math:
+        # f32 rerank of the widened bf16 pool -> exact final ordering.
+        # Rows whose selected distance was INF are masked-out candidates;
+        # they must not be resurrected by recomputing their distance.
+        was_masked = dk >= INF_DIST
+        safe = torch.clamp(ik, 0, n - 1)
+        d = gathered_dist(q, vectors[safe].to(torch.float32), v_sq[safe],
+                          q_sq, metric=metric, precision=HIGHEST)
+        d = torch.where((ik >= 0) & ~was_masked, d, INF_DIST)
+        dk, pos = topk_smallest(d, min(k, d.shape[1]))
+        ik = torch.gather(ik, 1, pos)
+
+    if k > dk.shape[1]:  # pad when fewer vectors than k
+        pad = k - dk.shape[1]
+        dk = torch.nn.functional.pad(dk, (0, pad), value=float(INF_DIST))
+        ik = torch.nn.functional.pad(ik, (0, pad), value=-1)
+    dk, ik = dk[:, :k], ik[:, :k]
+    ik = torch.where(dk >= INF_DIST, -1, ik)
+    return dk, ik
+
+
+def np_exact_topk(queries: np.ndarray, vectors: np.ndarray, k: int,
+                  metric: str = "cosine") -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side exact k-NN oracle (ground truth for recall harnesses,
+    mirroring hybrid/benchmark_test.go:273's pattern)."""
+    from hnsw_tpu_torch.ops.distance import np_pairwise_dist
+    d = np_pairwise_dist(queries, vectors, metric)
+    k = min(k, vectors.shape[0])
+    idx = np.argpartition(d, k - 1, axis=1)[:, :k]
+    dd = np.take_along_axis(d, idx, axis=1)
+    order = np.argsort(dd, axis=1, kind="stable")
+    return np.take_along_axis(dd, order, axis=1), np.take_along_axis(idx, order, axis=1)

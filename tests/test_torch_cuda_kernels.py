@@ -1,0 +1,121 @@
+"""The CUDA exact-screen kernel against its plain torch version, on the card.
+
+Marked ``cuda``: a CUDA kernel has no CPU mode, so these tests skip where
+there is no NVIDIA GPU (decided inside the fixture, never at import).
+Run them on a GPU machine with ``python -m pytest tests/test_torch_cuda_kernels.py``.
+
+Both versions screen the same tensors; the pools are then reranked in f32
+by the same code. f32: ids equal, distances within 1e-5 (both are
+reranked in f32). fast_math: id overlap >= 0.999 (the bf16 screens may
+cut their pools at different places), matched distances within 1e-5.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from hnsw_tpu_torch.ops import exact_screen as es  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _case(device, n, n_valid, nq, d=64, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    v = torch.randn((n, d), generator=g, device=device)
+    q = torch.randn((nq, d), generator=g, device=device)
+    valid = torch.zeros(n, dtype=torch.bool, device=device)
+    valid[:n_valid] = True
+    return q, v, (v * v).sum(-1), valid
+
+
+def _both(q, v, sq, valid, k, metric, fast):
+    es.launches = 0
+    dk, ik = es.exact_topk_fused(q, v, sq, valid, k=k, metric=metric,
+                                 fast_math=fast)
+    assert es.launches == 1
+    k_sel = min(k + 8, 128, v.shape[0])
+    _, ids = es.exact_screen_reference(q, v, sq, valid, k_sel=k_sel,
+                                       metric=metric, fast_math=fast)
+    dp, ip = es.rerank_pool(q, v, sq, ids, k=k, metric=metric)
+    return dk.cpu().numpy(), ik.cpu().numpy(), dp.cpu().numpy(), \
+        ip.cpu().numpy()
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sqeuclidean", "dot"])
+def test_kernel_matches_plain(cuda, metric, fast):
+    dk, ik, dp, ip = _both(*_case(cuda, 70_000, 65_000, 300), 10, metric,
+                           fast)
+    if fast:
+        hits = sum(len(set(a) & set(b)) for a, b in zip(ik, ip))
+        assert hits / ip.size >= 0.999
+    else:
+        np.testing.assert_array_equal(ik, ip)
+    same = ik == ip
+    np.testing.assert_allclose(dk[same], dp[same], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("k,d", [(64, 100), (120, 960), (1, 7)])
+def test_kernel_ragged_widths(cuda, k, d):
+    """Ragged N and Q, D not a multiple of the 32-wide stage, k_sel up to
+    the kernel's 128."""
+    dk, ik, dp, ip = _both(*_case(cuda, 40_001, 40_001, 37, d=d), k,
+                           "l2", False)
+    np.testing.assert_array_equal(ik, ip)
+
+
+def test_kernel_few_valid_rows(cuda):
+    dk, ik, dp, ip = _both(*_case(cuda, 5_000, 6, 16), 10, "cosine", False)
+    np.testing.assert_array_equal(ik, ip)
+    assert np.all(ik[:, 6:] == -1)
+
+
+def test_kernel_screen_keys_match_plain(cuda):
+    q, v, sq, valid = _case(cuda, 9_000, 8_500, 65, seed=3)
+    dk, ik = es.exact_screen(q, v, sq, valid, k_sel=20, metric="dot")
+    dp, ip = es.exact_screen_reference(q, v, sq, valid, k_sel=20,
+                                       metric="dot")
+    same = ik == ip
+    assert same.float().mean() >= 0.99
+    torch.testing.assert_close(dk[same], dp[same], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_exact_index_on_card_matches_cpu(cuda, fast):
+    """Below 32768 rows ExactIndex scans with plain torch (exact_topk) on
+    the card; above, through the kernel. Both must give the CPU's ids;
+    distances within 1e-4 (f32 sums in another order, l2 values ~10)."""
+    from hnsw_tpu_torch import ExactIndex
+    r = np.random.default_rng(5)
+    q = r.standard_normal((40, 48)).astype(np.float32)
+    for n in (5_000, 40_000):
+        v = r.standard_normal((n, 48)).astype(np.float32)
+        out = []
+        for dev in (cuda, "cpu"):
+            idx = ExactIndex(metric="l2", fast_math=fast, device=dev)
+            idx.host_serve_max_batch = 0
+            idx.batch_add(list(range(n)), v)
+            out.append(idx.batch_search_slots(q, 10))
+        np.testing.assert_array_equal(out[0][1], out[1][1])
+        np.testing.assert_allclose(out[0][0], out[1][0], atol=1e-4, rtol=0)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, v, sq, valid = _case(cuda, 1_000, 1_000, 4)
+    with pytest.raises(ValueError):
+        es.exact_screen(q, v, sq, valid, k_sel=129)
+    with pytest.raises(TypeError):
+        es.exact_screen(q.double(), v, sq, valid, k_sel=8)
+    with pytest.raises(ValueError):
+        es.exact_screen(q, v.t(), sq, valid, k_sel=8)
+    with pytest.raises(ValueError):
+        es.exact_screen(q, v.cpu(), sq, valid, k_sel=8)
