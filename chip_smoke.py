@@ -16,7 +16,18 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    the kernel's launch count from this phase;
 5. graph tier: the default Graph (m=16, ef_construction=100, cosine,
    descent entry, bitonic merge, f32 store) built on 100,000 x 128 by the
-   native builder and served on the card at ef 64 and 192.
+   native builder and served on the card at ef 64 and 192;
+6. exact capacity ladder at BIGANN-10M's shape (10,000,000 x 128, L2,
+   k=10; synthetic rows from a seed): the float32 rung through the kernel,
+   checked against a chunked numpy scan, then hbm_dtype int8, bf16 and
+   fp16 with recall@10 against the float32 rung, QPS, and
+   batch_search_stream against sequential search;
+7. hbm_dtype="auto" on 1,000,000 x 128 tight clusters (two widths): the
+   rung it resolves to, and the kernel's launches when that is float32;
+8. the graph tier's serving modes on the same 100k graph: bench.py's
+   configuration (fast_math, block_layout, entry_mode="pivots") at ef 192
+   and 384, hbm_mode float16 and quantized at ef 192, and compact upper
+   layers at ef 64 (ids equal to the dense layout's).
 
 The last two lines are the kernel table and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -35,6 +46,10 @@ import numpy as np
 import torch
 
 N_EXACT, N_GRAPH, DIM = 1_000_000, 100_000, 128
+N_CAPACITY, N_CLUSTER = 10_000_000, 1_000_000
+BATCH, N_BATCHES = 1024, 8
+#: where the index phases serve; the smoke itself refuses to run off CUDA
+DEVICE = "cuda"
 KERNEL = {"name": "exact_screen", "route": "cuda",
           "source": "hnsw_tpu_torch/csrc/exact_screen.cu",
           "replaces": "hnsw_tpu/ops/pallas_exact.py:175"}
@@ -189,12 +204,17 @@ def _recall(found: np.ndarray, truth: np.ndarray, k: int) -> float:
                for f, t in zip(found, truth)) / (k * len(truth))
 
 
+def _sync_device() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
 def _qps(fn, n_queries: int, reps: int = 3) -> float:
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        _sync_device()
         times.append(time.perf_counter() - t0)
     return n_queries / statistics.median(times)
 
@@ -244,7 +264,7 @@ def phase_exact_tier() -> int:
     return launches
 
 
-def phase_graph_tier() -> None:
+def phase_graph_tier() -> dict:
     from hnsw_tpu_torch import ExactIndex, Graph, native
     from hnsw_tpu_torch.convert import graph_from_host_arrays
     rng = np.random.default_rng(1)
@@ -252,7 +272,7 @@ def phase_graph_tier() -> None:
     queries = rng.standard_normal((1024, DIM), dtype=np.float32)
     check(native.available(), "native builder available")
     g = Graph(m=16, ef_construction=100, metric="cosine", seed=0,
-              device="cuda")
+              device=DEVICE)
     t0 = time.perf_counter()
     g.build(list(range(N_GRAPH)), base, method="host")
     print(f"# graph tier: native build of {N_GRAPH} x {DIM} cosine "
@@ -260,7 +280,7 @@ def phase_graph_tier() -> None:
           flush=True)
     g.native_serve_max_batch = 0
 
-    oracle = ExactIndex(metric="cosine", device="cuda")
+    oracle = ExactIndex(metric="cosine", device=DEVICE)
     oracle.host_serve_max_batch = 0
     oracle.batch_add(list(range(N_GRAPH)), base)
     _, gt = oracle.batch_search_slots(queries, 10)
@@ -286,6 +306,277 @@ def phase_graph_tier() -> None:
         print(f"  graph tier ef={ef}: {qps:.1f} QPS (1024-query batch, "
               f"median of 3), recall@10 {_recall(ids, gt, 10):.4f} vs the "
               f"exact tier, hops per layer (top..0) {hops}", flush=True)
+        if ef == 64:
+            dense_ids = ids
+    del oracle
+    torch.cuda.empty_cache()
+    return {"g": g, "cpu": cpu, "base": base, "queries": queries, "gt": gt,
+            "dense_ids_ef64": dense_ids}
+
+
+def _np_scan_topk(queries, rows, sq, k: int, metric: str,
+                  chunk: int = 1 << 20):
+    """Exact top-k by a chunked numpy scan: (dists [Q, k], ids [Q, k])."""
+    from hnsw_tpu_torch.ops.distance import np_gram_epilogue
+    q = np.asarray(queries, np.float32)
+    q_sq = np.sum(q * q, axis=1)
+    best_d = np.empty((len(q), 0), np.float32)
+    best_i = np.empty((len(q), 0), np.int64)
+    for c0 in range(0, len(rows), chunk):
+        d = np_gram_epilogue(q @ rows[c0:c0 + chunk].T, q_sq[:, None],
+                             sq[None, c0:c0 + chunk], metric)
+        part = np.argpartition(d, k - 1, axis=1)[:, :k]
+        best_d = np.concatenate([best_d, np.take_along_axis(d, part, 1)], 1)
+        best_i = np.concatenate([best_i, part + c0], 1)
+    order = np.argsort(best_d, axis=1, kind="stable")[:, :k]
+    return (np.take_along_axis(best_d, order, 1),
+            np.take_along_axis(best_i, order, 1))
+
+
+def _recall_ties(found_d: np.ndarray, truth_d: np.ndarray,
+                 tol: float = 1e-5) -> float:
+    """recall@k that counts a returned neighbor as right when its exact
+    distance is within ``tol`` of the true k-th distance: on clustered
+    data f32 sums in another order can swap near ties at rank k."""
+    k = truth_d.shape[1]
+    return float(np.mean(found_d[:, :k] <= truth_d[:, -1:] + tol))
+
+
+def _fill(idx, n: int, make_rows, chunk: int = 1 << 20) -> None:
+    """Add rows 0..n-1 (keys = row numbers) in chunks from
+    make_rows(count), into a host store sized to n up front."""
+    from hnsw_tpu_torch.utils.keystore import HostVectorStore
+    idx.store = HostVectorStore(DIM, capacity=n)
+    for c0 in range(0, n, chunk):
+        c1 = min(n, c0 + chunk)
+        idx.batch_add(range(c0, c1), make_rows(c1 - c0))
+
+
+def _check_table(idx, rung: str, n: int) -> None:
+    from hnsw_tpu_torch.core.state import bucket_pow2
+    want = {"float32": torch.float32, "bf16": torch.bfloat16,
+            "fp16": torch.float16, "int8": torch.int8}[rung]
+    v, sq, alive, scales = idx._dev
+    check(idx._resolved_hbm == rung and v.device.type == DEVICE
+          and v.dtype == want and tuple(v.shape) == (bucket_pow2(n), DIM)
+          and (scales is not None) == (rung == "int8"),
+          f"{rung}: the table sits on {DEVICE} as {want} "
+          f"[{v.shape[0]}, {DIM}], {v.numel() * v.element_size() / 1e9:.2f} "
+          f"GB")
+
+
+def phase_capacity_ladder() -> int:
+    """BIGANN-10M's shape through the hbm_dtype ladder; returns the
+    kernel's launches (the float32 rung)."""
+    from hnsw_tpu_torch import ExactIndex
+    from hnsw_tpu_torch.ops import exact_screen
+    rng = np.random.default_rng(2)
+    idx = ExactIndex(metric="l2", device=DEVICE)
+    t0 = time.perf_counter()
+    _fill(idx, N_CAPACITY,
+          lambda m: rng.standard_normal((m, DIM), dtype=np.float32))
+    batches = [rng.standard_normal((BATCH, DIM), dtype=np.float32)
+               for _ in range(N_BATCHES)]
+    n_q = BATCH * N_BATCHES
+    print(f"# capacity ladder: {N_CAPACITY} x {DIM} l2, k=10, "
+          f"{N_BATCHES} batches of {BATCH}; add {time.perf_counter() - t0:.1f}"
+          f" s, host f32 store {idx.store.vectors.nbytes / 1e9:.2f} GB",
+          flush=True)
+
+    def serve():
+        return [idx.batch_search_slots(b, 10) for b in batches]
+
+    def timed(fn):
+        _sync_device()
+        t = time.perf_counter()
+        out = fn()
+        _sync_device()
+        return out, time.perf_counter() - t
+
+    exact_screen.launches = 0
+    t0 = time.perf_counter()
+    idx._sync()
+    t_sync = time.perf_counter() - t0
+    _check_table(idx, "float32", N_CAPACITY)
+    truth, wall = timed(serve)
+    truth = np.concatenate([i for _, i in truth])
+    launches = exact_screen.launches
+    check(launches == N_BATCHES, f"float32: {N_BATCHES} batches launched "
+          f"the kernel {launches} times")
+    d_np, i_np = _np_scan_topk(batches[0][:20],
+                               idx.store.vectors[:N_CAPACITY],
+                               idx.store.sq_norms[:N_CAPACITY], 10, "l2")
+    d_k, i_k = idx.batch_search_slots(batches[0], 10)
+    rec = _recall_ties(d_k[:20], d_np, 1e-4)
+    err = _matched_err(d_k[:20], i_k[:20], d_np, i_np)
+    check(rec == 1.0 and err <= 1e-4, f"float32 (kernel): recall@10 "
+          f"{rec:.4f} == 1 against a chunked numpy scan of 20 queries "
+          f"(ties within 1e-4), matched dists within 1e-4 ({err:.2e})")
+    print(f"  capacity float32 (kernel): {n_q / wall:.1f} QPS ({n_q} "
+          f"queries, one pass), upload {t_sync:.1f} s", flush=True)
+    launches = exact_screen.launches
+
+    for rung in ("int8", "bf16", "fp16"):
+        idx.hbm_dtype = rung
+        t0 = time.perf_counter()
+        idx._sync()
+        t_sync = time.perf_counter() - t0
+        _check_table(idx, rung, N_CAPACITY)
+        idx.batch_search_slots(batches[0], 10)             # warm-up
+        exact_screen.launches = 0
+        seq, t_seq = timed(serve)
+        streamed, t_stream = timed(
+            lambda: list(idx.batch_search_stream(iter(batches), 10)))
+        check(exact_screen.launches == 0,
+              f"{rung}: the capacity scan runs without the float32 kernel")
+        found = np.concatenate([i for _, i in seq])
+        check(found.shape == (n_q, 10) and np.isfinite(
+            np.concatenate([d for d, _ in seq])).all(),
+            f"{rung}: finite [{n_q}, 10] results")
+        rec = _recall(found, truth, 10)
+        check(rec >= 0.99, f"{rung}: recall@10 {rec:.4f} >= 0.99 against "
+              f"the float32 rung ({n_q} queries)")
+        same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                   for a, b in zip(seq, streamed))
+        check(same and len(streamed) == N_BATCHES,
+              f"{rung}: batch_search_stream equals batch_search_slots over "
+              f"{N_BATCHES} batches")
+        print(f"  capacity {rung}: {n_q / t_seq:.1f} QPS, recall@10 "
+              f"{rec:.4f} vs float32; {N_BATCHES} batches sequential "
+              f"{t_seq:.3f} s, stream {t_stream:.3f} s; upload "
+              f"{t_sync:.1f} s", flush=True)
+    idx.close()
+    del idx
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_auto_ladder() -> int:
+    """hbm_dtype="auto" on tight clusters (tests/test_fast_serving.py's
+    recipe, then five times tighter); returns the kernel's launches."""
+    from hnsw_tpu_torch import ExactIndex
+    from hnsw_tpu_torch.ops import exact_screen
+    launches = 0
+    for noise, want in ((0.3, None), (0.05, "float32")):
+        rng = np.random.default_rng(3)
+        centers = rng.standard_normal((40, DIM)).astype(np.float32) * 5
+
+        def rows(m):
+            return (centers[rng.integers(0, 40, m)] + noise * rng
+                    .standard_normal((m, DIM)).astype(np.float32))
+
+        idx = ExactIndex(hbm_dtype="auto", device=DEVICE)       # cosine
+        _fill(idx, N_CLUSTER, rows)
+        q = rows(BATCH)
+        exact_screen.launches = 0
+        t0 = time.perf_counter()
+        d, i = idx.batch_search_slots(q, 10)
+        _sync_device()
+        t_first = time.perf_counter() - t0
+        rung = idx._resolved_hbm
+        n_k = exact_screen.launches
+        qps = _qps(lambda: idx.batch_search_slots(q, 10), BATCH)
+        _check_table(idx, rung, N_CLUSTER)
+        d_np, _ = _np_scan_topk(q[:100], idx.store.vectors[:N_CLUSTER],
+                                idx.store.sq_norms[:N_CLUSTER], 10,
+                                "cosine")
+        rec = _recall_ties(d[:100], d_np)
+        # a reduced rung is admitted at a containment >= 0.99 measured on
+        # 32 probes; it serves 100 other queries at 0.98 or better
+        floor = 1.0 if rung == "float32" else 0.98
+        check(rec >= floor and np.isfinite(d).all(),
+              f"auto, clusters of width {noise} ({rung}): recall@10 "
+              f"{rec:.4f} >= {floor} against a numpy scan of 100 queries "
+              f"(ties within 1e-5)")
+        if want is not None:
+            check(rung == want, f"auto, clusters of width {noise}: "
+                  f"resolves to {rung} (expected {want})")
+        if rung == "float32":
+            check(n_k == 1, f"auto -> float32: one batch launched the "
+                  f"kernel {n_k} times")
+        else:
+            check(n_k == 0, f"auto -> {rung}: the kernel was not launched")
+        launches += exact_screen.launches
+        print(f"  auto, {N_CLUSTER} x {DIM} cosine in 40 clusters of width "
+              f"{noise}: resolves to {rung}; {qps:.1f} QPS (1024-query "
+              f"batch, median of 3); first batch with the fit checks and "
+              f"upload {t_first:.1f} s", flush=True)
+        idx.close()
+        del idx
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_graph_modes(st: dict) -> None:
+    """bench.py's serving configuration and the capacity modes on the
+    100k graph of phase_graph_tier (no second build)."""
+    g, cpu, base, queries, gt = (st[k] for k in
+                                 ("g", "cpu", "base", "queries", "gt"))
+
+    def serve(label, ef, setup):
+        for x in (g, cpu):
+            setup(x)
+        _, ids = g.batch_search_slots(queries, 10, ef=ef)
+        hops = list(g.last_search_hops)
+        check(ids.shape == (1024, 10) and (ids >= 0).all(),
+              f"{label} ef={ef}: [1024, 10] results, no misses")
+        _, ids_cpu = cpu.batch_search_slots(queries[:128], 10, ef=ef)
+        ov = _overlap(ids[:128], ids_cpu)
+        check(ov >= 0.99, f"{label} ef={ef}: card vs CPU id overlap "
+              f"{ov:.4f} >= 0.99 (128 queries)")
+        _, self_ids = g.batch_search_slots(base[:1024], 1, ef=ef)
+        hit = float(np.mean(self_ids[:, 0] == np.arange(1024)))
+        check(hit >= 0.99, f"{label} ef={ef}: self-retrieval {hit:.4f} "
+              f">= 0.99")
+        qps = _qps(lambda: g.batch_search_slots(queries, 10, ef=ef), 1024)
+        print(f"  {label} ef={ef}: {qps:.1f} QPS (1024-query batch, median "
+              f"of 3), recall@10 {_recall(ids, gt, 10):.4f} vs the exact "
+              f"tier, hops per layer (top..0) {hops}", flush=True)
+        return ids
+
+    def bench_config(x):
+        x.fast_math = True
+        x.block_layout = True
+        x.entry_mode = "pivots"
+
+    print("# graph tier serving modes (the 100k graph above)", flush=True)
+    for ef in (192, 384):
+        serve("fast_math + block_layout + pivots", ef, bench_config)
+    dev = g.device_graph()
+    blocks = dev.nbr_blocks
+    check(blocks is not None and blocks.device.type == DEVICE,
+          f"neighbor blocks on {DEVICE}")
+    print(f"  block_dtype resolves to {g._resolve_block_dtype(N_GRAPH)}; "
+          f"nbr_blocks {list(blocks.shape)} {blocks.dtype}, "
+          f"{blocks.numel() * blocks.element_size() / 1e9:.3f} GB",
+          flush=True)
+    for mode in ("float16", "quantized"):
+        def capacity(x, mode=mode):
+            x.block_layout = False
+            x.hbm_mode = mode
+        serve(f"hbm_mode={mode} + fast_math + pivots", 192, capacity)
+        dev = g.device_graph()
+        if mode == "float16":
+            check(dev.vectors.dtype == torch.float16 and dev.qvec is None,
+                  "hbm_mode=float16: an fp16 store on the card")
+        else:
+            check(tuple(dev.vectors.shape) == (1, DIM)
+                  and dev.qvec.dtype == torch.int8
+                  and dev.qvec.device.type == DEVICE,
+                  "hbm_mode=quantized: only the int8 store on the card")
+
+    def compact(x):
+        x.hbm_mode = "full"
+        x.fast_math = False
+        x.entry_mode = "descent"
+        x.split_layers = "compact"
+        x._dirty = True
+
+    ids = serve("split_layers=compact", 64, compact)
+    check(isinstance(g.device_graph().nbr_upper, tuple),
+          "compact upper layers on the card")
+    check(np.array_equal(ids, st["dense_ids_ef64"]),
+          "compact uppers: ids equal the dense layout's at ef=64")
 
 
 def main() -> int:
@@ -297,7 +588,10 @@ def main() -> int:
     phase_build()
     timing = phase_kernel_vs_plain()
     launches = phase_exact_tier()
-    phase_graph_tier()
+    graph = phase_graph_tier()
+    launches += phase_capacity_ladder()
+    launches += phase_auto_ladder()
+    phase_graph_modes(graph)
     print(smi)
     print(json.dumps({"kernels": [dict(KERNEL, launches=launches,
                                        **timing)]}))

@@ -2,12 +2,17 @@
 
 A port of ``hnsw_tpu`` (JAX, TPU) to PyTorch on NVIDIA GPUs, with the
 same module layout and public names. It imports neither JAX nor the JAX
-package. Ported so far: the serving path of both index types.
+package. Ported so far: the serving path of both index types, with their
+serving and capacity modes.
 
   Graph              HNSW index: native C++ host build, batched beam
-                     search on the device (core/search.py)
-  ExactIndex         brute-force k-NN; on CUDA at 32768+ rows it runs the
-                     hand-written screen kernel (csrc/exact_screen.cu)
+                     search on the device (core/search.py) in every
+                     serving layout (fp16/bf16/int8 stores, neighbor
+                     blocks, pivot entry, compact upper layers)
+  ExactIndex         brute-force k-NN; on CUDA at 32768+ rows the float32
+                     table runs the hand-written screen kernel
+                     (csrc/exact_screen.cu); int8/bf16/fp16 capacity
+                     tables scan with plain torch and rerank on the host
   register_distance  custom metrics
   GraphConfig, ...   the configuration dataclasses
 

@@ -1,15 +1,18 @@
 """Carry state from the JAX package into this one, through numpy.
 
-    fields = {k: np.asarray(v) for k, v in jax_dev._asdict().items()
-              if v is not None}
+    fields = {k: (tuple(np.asarray(t) for t in v) if isinstance(v, tuple)
+                  else np.asarray(v))
+              for k, v in jax_dev._asdict().items() if v is not None}
     dev = device_graph_from_numpy(fields, "cuda")
 
     g = graph_from_host_arrays(jg.cfg, jg.slots.slot_to_key,
                                jg.store.vectors[:n], jg.store.alive[:n],
                                *jg.host.arrays())
 
-Neither function imports the JAX package; both take plain numpy arrays
-(and, for the config, any object with GraphConfig's fields).
+(``nbr_upper`` of a compact-upper graph is a tuple of per-layer arrays of
+different shapes, so it is converted array by array.) Neither function
+imports the JAX package; both take plain numpy arrays (and, for the
+config, any object with GraphConfig's fields).
 """
 
 from __future__ import annotations
@@ -23,25 +26,42 @@ import torch
 from hnsw_tpu_torch.config import GraphConfig
 from hnsw_tpu_torch.core.state import DeviceGraph
 
-_FIELDS = ("vectors", "sq_norms", "neighbors", "levels", "alive", "entry")
+#: every DeviceGraph field and the dtype it is carried in (None: keep the
+#: array's own float type, float32 / float16 / bfloat16)
+_FIELDS = {"vectors": None, "sq_norms": np.float32,
+           "neighbors": np.int32, "levels": np.int32, "alive": bool,
+           "entry": np.int32, "qvec": np.int8, "qscale": np.float32,
+           "nbr_blocks": None, "block_scale": np.float32,
+           "nbr_upper": np.int32, "upper_map": np.int32}
 
 
-def device_graph_from_numpy(fields: Dict[str, np.ndarray],
-                            device) -> DeviceGraph:
+def _tensor(a, dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if dtype is None and a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 (what np.asarray gives for a JAX bf16 array):
+        # carried bit for bit
+        t = torch.from_numpy(np.array(a).view(np.int16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, dtype if dtype is not None
+                                     else a.dtype)).to(device)
+
+
+def device_graph_from_numpy(fields: Dict[str, Any], device) -> DeviceGraph:
     """The JAX ``DeviceGraph``'s fields (numpy arrays; None fields left
-    out) as this package's ``DeviceGraph`` on ``device``. Only the dense,
-    unquantized, unblocked layout exists here."""
+    out) as this package's ``DeviceGraph`` on ``device``, in any layout.
+    ``nbr_upper`` may be one array (dense split) or a sequence of arrays
+    (compact uppers)."""
     extra = sorted(set(fields) - set(_FIELDS))
     if extra:
-        raise NotImplementedError(
-            f"DeviceGraph fields {extra}: the int8 store, neighbor blocks "
-            "and split upper layers are ROADMAP Queue 1 item 5")
-    dtypes = {"vectors": np.float32, "sq_norms": np.float32,
-              "neighbors": np.int32, "levels": np.int32, "alive": bool,
-              "entry": np.int32}
-    return DeviceGraph(**{
-        k: torch.from_numpy(np.array(fields[k], dtypes[k])).to(device)
-        for k in _FIELDS})
+        raise ValueError(f"not DeviceGraph fields: {extra}")
+    out = {}
+    for name, a in fields.items():
+        dt = _FIELDS[name]
+        if name == "nbr_upper" and isinstance(a, (list, tuple)):
+            out[name] = tuple(_tensor(t, dt, device) for t in a)
+        else:
+            out[name] = _tensor(a, dt, device)
+    return DeviceGraph(**out)
 
 
 def graph_from_host_arrays(config, slot_to_key: Sequence[Any],

@@ -3,8 +3,11 @@
 B queries traverse the graph in lockstep. Each hop:
 
   1. select each query's best unexpanded pool entries      (stable sort)
-  2. gather their M neighbor ids + vectors                 (row gathers)
-  3. score all candidates at once                          (batched matmul)
+  2. gather their M neighbor ids + vectors   (row gathers, or one [M, D]
+                                              neighbor block per node)
+  3. score all candidates at once            (batched matmul; f32, fp16
+                                              or bf16 rows, int8 rows or
+                                              blocks with scales)
   4. merge into the per-query pool                         (bitonic / sort)
 
 The bounded result/candidate heap pair of the reference becomes a single
@@ -28,7 +31,9 @@ import torch
 from hnsw_tpu_torch.config import canonical_metric
 from hnsw_tpu_torch.core.state import DeviceGraph
 from hnsw_tpu_torch.ops.distance import (DEFAULT, HIGHEST, INF_DIST,
-                                         gathered_dist, pairwise_dist)
+                                         bf16_round, gathered_dist,
+                                         gathered_epilogue, pairwise_dist,
+                                         registered)
 from hnsw_tpu_torch.ops.topk import topk_smallest
 
 _INF = float(INF_DIST)
@@ -93,10 +98,58 @@ def _bitonic_merge(pool_d, pool_i, cand_d, cand_i, P: int):
 
 
 def _score_hop(g: DeviceGraph, queries, q_sq, nb_safe, metric, precision):
-    """Distances from each query to its gathered candidate slots."""
+    """Distances from each query to its gathered candidate slots.
+
+    Rows come from ``g.vectors`` when real vectors are on the device. The
+    int8 store scores hops only in the capacity mode (``g.vectors`` is
+    the [1, D] placeholder): bf16-rounded queries against the exactly
+    upcast int8 rows, summed in f32, with the per-row scale folded into
+    the Gram epilogue. An fp16 store is scored at HIGHEST whatever
+    ``precision`` says: its 11 significand bits are what route through
+    tight clusters. Custom registered metrics always consume raw
+    vectors.
+    """
     idx = nb_safe.long()
-    return gathered_dist(queries, g.vectors[idx], g.sq_norms[idx], q_sq,
+    if (g.qvec is not None and g.vectors.shape[0] <= 1
+            and registered(metric) is None):
+        qv = torch.einsum("bd,bcd->bc", bf16_round(queries),
+                          g.qvec[idx].to(torch.float32))
+        qv = qv * g.qscale[idx]
+        return gathered_epilogue(metric, qv, q_sq, g.sq_norms[idx])
+    cand_vecs = g.vectors[idx]
+    if cand_vecs.dtype == torch.float16:
+        precision = HIGHEST
+    return gathered_dist(queries, cand_vecs, g.sq_norms[idx], q_sq,
                          metric=metric, precision=precision)
+
+
+def _score_blocks(g: DeviceGraph, queries, q_sq, cur_safe, metric,
+                  store_normalized):
+    """Layer-0 block scoring: ONE [M, D] neighbor block per expanded
+    node (cur_safe [B, E]) -> distances [B, E*M].
+
+    int8 blocks: bf16-rounded queries against the upcast blocks, f32
+    sums, times the global block_scale; squared norms are bf16-rounded
+    sums of bf16-rounded squares, as the JAX package computes them.
+    fp16 blocks (tight-cluster data): f32 scoring at HIGHEST. A
+    pre-normalized cosine store (``store_normalized``) skips the norms.
+    """
+    B = queries.shape[0]
+    blk = g.nbr_blocks[cur_safe.long()]                 # [B, E, M, D]
+    blkf = blk.to(torch.float32)
+    C = blk.shape[1] * blk.shape[2]
+    int8 = blk.dtype == torch.int8
+    qv = torch.einsum("bd,bemd->bem",
+                      bf16_round(queries) if int8 else queries, blkf)
+    qv = qv.reshape(B, C) * g.block_scale if int8 else qv.reshape(B, C)
+    if store_normalized and metric == "cosine":
+        vsq = torch.ones_like(qv)
+    elif int8:
+        bsq = bf16_round(torch.sum(bf16_round(blkf * blkf), dim=-1))
+        vsq = bsq.reshape(B, C) * torch.square(g.block_scale)
+    else:
+        vsq = torch.sum(blkf * blkf, dim=-1).reshape(B, C)
+    return gathered_epilogue(metric, qv, q_sq, vsq)
 
 
 def _entry_dist(g: DeviceGraph, queries, q_sq, entry_ids, metric,
@@ -110,13 +163,17 @@ def beam_search_layer(g: DeviceGraph, layer: int, queries: torch.Tensor,
                       q_sq: torch.Tensor, start_ids: torch.Tensor,
                       start_d: torch.Tensor, pool_size: int, max_hops: int,
                       metric: str, precision: str, expand: int = 1,
-                      merge: str = "sort", stats: Optional[dict] = None
+                      merge: str = "sort", store_normalized: bool = False,
+                      stats: Optional[dict] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search one layer for a batch of queries.
 
     ``expand`` > 1 opens the top-E unexpanded pool entries per hop.
     ``stats`` (a dict), when given, gets this layer's hop count appended
-    to ``stats["hops"]``.
+    to ``stats["hops"]``. At layer 0 a graph with ``nbr_blocks`` scores
+    one neighbor block per expanded node (_score_blocks); blocks
+    narrower than M0 (block_m) expand only their first block_m edges.
+    ``store_normalized`` says the cosine store holds unit rows.
 
     Returns (pool_dists [B, P], pool_ids [B, P] int32) sorted ascending;
     empty slots are (INF_DIST, -1).
@@ -133,6 +190,10 @@ def beam_search_layer(g: DeviceGraph, layer: int, queries: torch.Tensor,
     E = max(1, min(expand, P))
     M = g.layer_width(layer)
     dev = queries.device
+    use_blocks = (layer == 0 and g.nbr_blocks is not None
+                  and registered(metric) is None)
+    if use_blocks:
+        M = min(M, g.nbr_blocks.shape[1])
 
     # Pool init: the start node(s) occupy the leading slots (reference
     # graph.go:122). start_ids/start_d may be [B] or [B, S].
@@ -176,8 +237,12 @@ def beam_search_layer(g: DeviceGraph, layer: int, queries: torch.Tensor,
         # of the best pool entries crowd out legitimate tail entries
         in_pool = (nbrs[:, :, None] == pool_i[:, None, :]).any(-1)
         nb_ok = nb_ok & ~in_pool
-        nb_safe = torch.clamp(torch.where(nb_ok, nbrs, 0), 0, cap - 1)
-        d = _score_hop(g, queries, q_sq, nb_safe, metric, precision)
+        if use_blocks:
+            d = _score_blocks(g, queries, q_sq, cur_safe, metric,
+                              store_normalized)
+        else:
+            nb_safe = torch.clamp(torch.where(nb_ok, nbrs, 0), 0, cap - 1)
+            d = _score_hop(g, queries, q_sq, nb_safe, metric, precision)
         d = torch.where(nb_ok, d, _INF)
         new_i = torch.where(nb_ok, nbrs, -1)
 
@@ -218,8 +283,10 @@ def beam_search_layer(g: DeviceGraph, layer: int, queries: torch.Tensor,
 def search_graph(g: DeviceGraph, queries: torch.Tensor, *, k: int, ef: int,
                  metric: str = "cosine", max_hops: int = 128,
                  fast_math: bool = False, expand: int = 1,
-                 ef_upper: int = 0, seed_ids: torch.Tensor | None = None,
-                 merge: str = "sort", stats: Optional[dict] = None
+                 ef_upper: int = 0, device_rerank: bool = True,
+                 seed_ids: torch.Tensor | None = None,
+                 merge: str = "sort", store_normalized: bool = False,
+                 stats: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full hierarchical search for a batch of queries.
 
@@ -228,10 +295,14 @@ def search_graph(g: DeviceGraph, queries: torch.Tensor, *, k: int, ef: int,
     (dists [B, k], slot ids [B, k] int32); -1 = no result.
 
     ``ef_upper`` is the upper-layer beam width (0 -> an 8-wide pool).
-    ``fast_math`` runs hop scoring on bf16-rounded operands; the head of
-    the final pool is then reranked in f32. ``seed_ids`` ([B, S] slot
-    ids, -1 padded) replaces the upper-layer descent with pre-selected
-    layer-0 entries. ``stats`` collects per-layer hop counts.
+    ``fast_math`` runs hop scoring on bf16-rounded operands. When the
+    traversal was approximate (``fast_math`` or an int8 store) and real
+    vectors are on the device, the head of the final pool is reranked in
+    f32; ``device_rerank=False`` skips that and returns the
+    traversal-ordered pool (the capacity modes rerank on the host).
+    ``seed_ids`` ([B, S] slot ids, -1 padded) replaces the upper-layer
+    descent with pre-selected layer-0 entries. ``store_normalized``: the
+    cosine store holds unit rows. ``stats`` collects per-layer hop counts.
     """
     metric = canonical_metric(metric)
     precision = DEFAULT if fast_math else HIGHEST
@@ -246,7 +317,8 @@ def search_graph(g: DeviceGraph, queries: torch.Tensor, *, k: int, ef: int,
         return beam_search_layer(
             g, layer, queries, q_sq, ids, dists, pool_size=pool,
             max_hops=max_hops, metric=metric, precision=precision,
-            expand=min(expand, pool), merge=merge, stats=stats)
+            expand=min(expand, pool), merge=merge,
+            store_normalized=store_normalized, stats=stats)
 
     if seed_ids is not None:
         safe = torch.clamp(seed_ids, 0, g.cap - 1)
@@ -266,10 +338,14 @@ def search_graph(g: DeviceGraph, queries: torch.Tensor, *, k: int, ef: int,
             entry_d = torch.where(keep, pd[:, 0], entry_d)
 
     pd, pi = layer_search(0, entry_ids, entry_d, P0)
-    if fast_math:
+    if (device_rerank and (fast_math or g.qvec is not None)
+            and g.vectors.shape[0] > 1):
         # f32 rerank of the head of the pool: traversal ordering ran on
-        # bf16 operands; reported distances and the final order are
-        # recomputed at HIGHEST over a small widened window
+        # bf16 operands and/or the int8 store; reported distances and the
+        # final order are recomputed at HIGHEST over a small widened
+        # window. The shape guard: in the int8 capacity mode g.vectors is
+        # a [1, D] placeholder, and reranking against it would score
+        # every candidate against row 0.
         R = min(P0, max(2 * k, 16))
         ri = pi[:, :R]
         safe = torch.clamp(ri, 0, g.cap - 1).long()

@@ -6,8 +6,12 @@ top-k (ops/topk.exact_topk), or, on a CUDA device at 32768+ rows, by the
 fused CUDA screen (ops/exact_screen.exact_topk_fused). This is also the
 recall ground-truth oracle.
 
-The device table is float32; the reduced-precision capacity modes
-(``hbm_dtype`` bf16/fp16/int8/auto) are ROADMAP Queue 1 item 4.
+The device table is float32 by default. The capacity modes keep a
+reduced-precision table instead (``hbm_dtype`` int8 with per-row scales,
+bf16, fp16, or "auto", which walks that ladder down to float32): a plain
+torch scan nominates k + margin candidates (ops/topk.
+quantized_topk_candidates) and one batched host fetch restores exact f32
+ordering (utils/rerank.host_rerank).
 """
 
 from __future__ import annotations
@@ -18,10 +22,25 @@ import numpy as np
 import torch
 
 from hnsw_tpu_torch.config import canonical_dtype, canonical_metric
-from hnsw_tpu_torch.core.state import bucket_pow2
-from hnsw_tpu_torch.ops.distance import INF_DIST, np_gram_epilogue
-from hnsw_tpu_torch.ops.topk import exact_topk
+from hnsw_tpu_torch.core.state import bucket_pow2, upload
+from hnsw_tpu_torch.ops.distance import (INF_DIST, np_bf16_round,
+                                         np_gram_epilogue)
+from hnsw_tpu_torch.ops.topk import exact_topk, quantized_topk_candidates
 from hnsw_tpu_torch.utils.keystore import HostVectorStore, SlotMap
+
+
+#: device table dtype of each capacity rung (int8 is built separately)
+_HBM_TORCH = {"float32": torch.float32, "bf16": torch.bfloat16,
+              "fp16": torch.float16}
+
+
+def _pad_queries(queries: np.ndarray) -> np.ndarray:
+    """Pad the batch to a power of two (at least 8) of zero rows."""
+    nq = queries.shape[0]
+    q_pad = bucket_pow2(nq)
+    if q_pad != nq:
+        queries = np.pad(queries, ((0, q_pad - nq), (0, 0)))
+    return queries
 
 
 def default_device() -> torch.device:
@@ -45,17 +64,19 @@ class ExactIndex:
         self.store = HostVectorStore(dim)
         self.device = torch.device(device) if device is not None \
             else default_device()
-        self._dev: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                  torch.Tensor]] = None
+        self._dev: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  Optional[torch.Tensor]]] = None
         self._dirty = True
-        hbm_dtype = canonical_dtype(
-            hbm_dtype, ("float32", "bf16", "fp16", "int8", "auto"),
-            "hbm_dtype")
-        if hbm_dtype != "float32":
-            raise NotImplementedError(
-                f"hbm_dtype={hbm_dtype!r}: the reduced-precision capacity "
-                "modes are ROADMAP Queue 1 item 4; only float32 is ported")
+        #: CAPACITY mode: the device table is stored reduced-precision —
+        #: "int8" (1 byte/dim, per-row scales; not for tightly clustered
+        #: data), "bf16" (2 bytes/dim) or "fp16" (2 bytes/dim with 11
+        #: significand bits, the tight-cluster rung). The scan nominates
+        #: k + margin candidates and one host fetch restores exact f32
+        #: ordering. "auto" walks int8 -> bf16 -> fp16 -> float32 with a
+        #: full-density containment check (_reduced_fit).
         self.hbm_dtype = hbm_dtype
+        self._hbm_fit_cache: Optional[Tuple[str, int]] = None
+        self._muts_since_fit = 0          # vectors changed since check
         #: bf16 scan with f32 rerank of the winners (exact final ordering
         #: up to pool membership). f32 stays the ground-truth default.
         self.fast_math = fast_math
@@ -69,10 +90,25 @@ class ExactIndex:
         # every mutation.
         self._host_scan = None
 
+    @property
+    def hbm_dtype(self) -> str:
+        """The capacity rung (see __init__). Setting it drops the device
+        table; the next search builds the new one."""
+        return self._hbm_dtype
+
+    @hbm_dtype.setter
+    def hbm_dtype(self, dtype: str) -> None:
+        self._hbm_dtype = canonical_dtype(
+            dtype, ("float32", "bf16", "fp16", "int8", "auto"), "hbm_dtype")
+        self._resolved_hbm = self._hbm_dtype
+        self._dev = None
+        self._dirty = True
+
     # -- mutation ----------------------------------------------------------
     def add(self, key: Hashable, vector) -> None:
         slot, _ = self.slots.assign(key)
         self.store.put(slot, np.asarray(vector, np.float32))
+        self._muts_since_fit += 1
         self._dirty = True
         self._host_scan = None
 
@@ -82,6 +118,7 @@ class ExactIndex:
             raise ValueError("keys/vectors length mismatch")
         slot_list = [self.slots.assign(k)[0] for k in keys]
         self.store.put_batch(np.asarray(slot_list, np.int64), vectors)
+        self._muts_since_fit += len(keys)
         self._dirty = True
         self._host_scan = None
 
@@ -133,8 +170,8 @@ class ExactIndex:
             qr = qr.astype(np.float16).astype(np.float32)
             prq = pr
         else:
-            qr = _np_bf16(qr)
-            prq = _np_bf16(pr)
+            qr = np_bf16_round(qr)
+            prq = np_bf16_round(pr)
         qv = prq @ qr.T
         sq = np.sum(rows.astype(np.float64) * rows, axis=1
                     ).astype(np.float32)
@@ -147,23 +184,66 @@ class ExactIndex:
         hits = sum(len(set(gt[r]) & set(qt[r])) for r in range(probes))
         return hits / (probes * k)
 
+    def _resolve_hbm_dtype(self, n: int) -> str:
+        """Resolve "auto" once per data regime (re-checked when the index
+        doubles or halves, or a quarter of it changed): full-density
+        ranking-fidelity checks int8 -> bf16 -> fp16 -> float32, the
+        first rung scoring >= 0.99 wins (fp16 costs the same memory as
+        bf16, so data that fails both 2-byte rungs pays f32 capacity)."""
+        if self.hbm_dtype != "auto":
+            return self.hbm_dtype
+        c = self._hbm_fit_cache
+        if (c is not None and c[1] <= 2 * n and n <= 2 * c[1]
+                and self._muts_since_fit <= 0.25 * c[1]):
+            return c[0]
+        rows = self.store.vectors[:n]
+        # 0.99 containment floor: the exact tier's contract is
+        # near-perfect recall; borderline data costs f32 capacity rather
+        # than recall
+        for dt in ("int8", "bf16", "fp16"):
+            if self._reduced_fit(rows, dt) >= 0.99:
+                break
+        else:
+            dt = "float32"
+        self._hbm_fit_cache = (dt, n)
+        self._muts_since_fit = 0
+        return dt
+
     def _sync(self):
-        """Device table (v [n_pad, D] f32, sq [n_pad], alive [n_pad]);
-        n_pad is n bucketed to a power of two, the tail masked invalid.
-        Plain host-to-device copies, rebuilt after any mutation."""
+        """Device table (v [n_pad, D], sq [n_pad] f32, alive [n_pad],
+        scales [n_pad] f32 or None); n_pad is n bucketed to a power of
+        two, the tail masked invalid. ``v`` is float32, or the resolved
+        capacity rung: int8 with per-row scales, bf16 or fp16, each
+        converted on the host per chunk (no full-size f32 copy is staged
+        on the device). Rebuilt after any mutation."""
         if self._dirty or self._dev is None:
+            self._dev = None                 # free the old table first
             n = self.slots.capacity_used
+            self._resolved_hbm = self._resolve_hbm_dtype(n)
             n_pad = bucket_pow2(n)
             dim = self.store.dim
             dev = self.device
-            v = torch.zeros((n_pad, dim), dtype=torch.float32, device=dev)
-            sq = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
-            alive = torch.zeros((n_pad,), dtype=torch.bool, device=dev)
-            if n:
-                v[:n].copy_(torch.from_numpy(self.store.vectors[:n]))
-                sq[:n].copy_(torch.from_numpy(self.store.sq_norms[:n]))
-                alive[:n].copy_(torch.from_numpy(self.store.alive[:n]))
-            self._dev = (v, sq, alive)
+            rows = self.store.vectors[:n]
+            sq = upload(self.store.sq_norms[:n], 0, (n_pad,), dev)
+            alive = upload(self.store.alive[:n], False, (n_pad,), dev)
+            scales = None
+            if self._resolved_hbm == "int8":
+                v = torch.zeros((n_pad, dim), dtype=torch.int8, device=dev)
+                scales = torch.zeros((n_pad,), dtype=torch.float32,
+                                     device=dev)
+                step = max(1, (64 << 20) // (4 * dim))
+                for c0 in range(0, n, step):  # bounded f32 quant temps
+                    r = rows[c0:c0 + step]
+                    amax = np.max(np.abs(r), axis=1)
+                    s = np.where(amax > 0, amax / 127.0, 1.0)
+                    v[c0:c0 + len(r)].copy_(torch.from_numpy(np.clip(
+                        np.rint(r / s[:, None]), -127, 127).astype(np.int8)))
+                    scales[c0:c0 + len(r)].copy_(
+                        torch.from_numpy(s.astype(np.float32)))
+            else:
+                v = upload(rows, 0, (n_pad, dim), dev,
+                           _HBM_TORCH[self._resolved_hbm])
+            self._dev = (v, sq, alive, scales)
             self._dirty = False
         return self._dev
 
@@ -182,11 +262,12 @@ class ExactIndex:
         if (0 < queries.shape[0] <= self.host_serve_max_batch
                 and n_used <= self.host_serve_max_rows):
             return self._host_search_slots(queries, k)
-        v, sq, alive = self._sync()
+        v, sq, alive, _ = self._sync()
         nq = queries.shape[0]
-        q_pad = bucket_pow2(nq)
-        if q_pad != nq:
-            queries = np.pad(queries, ((0, q_pad - nq), (0, 0)))
+        queries = _pad_queries(queries)
+        if self._resolved_hbm != "float32":
+            return self._finish_capacity_scan(
+                queries, nq, k, *self._dispatch_capacity_scan(queries, k))
         q = torch.from_numpy(queries).to(self.device)
         # the fused CUDA screen at large N (the [Q, N] scores never reach
         # device memory); the chunked matmul scan at small N / large k /
@@ -207,6 +288,81 @@ class ExactIndex:
                               fast_math=self.fast_math)
         return (d[:nq].cpu().numpy(),
                 i[:nq].cpu().numpy().astype(np.int64))
+
+    def _dispatch_capacity_scan(self, queries_padded: np.ndarray, k: int):
+        """Capacity-mode scan DISPATCH: the reduced-precision scan
+        nominates k + margin candidates (int8 needs the wider margin: a
+        per-row scale cannot rank close ties). On CUDA the scan is only
+        queued; its candidates are queued for a copy into pinned host
+        buffers right behind it, with an event recorded after that copy.
+        Returns (dists, ids, event or None) for _finish_capacity_scan.
+
+        The copy must be queued before the NEXT batch's scan: a plain
+        ``.cpu()`` issued later would wait behind that scan on the same
+        stream, and batch_search_stream would not overlap."""
+        v, sq, alive, scales = self._sync()
+        margin = max(16, k // 2) if self._resolved_hbm == "int8" \
+            else max(4, k // 8)
+        kk = min(k + margin, v.shape[0])
+        # the padded tail holds no valid row: scan the used prefix only
+        n = self.slots.capacity_used
+        dev = self.device
+        q = torch.from_numpy(queries_padded)
+        if dev.type == "cuda":
+            q = q.pin_memory().to(dev, non_blocking=True)
+        d, i = quantized_topk_candidates(
+            q, v[:n], None if scales is None else scales[:n], sq[:n],
+            alive[:n], kk=kk, metric=self.metric)
+        if dev.type != "cuda":
+            return d, i, None
+        hd = torch.empty(d.shape, dtype=d.dtype, pin_memory=True)
+        hi = torch.empty(i.shape, dtype=i.dtype, pin_memory=True)
+        hd.copy_(d, non_blocking=True)
+        hi.copy_(i, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(dev))
+        return hd, hi, ready
+
+    def _finish_capacity_scan(self, queries_padded, nq: int, k: int,
+                              d_cand, i_cand, ready):
+        """Capacity-mode scan FINISH: wait for the candidates and restore
+        exact f32 ordering with one batched host fetch. INF-dist rows are
+        masked fillers, dropped so the rerank cannot resurrect them."""
+        from hnsw_tpu_torch.utils.rerank import host_rerank
+        if ready is not None:
+            ready.synchronize()
+        cand = np.where(d_cand[:nq].numpy() >= INF_DIST, -1,
+                        i_cand[:nq].numpy().astype(np.int64))
+        return host_rerank(self.store, self.metric, queries_padded[:nq],
+                           cand, k)
+
+    def batch_search_stream(self, batches, k: int):
+        """Pipelined serving for a STREAM of query batches: batch i+1's
+        device scan is dispatched BEFORE batch i's host rerank runs, so
+        in the capacity modes the rerank overlaps the next scan. Yields
+        ``(dists [B, k], slots [B, k])`` per batch, in order, equal to
+        batch_search_slots of each batch. Modes without a host rerank
+        serve sequentially (there is nothing to overlap)."""
+        if k <= 0:
+            raise ValueError(f"k must be greater than 0, got {k}")
+        if len(self.slots) > 0:
+            self._sync()
+        if len(self.slots) == 0 or self._resolved_hbm == "float32":
+            for q in batches:
+                yield self.batch_search_slots(q, k)
+            return
+        pending = None      # (queries_padded, nq, k, dists, ids, event)
+        for q in batches:
+            q = np.atleast_2d(np.asarray(q, np.float32))
+            self.store.ensure_dim(q.shape[-1])
+            nq = q.shape[0]
+            q = _pad_queries(q)
+            scan = self._dispatch_capacity_scan(q, k)
+            if pending is not None:
+                yield self._finish_capacity_scan(*pending)
+            pending = (q, nq, k) + tuple(scan)
+        if pending is not None:
+            yield self._finish_capacity_scan(*pending)
 
     def _host_scan_arrays(self):
         """Sidecar for the native SIMD scan (native.exact_scan): the
@@ -327,8 +483,3 @@ class ExactIndex:
     def keys(self) -> List[Any]:
         return list(self.slots.key_to_slot.keys())
 
-
-def _np_bf16(x: np.ndarray) -> np.ndarray:
-    """Round f32 values to bf16 (nearest even), returned as f32."""
-    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-        torch.bfloat16).to(torch.float32).numpy()

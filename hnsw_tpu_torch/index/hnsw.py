@@ -1,18 +1,22 @@
 """Keyed HNSW graph (port of hnsw_tpu/index/hnsw.py).
 
-Public API mirrors the reference ``Graph[K]`` (graph.go:437,534,843,942,
-1047): add / batch_add / build / search / batch_search / delete.
+Public API mirrors the reference ``Graph[K]``
+(graph.go:437,534,631,843,869,898,942,1047,1116,1382): add / batch_add /
+build / search / batch_search / delete / batch_delete / lookup /
+parallel_search / validate, plus negative-example variants.
 
 Split of responsibilities:
   host   — key<->slot mapping, sequential mutation semantics and bulk
-           construction (core/host_build.HostGraph, native C++ builder)
+           construction (core/host_build.HostGraph, native C++ builder),
+           negative-example re-scoring, the capacity modes' f32 rerank
   device — batched query traffic (core/search.search_graph) on padded
-           tensors; small batches go to the native host engine
+           tensors in the serving layout the modes pick (f32/fp16/bf16
+           store, int8 traversal store, neighbor blocks, compact upper
+           layers); small batches go to the native host engine
 
-Ported so far: the default configuration (f32 store, descent entry,
-dense adjacency). The device wave builder (``method="device"``) is
-ROADMAP Queue 1 item 8; the capacity modes (``hbm_mode``), neighbor
-blocks, pivot entry and split upper layers are Queue 1 items 5 and 7.
+The device wave builder (``method="device"``, ``refine``,
+``batch_delete(refine=True)``, build checkpoints and ``abort_deadline``)
+is ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -23,12 +27,15 @@ from typing import Any, Hashable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from hnsw_tpu_torch.config import GraphConfig, canonical_metric
+from hnsw_tpu_torch.config import GraphConfig, canonical_dtype, \
+    canonical_metric
 from hnsw_tpu_torch.core import host_build
-from hnsw_tpu_torch.core.search import search_graph
-from hnsw_tpu_torch.core.state import DeviceGraph, bucket_pow2, from_host
+from hnsw_tpu_torch.core.search import pivot_seeds, search_graph
+from hnsw_tpu_torch.core.state import (DeviceGraph, _int8_block_fit,
+                                       bucket_pow2, from_host)
 from hnsw_tpu_torch.index.exact import default_device
-from hnsw_tpu_torch.ops.distance import INF_DIST
+from hnsw_tpu_torch.ops.distance import (INF_DIST, np_gram_epilogue,
+                                         np_pairwise_dist, registered)
 from hnsw_tpu_torch.utils.keystore import HostVectorStore, SlotMap
 from hnsw_tpu_torch.utils.rwlock import RWLock
 
@@ -45,13 +52,20 @@ def _writes(fn):
 
 def _reads(fn):
     """Query/read path: shared hold (graph.go:328's ``g.mu.RLock()``).
-    The lazily built device graph is written under the read hold:
-    assignment is GIL-atomic and rebuilding twice is idempotent."""
+    Lazily built serving caches (device graph, pivots) are written under
+    the read hold: assignment is GIL-atomic and rebuilding twice is
+    idempotent."""
     @functools.wraps(fn)
     def wrapper(self, *a, **kw):
         with self._rw.read():
             return fn(self, *a, **kw)
     return wrapper
+
+
+def _item8(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: the device wave builder is ROADMAP Queue 1 item 8, "
+        "not ported yet")
 
 
 class Graph:
@@ -66,35 +80,52 @@ class Graph:
                                          metric=metric, seed=seed,
                                          ef_construction=ef_construction)
         self.cfg.validate()
-        if self.cfg.store_dtype != "float32":
-            raise NotImplementedError(
-                f"store_dtype={self.cfg.store_dtype!r}: reduced-precision "
-                "graph stores are ROADMAP Queue 1 item 5")
         self.metric = canonical_metric(self.cfg.metric)
         self.device = torch.device(device) if device is not None \
             else default_device()
         self.slots = SlotMap()
+        #: vector storage — RAM by default; the capacity modes rerank
+        #: against it on the host
         self.store = store if store is not None else HostVectorStore()
         self.host = host_build.HostGraph(self.cfg, self.store)
         self._dev: Optional[DeviceGraph] = None
         self._dirty = True
         #: bf16 traversal matmuls + f32 rerank of the pool head
         self.fast_math = False
+        self._hbm_mode = "full"
+        self._entry_mode = "descent"
+        self._block_layout = False
+        self._block_m: Optional[int] = None
+        self._block_dtype = "auto"
+        self._block_fit_cache = None      # (resolved_dtype, n_at_check)
+        self._mut_since_fit = 0           # vectors changed since check
+        self._pivot_cache = None
+        self._pivot_host_cache = None
+        #: seeds per query when entry_mode == "pivots"
+        self.seed_width = 16
+        #: pivot-count cap (subset scanned by the entry matmul)
+        self.max_pivots = 4096
         #: per-hop pool update: "bitonic" (sorted-pool merge network) or
         #: "sort" (full stable sort)
         self.merge_strategy = "bitonic"
+        #: split device neighbor storage: "auto" keeps the dense
+        #: [L, cap, M0] stack up to 1 GB and switches to compact upper
+        #: layers above; True (dense split) / "compact" / False force it
+        self.split_layers: "bool | str" = "auto"
         #: LATENCY tier: batches up to this size are served by the native
         #: C++ engine on the host graph arrays, with no device round trip.
         #: 0 disables the native tier.
         self.native_serve_max_batch = 32
         #: hop counts of the last device search, one per layer, top first
         self.last_search_hops: List[int] = []
+        self._ef_calib: dict = {}     # (k, target) -> {ef, recall, n}
         self._ef_default: Optional[int] = None
         self._rw = RWLock()
 
     @property
     def ef_search(self) -> int:
-        """Default search ef (``cfg.ef_search`` unless overridden)."""
+        """Default search ef — ``cfg.ef_search`` unless ``calibrate_ef``
+        (or the setter) installed an override."""
         return self._ef_default if self._ef_default is not None \
             else self.cfg.ef_search
 
@@ -102,42 +133,137 @@ class Graph:
     def ef_search(self, ef: int) -> None:
         self._ef_default = int(ef)
 
-    # Serving modes of the JAX Graph that are not ported yet: each takes
-    # only its default value here.
-    @property
-    def hbm_mode(self) -> str:
-        return "full"
-
-    @hbm_mode.setter
-    def hbm_mode(self, mode: str) -> None:
-        if mode != "full":
-            raise NotImplementedError(
-                f"hbm_mode={mode!r}: the graph capacity modes are ROADMAP "
-                "Queue 1 item 7")
-
-    @property
-    def entry_mode(self) -> str:
-        return "descent"
-
-    @entry_mode.setter
-    def entry_mode(self, mode: str) -> None:
-        if mode != "descent":
-            raise NotImplementedError(
-                f"entry_mode={mode!r}: pivot-seeded entry is ROADMAP "
-                "Queue 1 item 7")
-
+    # -- serving modes ------------------------------------------------------
     @property
     def block_layout(self) -> bool:
-        return False
+        """Materialize layer-0 neighbor-vector blocks on the device: each
+        hop gathers ONE contiguous [M0, D] block per expanded node instead
+        of M0 scattered rows, at M0*D bytes per node (int8) of device
+        memory."""
+        return self._block_layout
 
     @block_layout.setter
     def block_layout(self, on: bool) -> None:
-        if on:
-            raise NotImplementedError(
-                "neighbor-vector blocks are ROADMAP Queue 1 item 5")
+        if on and registered(self.metric) is not None:
+            raise ValueError("block_layout unsupported for custom metrics")
+        if bool(on) != self._block_layout:
+            self._block_layout = bool(on)
+            self._dirty = True
+
+    @property
+    def block_m(self) -> Optional[int]:
+        """Narrow the serving neighbor blocks to the first block_m edges
+        per row (device-memory knob; None = full rows)."""
+        return self._block_m
+
+    @block_m.setter
+    def block_m(self, m: Optional[int]) -> None:
+        m = None if m is None else int(m)
+        if m != self._block_m:
+            self._block_m = m
+            self._dirty = True
+
+    @property
+    def block_dtype(self) -> str:
+        """Neighbor-block element type: "int8" (1 byte, global scale),
+        "float16" (2 bytes — needed on tightly clustered data, where
+        within-cluster separations drown in int8 noise), or "auto"
+        (check int8's ranking fidelity and pick; default)."""
+        return self._block_dtype
+
+    @block_dtype.setter
+    def block_dtype(self, dt: str) -> None:
+        dt = canonical_dtype(dt, ("auto", "int8", "float16"),
+                             "block_dtype")
+        if dt != self._block_dtype:
+            self._block_dtype = dt
+            self._block_fit_cache = None
+            self._dirty = True
+
+    def _resolve_block_dtype(self, n: int) -> str:
+        """Resolve "auto" once per data regime (re-checked when the index
+        doubles or halves, or a quarter of it changed)."""
+        if self._block_dtype != "auto" or not self._block_layout:
+            return self._block_dtype
+        c = self._block_fit_cache
+        if (c is not None and c[1] <= 2 * n and n <= 2 * c[1]
+                and self._mut_since_fit <= 0.25 * c[1]):
+            return c[0]
+        used = self.slots.capacity_used
+        fit = (_int8_block_fit(self.store.vectors[:used],
+                               metric=self.metric) if used else 1.0)
+        dt = "int8" if fit >= 0.9 else "float16"
+        self._block_fit_cache = (dt, max(n, 1))
+        self._mut_since_fit = 0
+        return dt
+
+    @property
+    def entry_mode(self) -> str:
+        """How searches enter layer 0: "descent" (the classic upper-layer
+        elevator, default) or "pivots" (one matmul over a ~N/4 pivot
+        subset, at most ``max_pivots``, picks ``seed_width`` entry
+        candidates per query and skips the upper layers)."""
+        return self._entry_mode
+
+    @entry_mode.setter
+    def entry_mode(self, mode: str) -> None:
+        if mode not in ("descent", "pivots"):
+            raise ValueError(f"bad entry_mode {mode!r}")
+        self._entry_mode = mode
+
+    def _pivot_arrays(self):
+        """(slot ids int32, f32 vectors, squared norms) of the pivots on
+        the device; cleared whenever the device graph is rebuilt."""
+        if self._pivot_cache is None:
+            used = self.slots.capacity_used
+            alive = np.flatnonzero(self.store.alive[:used])
+            n_piv = int(min(self.max_pivots, max(1, len(alive) // 4)))
+            stride = max(1, len(alive) // n_piv)
+            sel = alive[::stride][:n_piv]
+            dev = self.device
+            self._pivot_cache = (
+                torch.from_numpy(sel.astype(np.int32)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(
+                    self.store.vectors[sel], np.float32)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(
+                    self.store.sq_norms[sel])).to(dev))
+        return self._pivot_cache
+
+    @property
+    def hbm_mode(self) -> str:
+        """Device residency of the vector store.
+
+        "full"      — f32 vectors on the device (default).
+        "float16"   — fp16 traversal store + exact f32 host rerank of the
+          pool head: half the memory and half the row-gather bytes, with
+          enough mantissa to route through tightly clustered data.
+        "quantized" — the device holds ONLY the int8 traversal store (and
+          the graph); raw vectors stay in ``self.store`` and the pool head
+          is reranked on the host.
+        """
+        return self._hbm_mode
+
+    @hbm_mode.setter
+    def hbm_mode(self, mode: str) -> None:
+        mode = canonical_dtype(mode, ("full", "float16", "quantized"),
+                               "hbm_mode")
+        if mode != "full" and registered(self.metric) is not None:
+            raise ValueError(
+                f"hbm_mode={mode!r} unsupported for custom metrics "
+                "(the host rerank scores built-in metrics only)")
+        if mode != self._hbm_mode:
+            self._hbm_mode = mode
+            self._dirty = True
+
+    # -- invariants (graph.go:916-937) ----------------------------------------
+    def validate(self) -> None:
+        self.cfg.validate()
 
     def __len__(self) -> int:
         return len(self.slots)
+
+    def dims(self) -> int:
+        return self.store.dim or 0
 
     # -- mutation ---------------------------------------------------------
     @_writes
@@ -150,6 +276,7 @@ class Graph:
         slot, _ = self.slots.assign(key)
         self.store.put(slot, vec)
         self.host.insert_many([slot])
+        self._mut_since_fit += 1
         self._dirty = True
 
     @_writes
@@ -170,17 +297,21 @@ class Graph:
         slot_list = [self.slots.assign(k)[0] for k in keys]
         self.store.put_batch(np.asarray(slot_list, np.int64), vectors)
         self.host.insert_many(slot_list)
+        self._mut_since_fit += len(slot_list)
         self._dirty = True
 
     @_writes
     def build(self, keys: Sequence[Hashable], vectors,
-              method: str = "auto") -> None:
+              method: str = "auto",
+              checkpoint_path: Optional[str] = None,
+              abort_deadline: Optional[float] = None) -> None:
         """Bulk construction. Existing keys are replaced; duplicate keys
         within the batch are an error.
 
         method: "host" (native C++ sequential builder), "auto" (host up
-        to 1M vectors), or "device" (the wave builder, ROADMAP Queue 1
-        item 8 — not ported yet).
+        to 1M vectors), or "device" (the wave builder). The wave builder,
+        build checkpoints (``checkpoint_path``) and ``abort_deadline``
+        are ROADMAP Queue 1 item 8 and raise NotImplementedError.
         """
         if method not in ("auto", "host", "device"):
             raise ValueError(
@@ -191,20 +322,29 @@ class Graph:
         key_set = set(keys)
         if len(key_set) != len(keys):
             raise ValueError("duplicate keys in build batch")
+        if checkpoint_path is not None:
+            raise _item8("build checkpoints (checkpoint_path)")
+        if abort_deadline is not None:
+            raise _item8("abort_deadline")
         if method == "auto":
             from hnsw_tpu_torch import native
             method = ("host" if native.available()
                       and len(keys) <= 1_000_000 else "device")
         if method == "device":
-            raise NotImplementedError(
-                "device graph construction is ROADMAP Queue 1 item 8; "
-                "use method='host'")
+            raise _item8("method='device' (use method='host')")
         for k in (self.slots.key_to_slot.keys() & key_set):
             self.delete(k)
         slot_list = self.slots.assign_fresh_batch(list(keys))
         self.store.put_batch(slot_list, vectors)
         self.host.insert_many(list(slot_list))
+        self._block_fit_cache = None   # bulk data change: re-check fit
+        self._mut_since_fit = 0
         self._dirty = True
+
+    def refine(self, wave: int = 2048, slots=None,
+               local: bool = False) -> None:
+        """Second-pass edge refinement of the device wave builder."""
+        raise _item8("refine")
 
     @_writes
     def delete(self, key: Hashable) -> bool:
@@ -216,17 +356,57 @@ class Graph:
         self.host.delete_many([slot])
         self.store.kill(slot)
         self.slots.release(key)
+        self._mut_since_fit += 1
         self._dirty = True
         return True
+
+    @_writes
+    def batch_delete(self, keys: Sequence[Hashable],
+                     refine: bool = False) -> List[bool]:
+        """graph.go:869 BatchDelete: per-key success flags; one in-edge
+        sweep + repair pass for the whole batch. ``refine=True`` (the
+        device re-descent of touched neighborhoods) is ROADMAP Queue 1
+        item 8."""
+        if refine:
+            raise _item8("batch_delete(refine=True)")
+        oks, slots = [], []
+        for k in keys:
+            s = self.slots.slot_of(k)
+            if s is None:
+                oks.append(False)
+                continue
+            oks.append(True)
+            slots.append(s)
+            self.store.kill(s)
+            self.slots.release(k)
+        if slots:
+            self.host.delete_many(slots)
+            self._mut_since_fit += len(slots)
+            self._dirty = True
+        return oks
+
+    @_reads
+    def lookup(self, key: Hashable) -> Optional[np.ndarray]:
+        """O(1) vector fetch (graph.go:898 Lookup)."""
+        s = self.slots.slot_of(key)
+        return None if s is None else np.array(self.store.get(s))
 
     # -- device sync ------------------------------------------------------
     @_reads
     def device_graph(self) -> DeviceGraph:
         if self._dirty or self._dev is None:
+            self._pivot_cache = None
+            # free the old layout before building the new one; the new one
+            # is returned from the local, so a concurrent reader never
+            # sees the None
+            self._dev = None
             n = self.slots.capacity_used
             cap = bucket_pow2(max(n, 1), 8)
             nb, levels, entry, _ = self.host.arrays()
             use = min(nb.shape[1], cap)
+            sd = self.cfg.store_dtype
+            if self._hbm_mode == "float16":
+                sd = "float16"
             vecs = (self.store.vectors[:use]
                     if self.store.vectors is not None
                     else np.zeros((0, 1), np.float32))
@@ -238,16 +418,28 @@ class Graph:
                 # and hops skip the per-candidate norm gather entirely
                 vecs = vecs / np.sqrt(np.maximum(sqs, 1e-30))[:, None]
                 sqs = np.ones_like(sqs)
-            # always the dense [L, cap, M0] adjacency: the JAX package
-            # switches to compact upper layers above 1 GB to fit a 16 GB
-            # chip; the results are the same, and the compact layout is
-            # ROADMAP Queue 1 item 5
-            self._dev = from_host(
+            split = self.split_layers
+            if split == "auto":
+                # compact upper layers once the dense stack passes 1 GB
+                dense_bytes = nb.shape[0] * cap * nb.shape[2] * 4
+                split = "compact" if dense_bytes > (1 << 30) else False
+            dev = from_host(
                 vecs, sqs, nb[:, :use], levels[:use],
                 (self.store.alive[:use] if self.store.alive is not None
                  else np.zeros((0,), bool)),
-                entry, cap_pad=cap, device=self.device)
+                entry, cap_pad=cap, store_dtype=sd,
+                quantize=self._hbm_mode == "quantized",
+                hbm_vectors=self._hbm_mode != "quantized",
+                block_layout=self._block_layout,
+                block_m=self.block_m,
+                block_dtype=self._resolve_block_dtype(n),
+                metric=self.metric,
+                split_layers=split,
+                upper_m=self.cfg.m,
+                device=self.device)
+            self._dev = dev
             self._dirty = False
+            return dev
         return self._dev
 
     # -- search -----------------------------------------------------------
@@ -273,26 +465,63 @@ class Graph:
         q_pad = bucket_pow2(nq)
         if q_pad != nq:
             queries = np.pad(queries, ((0, q_pad - nq), (0, 0)))
+        q = torch.from_numpy(queries).to(self.device)
         pool = max(ef, k)
         expand = self.cfg.search_expand
         hops = max(self.cfg.max_hops, -(-2 * pool // expand))
+        seed_ids = None
+        if self._entry_mode == "pivots":
+            pids, pvecs, psq = self._pivot_arrays()
+            seed_ids = pivot_seeds(q, pvecs, psq, pids,
+                                   s=min(self.seed_width, pool),
+                                   metric=self.metric,
+                                   fast_math=self.fast_math)
         stats: dict = {}
-        d, i = search_graph(g, torch.from_numpy(queries).to(self.device),
-                            k=k, ef=ef, metric=self.metric, max_hops=hops,
-                            expand=expand, fast_math=self.fast_math,
-                            merge=self.merge_strategy, stats=stats)
+        kw = dict(ef=ef, metric=self.metric, max_hops=hops, expand=expand,
+                  fast_math=self.fast_math, seed_ids=seed_ids,
+                  merge=self.merge_strategy,
+                  store_normalized=self.metric == "cosine", stats=stats)
+        if self._hbm_mode in ("quantized", "float16"):
+            # traversal-ordered pool head off the device; exact f32 rerank
+            # on the host against the store
+            R = min(max(2 * k, 32), max(pool, k))
+            _, i = search_graph(g, q, k=R, device_rerank=False, **kw)
+            self.last_search_hops = stats["hops"]
+            return self._host_rerank(queries[:nq], i[:nq].cpu().numpy(), k)
+        d, i = search_graph(g, q, k=k, **kw)
         self.last_search_hops = stats["hops"]
         return (d[:nq].cpu().numpy(),
                 i[:nq].cpu().numpy().astype(np.int64))
 
+    def _pivot_slots_host(self) -> np.ndarray:
+        """Host-side pivot subset for the native engine's seeded entry:
+        ~4*sqrt(N) stride-sampled live slots, cached on a (capacity,
+        mutations) stamp."""
+        stamp = (self.slots.capacity_used, self._mut_since_fit)
+        c = self._pivot_host_cache
+        if c is not None and c[0] == stamp:
+            return c[1]
+        used = stamp[0]
+        alive = np.flatnonzero(self.store.alive[:used])
+        n_piv = int(min(1024, max(16, 4.0 * np.sqrt(max(len(alive), 1)))))
+        stride = max(1, len(alive) // n_piv)
+        sel = np.ascontiguousarray(alive[::stride][:n_piv], np.int64)
+        self._pivot_host_cache = (stamp, sel)
+        return sel
+
     def _native_search(self, queries: np.ndarray, k: int, ef: int
                        ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         """Serve a small batch from the native C++ engine over the host
-        graph arrays (same HNSW semantics as the device path). Returns
-        None when the library or metric is unsupported — callers fall
-        through to the device path."""
+        graph arrays (same HNSW semantics as the device path);
+        entry_mode="pivots" carries over as a SIMD pivot scan seeding the
+        layer-0 beam. Returns None when the library or metric is
+        unsupported — callers fall through to the device path."""
         from hnsw_tpu_torch import native
-        res = native.search_batch(self.host, queries, k, ef)
+        pivots = None
+        if self._entry_mode == "pivots":
+            pivots = self._pivot_slots_host()
+        res = native.search_batch(self.host, queries, k, ef, pivots=pivots,
+                                  n_seed=min(self.seed_width, 8))
         if res is None:
             return None
         d, i = res
@@ -315,6 +544,124 @@ class Graph:
         keys = [self.slots.keys_for(row) for row in i]
         return keys, d
 
+    # -- ef calibration ---------------------------------------------------
+    def _host_oracle_slots(self, queries: np.ndarray, k: int,
+                           chunk: int = 1 << 20) -> np.ndarray:
+        """Exact top-k SLOT ids for ``queries`` via a chunked host BLAS
+        scan of the live store — the calibration ground truth, valid in
+        every mode."""
+        cap = self.slots.capacity_used
+        live = np.flatnonzero(self.store.alive[:cap])
+        qf = np.atleast_2d(np.asarray(queries, np.float32))
+        q_sq = np.sum(qf * qf, axis=-1)
+        best_d = [np.empty((qf.shape[0], 0), np.float32)]
+        best_i = [np.empty((qf.shape[0], 0), np.int64)]
+        for lo in range(0, len(live), chunk):
+            sl = live[lo:lo + chunk]
+            rows = self.store.get_batch(sl).astype(np.float32)
+            qv = qf @ rows.T
+            c_sq = self.store.sq_norms[sl]
+            d = np_gram_epilogue(qv, q_sq[:, None], c_sq[None, :],
+                                 self.metric)
+            kk = min(k, d.shape[1])
+            part = np.argpartition(d, kk - 1, axis=1)[:, :kk]
+            best_d.append(np.take_along_axis(d, part, axis=1))
+            best_i.append(sl[part])
+        d_all = np.concatenate(best_d, axis=1)
+        i_all = np.concatenate(best_i, axis=1)
+        kk = min(k, d_all.shape[1])
+        part = np.argpartition(d_all, kk - 1, axis=1)[:, :kk]
+        return np.take_along_axis(i_all, part, axis=1)
+
+    @_reads
+    def calibrate_ef(self, target_recall: float, k: int = 10,
+                     sample: int = 64, seed: int = 0,
+                     ladder: Sequence[int] = (20, 40, 64, 96, 128, 192,
+                                              256, 384, 512, 768, 1024),
+                     probe_queries=None) -> Tuple[int, float]:
+        """Self-tuning ef: install the smallest ``ef`` of ``ladder`` whose
+        measured recall@k against the exact host oracle meets
+        ``target_recall`` as the default ``ef_search``, and return
+        ``(ef, measured_recall)``. If no rung meets the target, the
+        best-measured one is installed.
+
+        Probes are ``probe_queries`` (a sample of the real workload, when
+        there is one) or off-node 0.85/0.15 mixes of two live members.
+        Results are cached per (k, target) and reused while the graph
+        stays within 25% of the size they were measured at (not when
+        ``probe_queries`` is given).
+        """
+        if not ladder:
+            raise ValueError("ladder must be non-empty")
+        key = (int(k), round(float(target_recall), 3))
+        n_now = len(self)
+        cached = self._ef_calib.get(key)
+        if probe_queries is None and cached is not None \
+                and cached["n"] > 0 \
+                and abs(n_now - cached["n"]) <= 0.25 * cached["n"]:
+            self.ef_search = cached["ef"]
+            return cached["ef"], cached["recall"]
+        cap = self.slots.capacity_used
+        live = np.flatnonzero(self.store.alive[:cap])
+        if len(live) == 0:
+            return self.ef_search, 1.0
+        rng = np.random.default_rng(seed)
+        if probe_queries is not None:
+            queries = np.atleast_2d(
+                np.asarray(probe_queries, np.float32))[:sample]
+        else:
+            probe = rng.choice(live, size=min(sample, len(live)),
+                               replace=False)
+            mix = rng.choice(live, size=len(probe))
+            bad = mix == probe
+            if bad.any() and len(live) > 1:
+                pos = {int(v): i for i, v in enumerate(live)}
+                mix[bad] = live[(np.array([pos[int(v)]
+                                           for v in probe[bad]]) + 1)
+                                % len(live)]
+            queries = (0.85 * self.store.get_batch(probe)
+                       .astype(np.float32)
+                       + 0.15 * self.store.get_batch(mix)
+                       .astype(np.float32))
+        gt = self._host_oracle_slots(queries, k)
+        gts = [set(map(int, row)) for row in gt]
+        total = sum(len(s) for s in gts) or 1
+        best_ef, best_rec = None, -1.0
+        for ef in sorted({max(int(e), k) for e in ladder}):
+            _, ii = self.batch_search_slots(queries, k, ef=ef)
+            hits = sum(len({int(s) for s in row if s >= 0} & gts[qi])
+                       for qi, row in enumerate(ii))
+            rec = hits / total
+            if rec > best_rec:
+                best_ef, best_rec = ef, rec
+            if rec >= target_recall:
+                best_ef, best_rec = ef, rec
+                break
+        self._ef_calib[key] = {"ef": best_ef, "recall": best_rec,
+                               "n": n_now}
+        self.ef_search = best_ef
+        return best_ef, best_rec
+
+    def calibration_state(self) -> dict:
+        """JSON-able snapshot of calibrate_ef's results and the installed
+        default, so a reopened index need not re-pay the oracle scan.
+        Entries carry the index size they were measured at."""
+        return {
+            "ef_calib": [[kk, tt, c["ef"], c["recall"], c["n"]]
+                         for (kk, tt), c in self._ef_calib.items()],
+            "ef_default": self._ef_default,
+        }
+
+    def restore_calibration(self, state: Optional[dict]) -> None:
+        """Inverse of calibration_state (no-op on None/empty)."""
+        if not state:
+            return
+        for kk, tt, ef, rec, n in state.get("ef_calib", []):
+            self._ef_calib[(int(kk), round(float(tt), 3))] = {
+                "ef": int(ef), "recall": float(rec), "n": int(n)}
+        if state.get("ef_default") is not None:
+            self._ef_default = int(state["ef_default"])
+
     @_reads
     def search(self, query, k: int, ef: Optional[int] = None
                ) -> List[Tuple[Any, float]]:
@@ -323,6 +670,101 @@ class Graph:
                                        k, ef)
         return [(self.slots.key_of(int(s)), float(dd))
                 for dd, s in zip(d[0], i[0]) if s >= 0]
+
+    # -- negative-example search (graph.go:1116-1377) ---------------------
+    def _rescore_negative(self, cand_slots: np.ndarray,
+                          cand_dists: np.ndarray, query: np.ndarray,
+                          negatives: np.ndarray, k: int,
+                          neg_weight: float) -> List[Tuple[Any, float]]:
+        """Over-fetched candidates -> combined score -> top-k.
+
+        score = (1 - d_query) - neg_weight * avg(1 - d_neg), with the
+        reference's special cases (exact match -> 2.0; any negative
+        within 0.1 -> strong penalty). graph.go:1299-1353, minus the
+        key-specific test boost (deliberately omitted)."""
+        valid = cand_slots >= 0
+        slots = cand_slots[valid]
+        if len(slots) == 0:
+            return []
+        vecs = self.store.vectors[slots]
+        qd = np_pairwise_dist(query[None], vecs, self.metric)[0]
+        nd = np_pairwise_dist(negatives, vecs, self.metric)  # [Nneg, C]
+        q_sim = 1.0 - qd
+        neg_sim = 1.0 - nd
+        avg_neg_sim = neg_sim.mean(axis=0)
+        very_close = (nd < 0.1).any(axis=0)
+        score = q_sim - neg_weight * avg_neg_sim
+        score = np.where(very_close, q_sim - neg_weight * 2.0, score)
+        score = np.where(qd < 0.001, 2.0, score)
+        order = np.argsort(-score, kind="stable")[:k]
+        return [(self.slots.key_of(int(slots[o])), float(score[o]))
+                for o in order]
+
+    @_reads
+    def search_with_negative(self, query, negative, k: int,
+                             neg_weight: float = 0.5
+                             ) -> List[Tuple[Any, float]]:
+        return self.search_with_negatives(query, [negative], k, neg_weight)
+
+    @_reads
+    def search_with_negatives(self, query, negatives, k: int,
+                              neg_weight: float = 0.5
+                              ) -> List[Tuple[Any, float]]:
+        if k <= 0:
+            raise ValueError(f"k must be greater than 0, got {k}")
+        if not (0.0 <= neg_weight <= 1.0):
+            raise ValueError(
+                f"negWeight must be between 0.0 and 1.0, got {neg_weight}")
+        query = np.asarray(query, np.float32)
+        negatives = np.atleast_2d(np.asarray(negatives, np.float32))
+        if negatives.shape[0] == 0:
+            return self.search(query, k)
+        if len(self.slots) == 0:
+            return []
+        if self.store.dim is not None and negatives.shape[1] != self.store.dim:
+            raise ValueError(
+                f"negative embedding dimension mismatch: "
+                f"{self.store.dim} != {negatives.shape[1]}")
+        expanded_k = max(3 * k, 10)  # graph.go:1149-1152
+        d, i = self.batch_search_slots(query[None], expanded_k)
+        return self._rescore_negative(i[0], d[0], query, negatives, k,
+                                      neg_weight)
+
+    @_reads
+    def batch_search_with_negatives(self, queries, negatives_per_query,
+                                    k: int, neg_weight: float = 0.5
+                                    ) -> List[List[Tuple[Any, float]]]:
+        """graph.go:1382 BatchSearchWithNegatives — one batched search
+        for the over-fetch, host re-scoring per query."""
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        if len(negatives_per_query) != queries.shape[0]:
+            raise ValueError("negatives list length must match queries")
+        if len(self.slots) == 0:
+            return [[] for _ in range(queries.shape[0])]
+        expanded_k = max(3 * k, 10)
+        d, i = self.batch_search_slots(queries, expanded_k)
+        out = []
+        for qi in range(queries.shape[0]):
+            negs = np.atleast_2d(np.asarray(negatives_per_query[qi],
+                                            np.float32))
+            if negs.size == 0:
+                out.append([(self.slots.key_of(int(s)), float(dd))
+                            for dd, s in zip(d[qi][:k], i[qi][:k])
+                            if s >= 0])
+            else:
+                out.append(self._rescore_negative(i[qi], d[qi], queries[qi],
+                                                  negs, k, neg_weight))
+        return out
+
+    @_reads
+    def parallel_search(self, query, k: int, num_workers: int = 0,
+                        ef: Optional[int] = None
+                        ) -> List[Tuple[Any, float]]:
+        """API parity with graph.go:631 ParallelSearch: the batched
+        lockstep search is the parallel path; ``num_workers`` is accepted
+        and ignored."""
+        del num_workers
+        return self.search(query, k, ef)
 
     # -- misc -------------------------------------------------------------
     def keys(self) -> List[Any]:

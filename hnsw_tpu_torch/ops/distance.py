@@ -13,9 +13,19 @@ Precision map (JAX ``lax.Precision`` -> this module):
     HIGHEST -> "highest": f32 inputs, f32 products and sums. TF32 stays off
                (``torch.backends.cuda.matmul.allow_tf32 = False``, set
                below), so a CUDA GEMM keeps full f32.
+    HIGH    -> "high": the same f32 GEMM. On the TPU it is three bf16
+               passes (~f32-accurate); the fp16 capacity tables use it, so
+               an fp16 store is upcast to f32 and multiplied in f32, never
+               in fp16.
     DEFAULT -> "default": both operands rounded to bf16, products and sums
                in f32 -- bf16 x bf16 with f32 output. (A bf16 GEMM in torch
                would return bf16 and round the Gram before the epilogue.)
+
+Every bf16 rounding goes through ``bf16_round`` (torch's round to nearest
+even, the rounding ``ml_dtypes`` and XLA use). int8 tables convert to
+bf16 exactly (|q| <= 127 fits bf16's 8 significand bits), so their
+dequantisation is a plain upcast and the per-row scale multiplies the
+Gram in the epilogue.
 
 The numpy twins (``np_gram_epilogue``, ``np_pairwise_dist``,
 ``point_dist``) are the JAX package's, verbatim. The registry mirrors the
@@ -46,6 +56,7 @@ INF_DIST = np.float32(3.0e38)
 _EPS = 1e-30
 
 HIGHEST = "highest"
+HIGH = "high"
 DEFAULT = "default"
 
 
@@ -54,8 +65,14 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def np_bf16_round(x: np.ndarray) -> np.ndarray:
+    """``bf16_round`` for numpy arrays (f32 in, f32 out)."""
+    return bf16_round(torch.from_numpy(
+        np.ascontiguousarray(x, np.float32))).numpy()
+
+
 def _operand(x: torch.Tensor, precision: str) -> torch.Tensor:
-    if precision == HIGHEST:
+    if precision in (HIGHEST, HIGH):
         return x
     if precision == DEFAULT:
         return bf16_round(x)
@@ -134,6 +151,14 @@ def gathered_dist(queries: torch.Tensor, cand_vecs: torch.Tensor,
         return torch.stack([pw(qq[None, :], cc)[0] for qq, cc in zip(qf, cf)])
     qv = torch.einsum("bd,bcd->bc", _operand(qf, precision),
                       _operand(cf, precision))
+    return gathered_epilogue(metric, qv, q_sq, cand_sq)
+
+
+def gathered_epilogue(metric: str, qv: torch.Tensor, q_sq: torch.Tensor,
+                      cand_sq: torch.Tensor) -> torch.Tensor:
+    """Distances from a per-query candidate Gram block qv [B, C], with
+    q_sq [B] and cand_sq [B, C] (the epilogue of ``gathered_dist``; the
+    int8 and block hops compute their own qv)."""
     if metric == "cosine":
         denom = torch.rsqrt(q_sq[:, None] * cand_sq + _EPS)
         return 1.0 - qv * denom

@@ -2,7 +2,9 @@
 
 Tie order: the JAX package relies on ``lax.top_k`` returning the lower
 index first among equal values. ``torch.topk`` promises no tie order, so
-every selection here is a stable ascending ``torch.sort``.
+every selection here is a stable ascending ``torch.sort`` — except the
+per-chunk selection of ``quantized_topk_candidates``, whose candidates
+are reranked in f32 on the host afterwards.
 
 Exact search over large N streams the score matrix in chunks with a
 running top-k merge (O(Q*(k+chunk)) memory instead of O(Q*N)).
@@ -10,7 +12,7 @@ running top-k merge (O(Q*(k+chunk)) memory instead of O(Q*N)).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +103,61 @@ def exact_topk(queries: torch.Tensor, vectors: torch.Tensor,
     dk, ik = dk[:, :k], ik[:, :k]
     ik = torch.where(dk >= INF_DIST, -1, ik)
     return dk, ik
+
+
+def quantized_topk_candidates(queries: torch.Tensor, table: torch.Tensor,
+                              scales: Optional[torch.Tensor],
+                              v_sq: torch.Tensor, valid: torch.Tensor,
+                              kk: int, metric: str = "cosine",
+                              chunk: int = 65536
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-kk candidate scan over a reduced-precision table — the exact
+    tier's capacity mode (ExactIndex hbm_dtype).
+
+    ``table`` is [N, D] bfloat16 or float16 (scales=None), or int8 with
+    per-row ``scales`` [N] f32 such that row ~= row_int8 * scale. Per
+    chunk of ``chunk`` rows:
+
+    * int8: the tile is upcast (exactly bf16 values), the queries are
+      rounded to bf16, the Gram is summed in f32 and multiplied by the
+      per-row scale in the epilogue;
+    * float16: the tile is upcast to f32 and scored at HIGH (f32
+      products and sums; queries stay f32);
+    * bfloat16: both operands bf16-rounded, f32 sums.
+
+    ``v_sq`` holds the exact f32 squared norms. Each chunk's selection is
+    exact (``torch.topk``) and so is the final selection over the stacked
+    winners: the JAX package selects per chunk with the TPU's
+    ``approx_min_k`` and a ``recall_target``, which has no meaning here.
+    Chunks are views of the table, never padded copies of it.
+
+    Returns (dists [Q, kk'], indices [Q, kk'] int64), kk' = min(kk, N),
+    ascending; callers restore exact ordering with a host f32 rerank
+    (utils/rerank.host_rerank). Masked rows carry INF_DIST.
+    """
+    n = table.shape[0]
+    q = queries.to(torch.float32)
+    q_sq = torch.sum(q * q, dim=-1)
+    fp16 = scales is None and table.dtype == torch.float16
+    q_op = q if fp16 else bf16_round(q)
+    kk = min(kk, n)
+    m = min(kk, chunk)
+    dks, iks = [], []
+    for c0 in range(0, n, chunk):
+        tab = table[c0:c0 + chunk].to(torch.float32)
+        gram = q_op @ tab.T
+        if scales is not None:
+            gram = gram * scales[c0:c0 + chunk][None, :]
+        d = _epilogue(metric, gram, q_sq, v_sq[c0:c0 + chunk])
+        d = torch.where(valid[c0:c0 + chunk][None, :], d, float(INF_DIST))
+        dm, im = torch.topk(d, min(m, d.shape[1]), dim=1, largest=False,
+                            sorted=True)
+        dks.append(dm)
+        iks.append(im + c0)
+    if len(dks) == 1:
+        return dks[0], iks[0]
+    dk, pos = topk_smallest(torch.cat(dks, dim=1), kk)
+    return dk, torch.gather(torch.cat(iks, dim=1), 1, pos)
 
 
 def np_exact_topk(queries: np.ndarray, vectors: np.ndarray, k: int,

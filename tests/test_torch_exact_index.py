@@ -98,5 +98,23 @@ def test_empty_index_and_bad_k():
 
 @pytest.mark.parametrize("dtype", ["bf16", "fp16", "int8", "auto"])
 def test_capacity_modes_not_ported(dtype):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        hnsw_tpu_torch.ExactIndex(hbm_dtype=dtype, device="cpu")
+    """The capacity modes, once not ported, now serve like JAX's: the
+    reduced scan may cut its candidate pool at another near tie, so ids
+    overlap >= 0.99; both rerank in f32 with the same numpy code, so
+    matched distances agree within 1e-5."""
+    j = hnsw_tpu.ExactIndex(metric="cosine", hbm_dtype=dtype)
+    t = hnsw_tpu_torch.ExactIndex(metric="cosine", hbm_dtype=dtype,
+                                  device="cpu")
+    j.host_serve_max_batch = t.host_serve_max_batch = 0
+    v = _data(10, 3000)
+    j.batch_add(list(range(3000)), v)
+    t.batch_add(list(range(3000)), v)
+    q = _data(11, 37)
+    dj, ij = j.batch_search_slots(q, 10)
+    dt, it = t.batch_search_slots(q, 10)
+    assert t._resolved_hbm == j._resolved_hbm
+    hits = sum(len(set(a) & set(b)) for a, b in zip(it, ij))
+    assert hits / ij.size >= 0.99
+    same = it == ij
+    np.testing.assert_allclose(dt[same], dj[same], atol=1e-5, rtol=0)
+    assert dt.dtype == np.float32 and it.dtype == np.int64

@@ -133,18 +133,21 @@ def test_mutations_match_jax():
 
 
 def test_unported_modes_raise():
+    """Only the device wave builder (ROADMAP Queue 1 item 8) is left."""
     t = hnsw_tpu_torch.Graph(device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         t.build([0, 1], _data(8, 2), method="device")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        t.hbm_mode = "quantized"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        t.entry_mode = "pivots"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        t.block_layout = True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        hnsw_tpu_torch.Graph(config=hnsw_tpu_torch.GraphConfig(
-            store_dtype="float16"), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        t.build([0, 1], _data(8, 2), checkpoint_path="ckpt.npz")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        t.build([0, 1], _data(8, 2), abort_deadline=0.0)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        t.refine()
     assert len(t) == 0
-    d, i = t.batch_search_slots(_data(9, 3), 4)
+    t.build([0, 1], _data(8, 2), method="host")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        t.batch_delete([0], refine=True)
+    assert len(t) == 2 and t.lookup(0) is not None
+    d, i = hnsw_tpu_torch.Graph(device="cpu").batch_search_slots(
+        _data(9, 3), 4)
     assert np.all(i == -1)

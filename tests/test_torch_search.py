@@ -153,14 +153,25 @@ def test_from_host_matches_jax():
     assert tg.cap == jg.cap == 64 and tg.num_layers == jg.num_layers
     with pytest.raises(ValueError, match="2\\^30"):
         tstate.from_host(vec, sq, nb, lv, alive, 4, cap_pad=1 << 30)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tstate.from_host(vec, sq, nb, lv, alive, 4, quantize=True)
+    # the int8 traversal store, once not ported, is JAX's bit for bit
+    jq = jstate.from_host(vec, sq, nb, lv, alive, 4, quantize=True)
+    tq = tstate.from_host(vec, sq, nb, lv, alive, 4, quantize=True)
+    np.testing.assert_array_equal(tq.qvec.numpy(), np.asarray(jq.qvec))
+    np.testing.assert_array_equal(tq.qscale.numpy(), np.asarray(jq.qscale))
+    with pytest.raises(ValueError, match="hbm_vectors"):
+        tstate.from_host(vec, sq, nb, lv, alive, 4, hbm_vectors=False)
 
 
 def test_device_graph_from_numpy_rejects_other_layouts(graphs):
-    jg, _, _ = graphs["cosine"]
+    """Every layout is carried now (tests/test_torch_layouts.py holds each
+    one); what is still refused is a field DeviceGraph does not have."""
+    jg, tg, q = graphs["cosine"]
     fields = {k: np.asarray(x) for k, x in jg._asdict().items()
               if x is not None}
     fields["qvec"] = np.zeros((jg.cap, jg.dim), np.int8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    fields["qscale"] = np.ones((jg.cap,), np.float32)
+    dev = device_graph_from_numpy(fields, "cpu")
+    assert dev.qvec.dtype == torch.int8 and dev.cap == tg.cap
+    fields["pivots"] = np.zeros((4,), np.int32)
+    with pytest.raises(ValueError, match="pivots"):
         device_graph_from_numpy(fields, "cpu")
