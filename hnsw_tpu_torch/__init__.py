@@ -2,17 +2,21 @@
 
 A port of ``hnsw_tpu`` (JAX, TPU) to PyTorch on NVIDIA GPUs, with the
 same module layout and public names. It imports neither JAX nor the JAX
-package. Ported so far: the serving path of both index types, with their
-serving and capacity modes.
+package. Ported so far: both index types with their serving and capacity
+modes, the device wave builder and checkpoints.
 
-  Graph              HNSW index: native C++ host build, batched beam
-                     search on the device (core/search.py) in every
-                     serving layout (fp16/bf16/int8 stores, neighbor
-                     blocks, pivot entry, compact upper layers)
+  Graph              HNSW index: native C++ host build or the device wave
+                     builder (core/build_device.py: build, refine, delete
+                     repair, checkpoints, deadlines, resume_build),
+                     batched beam search on the device (core/search.py)
+                     in every serving layout (fp16/bf16/int8 stores,
+                     neighbor blocks, pivot entry, compact upper layers)
   ExactIndex         brute-force k-NN; on CUDA at 32768+ rows the float32
                      table runs the hand-written screen kernel
                      (csrc/exact_screen.cu); int8/bf16/fp16 capacity
                      tables scan with plain torch and rerank on the host
+  save_graph/load_graph/SavedGraph  checkpoints, in the JAX package's
+                     file format (io/codec.py)
   register_distance  custom metrics
   GraphConfig, ...   the configuration dataclasses
 
@@ -26,8 +30,11 @@ from hnsw_tpu_torch.config import (AdaptiveConfig, GraphConfig, HybridConfig,
                                    ShardingConfig, StoreConfig)
 from hnsw_tpu_torch.index.exact import ExactIndex
 from hnsw_tpu_torch.index.hnsw import Graph
+from hnsw_tpu_torch.io.codec import (SavedGraph, export_graph, import_graph,
+                                     load_graph, save_graph)
 from hnsw_tpu_torch.ops.distance import register_distance
 
 __all__ = ["AdaptiveConfig", "ExactIndex", "Graph", "GraphConfig",
-           "HybridConfig", "ShardingConfig", "StoreConfig",
-           "register_distance", "__version__"]
+           "HybridConfig", "SavedGraph", "ShardingConfig", "StoreConfig",
+           "export_graph", "import_graph", "load_graph", "register_distance",
+           "save_graph", "__version__"]

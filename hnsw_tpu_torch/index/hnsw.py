@@ -6,22 +6,22 @@ build / search / batch_search / delete / batch_delete / lookup /
 parallel_search / validate, plus negative-example variants.
 
 Split of responsibilities:
-  host   — key<->slot mapping, sequential mutation semantics and bulk
-           construction (core/host_build.HostGraph, native C++ builder),
+  host   — key<->slot mapping, sequential mutation semantics and the
+           native C++ sequential builder (core/host_build.HostGraph),
            negative-example re-scoring, the capacity modes' f32 rerank
   device — batched query traffic (core/search.search_graph) on padded
            tensors in the serving layout the modes pick (f32/fp16/bf16
            store, int8 traversal store, neighbor blocks, compact upper
-           layers); small batches go to the native host engine
-
-The device wave builder (``method="device"``, ``refine``,
-``batch_delete(refine=True)``, build checkpoints and ``abort_deadline``)
-is ROADMAP Queue 1 item 8.
+           layers; small batches go to the native host engine), and the
+           wave builder (core/build_device: ``build(method="device")``,
+           ``refine``, ``batch_delete(refine=True)``), both on the
+           graph's ``device``
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import Any, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -62,10 +62,14 @@ def _reads(fn):
     return wrapper
 
 
-def _item8(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the device wave builder is ROADMAP Queue 1 item 8, "
-        "not ported yet")
+def _route(method: str, n: int) -> str:
+    """Resolve build method "auto": the native sequential builder up to
+    1,000,000 vectors when it is available, the device wave builder
+    above."""
+    if method != "auto":
+        return method
+    from hnsw_tpu_torch import native
+    return "host" if native.available() and n <= 1_000_000 else "device"
 
 
 class Graph:
@@ -302,17 +306,47 @@ class Graph:
 
     @_writes
     def build(self, keys: Sequence[Hashable], vectors,
-              method: str = "auto",
+              wave: int = 1024, method: str = "auto",
+              quant_descent: bool = False,
+              block_m: Optional[int] = None,
+              descent_dtype: str = "float32",
               checkpoint_path: Optional[str] = None,
+              checkpoint_every: int = 128,
               abort_deadline: Optional[float] = None) -> None:
         """Bulk construction. Existing keys are replaced; duplicate keys
         within the batch are an error.
 
-        method: "host" (native C++ sequential builder), "auto" (host up
-        to 1M vectors), or "device" (the wave builder). The wave builder,
-        build checkpoints (``checkpoint_path``) and ``abort_deadline``
-        are ROADMAP Queue 1 item 8 and raise NotImplementedError.
+        method:
+          "device" — the wave builder on the graph's device
+                     (core/build_device.bulk_insert_device)
+          "host"   — the native C++ sequential builder
+          "auto"   — host up to 1,000,000 vectors (when the native
+                     engine is available), device above
+
+        ``wave`` is the device builder's wave width (clamped to 16384);
+        the host builder inserts in slices of ``checkpoint_every * wave``
+        nodes when it checkpoints or has a deadline.
+
+        ``quant_descent`` runs the device builder's descent over int8
+        layer-0 neighbor blocks, narrowed to the first ``block_m`` edges
+        of each row (None = full rows, auto-narrowed when full blocks
+        would pass ~5 GB). ``descent_dtype="float16"`` keeps its device
+        vector table in fp16. Edge selection scores f32 either way.
+
+        ``checkpoint_path`` makes a build RESTARTABLE: every
+        ``checkpoint_every`` waves (host: slices) the build syncs its
+        state to the host arrays and atomically saves a full checkpoint
+        (io.codec.save_graph), and the finished graph is saved there
+        too. Resume with ``Graph.resume_build(checkpoint_path, ...)``.
+
+        ``abort_deadline`` (absolute time.time()) bounds a build by wall
+        clock: past it, the build syncs, checkpoints (when a path is
+        given) and raises core.build_device.BuildDeadlineExceeded, whose
+        ``graph`` attribute is this graph — ``mask_pending_for_serve``
+        makes its inserted prefix servable.
         """
+        descent_dtype = canonical_dtype(
+            descent_dtype, ("float32", "float16"), "descent_dtype")
         if method not in ("auto", "host", "device"):
             raise ValueError(
                 f"unknown build method {method!r}: auto|host|device")
@@ -322,29 +356,156 @@ class Graph:
         key_set = set(keys)
         if len(key_set) != len(keys):
             raise ValueError("duplicate keys in build batch")
-        if checkpoint_path is not None:
-            raise _item8("build checkpoints (checkpoint_path)")
-        if abort_deadline is not None:
-            raise _item8("abort_deadline")
-        if method == "auto":
-            from hnsw_tpu_torch import native
-            method = ("host" if native.available()
-                      and len(keys) <= 1_000_000 else "device")
-        if method == "device":
-            raise _item8("method='device' (use method='host')")
         for k in (self.slots.key_to_slot.keys() & key_set):
             self.delete(k)
         slot_list = self.slots.assign_fresh_batch(list(keys))
         self.store.put_batch(slot_list, vectors)
-        self.host.insert_many(list(slot_list))
+        self._insert_stored(slot_list, _route(method, len(keys)), wave=wave,
+                            quant_descent=quant_descent, block_m=block_m,
+                            descent_dtype=descent_dtype,
+                            checkpoint_path=checkpoint_path,
+                            checkpoint_every=checkpoint_every,
+                            abort_deadline=abort_deadline)
+        if checkpoint_path is not None:
+            from hnsw_tpu_torch.io import codec
+            codec.save_graph(self, checkpoint_path)
         self._block_fit_cache = None   # bulk data change: re-check fit
         self._mut_since_fit = 0
         self._dirty = True
 
+    def _insert_stored(self, slots, method: str, *, wave, quant_descent,
+                       block_m, descent_dtype, checkpoint_path,
+                       checkpoint_every, abort_deadline) -> None:
+        """Insert slots whose vectors are already stored, by the "host" or
+        "device" builder, with build()'s checkpoint and deadline
+        contract."""
+        from hnsw_tpu_torch.core.build_device import (BuildDeadlineExceeded,
+                                                      bulk_insert_device)
+        from hnsw_tpu_torch.io import codec
+        if method == "host":
+            sl = [int(s) for s in slots]
+            step = (max(1, checkpoint_every) * max(1, wave)
+                    if checkpoint_path is not None
+                    or abort_deadline is not None else len(sl) or 1)
+            for c0 in range(0, len(sl), step):
+                self.host.insert_many(sl[c0:c0 + step])
+                if c0 + step >= len(sl):
+                    break
+                if checkpoint_path is not None:
+                    self._dirty = True
+                    codec.save_graph(self, checkpoint_path)
+                if abort_deadline is not None \
+                        and time.time() >= abort_deadline:
+                    hint = ("; resume with Graph.resume_build"
+                            if checkpoint_path is not None else
+                            " (no checkpoint_path: not resumable)")
+                    err = BuildDeadlineExceeded(
+                        f"host build deadline: {c0 + step}/{len(sl)}"
+                        f" inserted{hint}")
+                    err.graph = self   # servable partial prefix
+                    raise err
+            return
+        on_ckpt = None
+        if checkpoint_path is not None:
+            def on_ckpt(done, _p=checkpoint_path):
+                codec.save_graph(self, _p)
+            on_ckpt.checkpoint_path = checkpoint_path
+        try:
+            bulk_insert_device(self.host, slots, wave=wave,
+                               quant_descent=quant_descent,
+                               block_m=block_m, descent_dtype=descent_dtype,
+                               on_checkpoint=on_ckpt,
+                               checkpoint_every=checkpoint_every,
+                               abort_deadline=abort_deadline,
+                               device=self.device)
+        except BuildDeadlineExceeded as e:
+            # host arrays were synced (and the checkpoint written) before
+            # the raise: the caller can serve the inserted prefix
+            e.graph = self
+            raise
+
+    @classmethod
+    def resume_build(cls, checkpoint_path: str,
+                     wave: int = 1024,
+                     method: str = "device",
+                     quant_descent: bool = False,
+                     block_m: Optional[int] = None,
+                     descent_dtype: str = "float32",
+                     checkpoint_every: int = 128,
+                     abort_deadline: Optional[float] = None,
+                     device=None) -> "Graph":
+        """Resume a crashed, killed or deadline-aborted
+        ``build(checkpoint_path=...)`` into a Graph on ``device``
+        (default: the first CUDA device when there is one, else the CPU).
+
+        The checkpoint stores every assigned key + vector; nodes the
+        build had not yet inserted are exactly those with level < 0.
+        Loads the snapshot, inserts the pending slots only (fresh level
+        sampling — same geometric law), and keeps checkpointing to the
+        same path. ``method`` follows build(): "device" (default),
+        "host" (native sequential), or "auto" (host while pending <=
+        1M). Returns the completed Graph; a finished checkpoint simply
+        loads. Checkpoints written by the JAX package resume here too.
+        """
+        if method not in ("auto", "host", "device"):
+            raise ValueError(
+                f"unknown build method {method!r}: auto|host|device")
+        descent_dtype = canonical_dtype(
+            descent_dtype, ("float32", "float16"), "descent_dtype")
+        from hnsw_tpu_torch.io import codec
+        g = codec.load_graph(checkpoint_path, device=device)
+        assigned = np.fromiter(g.slots.key_to_slot.values(), np.int64,
+                               len(g.slots.key_to_slot))
+        pending = np.sort(assigned[g.host.levels[assigned] < 0])
+        if len(pending):
+            g._insert_stored(pending, _route(method, len(pending)),
+                             wave=wave, quant_descent=quant_descent,
+                             block_m=block_m, descent_dtype=descent_dtype,
+                             checkpoint_path=checkpoint_path,
+                             checkpoint_every=checkpoint_every,
+                             abort_deadline=abort_deadline)
+            codec.save_graph(g, checkpoint_path)
+            g._block_fit_cache = None
+            g._mut_since_fit = 0
+            g._dirty = True
+        return g
+
+    def mask_pending_for_serve(self) -> int:
+        """Make a deadline-aborted build's inserted PREFIX servable.
+
+        A bulk build assigns every key a slot (and stores its vector) up
+        front; ``BuildDeadlineExceeded`` leaves the never-inserted tail
+        marked ``level < 0`` with no in-edges — graph traversal cannot
+        reach it, but exact scans read ``store.alive``. Tombstone that
+        tail IN MEMORY ONLY (the on-disk checkpoint keeps its level < 0
+        markers, so ``Graph.resume_build`` can still finish later) and
+        return the servable node count.
+        """
+        cap = min(len(self.store.alive) if self.store.alive is not None
+                  else 0, len(self.host.levels))
+        if cap:
+            pending = self.host.levels[:cap] < 0
+            if pending.any():
+                self.store.alive[:cap] &= ~pending
+                self._dirty = True
+        return int(self.store.alive[:cap].sum()) if cap else 0
+
+    @_writes
     def refine(self, wave: int = 2048, slots=None,
                local: bool = False) -> None:
-        """Second-pass edge refinement of the device wave builder."""
-        raise _item8("refine")
+        """Second-pass edge refinement against the final graph, on the
+        graph's device — recovers the recall that batched wave
+        construction loses on early nodes
+        (core/build_device.refine_device). ``slots`` scopes the pass
+        (post-delete repair); a scoped pass narrows the wave to the
+        affected-set size (pow2, min 256). ``local`` re-selects layer-0
+        rows from a short beam seeded with each node's neighbors."""
+        from hnsw_tpu_torch.core.build_device import refine_device
+        if slots is not None and len(slots):
+            wave = min(wave, bucket_pow2(len(slots), 256))
+        refine_device(self.host, wave=wave, slots=slots, local=local,
+                      device=self.device)
+        self._dirty = True
 
     @_writes
     def delete(self, key: Hashable) -> bool:
@@ -364,11 +525,13 @@ class Graph:
     def batch_delete(self, keys: Sequence[Hashable],
                      refine: bool = False) -> List[bool]:
         """graph.go:869 BatchDelete: per-key success flags; one in-edge
-        sweep + repair pass for the whole batch. ``refine=True`` (the
-        device re-descent of touched neighborhoods) is ROADMAP Queue 1
-        item 8."""
-        if refine:
-            raise _item8("batch_delete(refine=True)")
+        sweep + repair pass for the whole batch.
+
+        ``refine=True`` additionally re-selects the layer-0 edges of the
+        neighborhoods the deletes touched (the nodes with an edge to a
+        deleted one) with a local repair pass on the device, recovering
+        the recall that replenish-only repair loses on delete-heavy
+        workloads."""
         oks, slots = [], []
         for k in keys:
             s = self.slots.slot_of(k)
@@ -380,9 +543,18 @@ class Graph:
             self.store.kill(s)
             self.slots.release(k)
         if slots:
+            affected = None
+            if refine:
+                dslots = np.asarray(slots, np.int64)
+                touched = np.isin(self.host.neighbors, dslots).any(
+                    axis=(0, 2))
+                touched[dslots[dslots < len(touched)]] = False
+                affected = np.flatnonzero(touched)
             self.host.delete_many(slots)
             self._mut_since_fit += len(slots)
             self._dirty = True
+            if affected is not None and len(affected):
+                self.refine(slots=affected, local=True)
         return oks
 
     @_reads

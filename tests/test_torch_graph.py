@@ -132,22 +132,24 @@ def test_mutations_match_jax():
     assert "doc-3" not in t.keys()
 
 
-def test_unported_modes_raise():
-    """Only the device wave builder (ROADMAP Queue 1 item 8) is left."""
+def test_unported_modes_raise(tmp_path, monkeypatch):
+    """The calls that raised until the device wave builder was ported
+    (ROADMAP Queue 1 item 8) now work on a CPU graph."""
+    monkeypatch.setenv("HNSW_TPU_BUILD_PROGRESS", "0")
+    v = _data(8, 40)
     t = hnsw_tpu_torch.Graph(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        t.build([0, 1], _data(8, 2), method="device")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        t.build([0, 1], _data(8, 2), checkpoint_path="ckpt.npz")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        t.build([0, 1], _data(8, 2), abort_deadline=0.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        t.refine()
-    assert len(t) == 0
-    t.build([0, 1], _data(8, 2), method="host")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        t.batch_delete([0], refine=True)
-    assert len(t) == 2 and t.lookup(0) is not None
+    t.build(list(range(20)), v[:20], method="device")
+    ckpt = str(tmp_path / "ckpt.npz")
+    t.build(list(range(20, 30)), v[20:30], checkpoint_path=ckpt)
+    t.build(list(range(30, 40)), v[30:], abort_deadline=0.0)
+    t.refine()
+    assert len(t) == 40 and t.host.count == 40
+    assert t.search(v[25], 1)[0][0] == 25
+    assert t.batch_delete([0, 99], refine=True) == [True, False]
+    assert len(t) == 39 and t.lookup(0) is None
+    assert hnsw_tpu_torch.Graph.resume_build(ckpt, device="cpu") \
+        .host.count == 30
+    assert t.mask_pending_for_serve() == 39
     d, i = hnsw_tpu_torch.Graph(device="cpu").batch_search_slots(
         _data(9, 3), 4)
     assert np.all(i == -1)
