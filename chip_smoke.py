@@ -7,13 +7,20 @@ Drives the port's serving path once at a size users of an ANN library
 call real, and fails (non-zero exit, no result line) on any failed check:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compiles the CUDA kernel (csrc/exact_screen.cu) and the native
-   host engine from the sources in the checkout;
-3. kernel vs plain: exact_topk_fused through the kernel against the same
-   wrapper with the plain torch screen in its place, on the card;
+2. build: compiles the CUDA kernels (csrc/exact_screen.cu: K1's TF32
+   wgmma route and its FMA route) and the native host engine from the
+   sources in the checkout;
+3. kernel vs plain: exact_topk_fused through each K1 route against the
+   same wrapper with the plain torch screen in its place, on the card;
+   then the screen alone timed per route and mode at the exact tier's
+   shape (Q=1024, N=1,048,576, D=128, k_sel=18, l2) and, for the FMA
+   route, at glove-50's, each beside its bound, with the plain version
+   and torch.topk(torch.cdist) as a yardstick the port never calls;
 4. exact tier at SIFT1M's shape (1,000,000 x 128 f32, L2, k=10; synthetic
    data from a seed): recall@10 against the numpy oracle and QPS, with
-   the kernel's launch count from this phase;
+   K1's launches by route from this phase; then the exact tier at
+   glove-50-angular's shape (1,183,514 x 50, cosine), which D % 4 != 0
+   sends down the FMA route;
 5. graph tier: the default Graph (m=16, ef_construction=100, cosine,
    descent entry, bitonic merge, f32 store) built on 100,000 x 128 by the
    native builder and served on the card at ef 64 and 192;
@@ -40,7 +47,8 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    and a profile of one mid-build wave split into descent, row assembly
    (diversity selection) and reverse update.
 
-The last two lines are the kernel table and
+The last two lines are the kernel table (one entry a K1 route, with its
+launches on the main path) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card and no network; imports nothing of JAX.
 """
@@ -57,6 +65,8 @@ import numpy as np
 import torch
 
 N_EXACT, N_GRAPH, DIM = 1_000_000, 100_000, 128
+#: ANN-benchmarks' glove-50-angular: the width that takes K1's FMA route
+N_GLOVE, D_GLOVE = 1_183_514, 50
 N_CAPACITY, N_CLUSTER = 10_000_000, 1_000_000
 BATCH, N_BATCHES = 1024, 8
 #: phase 10: past the 1,000,000 rows up to which "auto" routes to the
@@ -66,7 +76,7 @@ N_SIFT, WAVE = 1_048_576, 2048
 PROFILE_WAVE = 256
 #: where the index phases serve; the smoke itself refuses to run off CUDA
 DEVICE = "cuda"
-KERNEL = {"name": "exact_screen", "route": "cuda",
+KERNEL = {"route": "cuda",
           "source": "hnsw_tpu_torch/csrc/exact_screen.cu",
           "replaces": "hnsw_tpu/ops/pallas_exact.py:175"}
 
@@ -136,13 +146,97 @@ def _matched_err(da, ia, db, ib) -> float:
     return err
 
 
+def _reset_launches() -> None:
+    from hnsw_tpu_torch.ops import exact_screen
+    exact_screen.launches = 0
+    exact_screen.launches_by_route.update(wgmma=0, fma=0)
+
+
+def _launches() -> dict:
+    """K1's launches by route since the last _reset_launches()."""
+    from hnsw_tpu_torch.ops import exact_screen
+    return dict(exact_screen.launches_by_route)
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {r: a.get(r, 0) + b.get(r, 0) for r in set(a) | set(b)}
+
+
+#: the fastest way the card has to do the screen's product, by mode
+#: (whatever instruction a route uses): (passes, TFLOP/s, name). An
+#: f32-accurate product takes at least 3 TF32 passes (3xTF32); fast_math's
+#: bf16 operands one pass at the bf16 dense rate. H100 SXM peaks.
+PRODUCT_BOUND = {False: (3, 495.0, "3xTF32"), True: (1, 989.0, "bf16")}
+
+
+def _screen_bound_ms(nq: int, n: int, d: int, k_sel: int,
+                     fast: bool) -> tuple:
+    """(ms, "bytes" | "operations"): the least time of one screen on an
+    H100 SXM: each input read once and the keys written once at 3.35
+    TB/s, against 2 Q N D flops per product pass (PRODUCT_BOUND)."""
+    passes, tflops, _ = PRODUCT_BOUND[fast]
+    moved = 4 * (nq * d + n * d + n) + n + 8 * nq * k_sel
+    t_bytes = moved / 3.35e12 * 1e3
+    t_ops = passes * 2.0 * nq * n * d / (tflops * 1e12) * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _time_screen(label, q, v, sq, valid, k_sel, metric, routes) -> dict:
+    """The screen alone at one shape: each (route, fast_math) kernel
+    through the private launcher, the plain version and the library
+    yardstick (torch.cdist + torch.topk, l2 only; the port never calls
+    it). Each time is printed beside its bound and share of the bound.
+    Returns {"<route>[_fast]": (ms, bound_ms, bound_by, max_abs_err)}
+    plus "plain" and "library" ms."""
+    from hnsw_tpu_torch.ops import exact_screen as es
+    nq, d = q.shape
+    n = v.shape[0]
+    plain_d, plain_i = es.exact_screen_reference(q, v, sq, valid,
+                                                 k_sel=k_sel, metric=metric)
+    plain_ms = cuda_ms(lambda: es.exact_screen_reference(
+        q, v, sq, valid, k_sel=k_sel, metric=metric))
+    lib_ms = None
+    if metric == "l2":
+        lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(q, v), k_sel,
+                                            largest=False))
+    out = {"plain": plain_ms, "library": lib_ms}
+    print(f"# screen alone, {label}: Q={nq} N={n} D={d} k_sel={k_sel} "
+          f"{metric} (median of 5 CUDA-event reps)", flush=True)
+    for route, fast in routes:
+        def run():
+            return es._screen_cuda(q, v, sq, valid, k_sel, metric, fast,
+                                   route)
+        kd, ki = run()
+        err = 0.0
+        if not fast:
+            same = ki == plain_i
+            share = same.float().mean().item()
+            err = (kd[same] - plain_d[same]).abs().max().item()
+            check(share >= 0.99 and err <= 1e-4,
+                  f"{route} f32 screen: {share:.5f} of the keys equal the "
+                  f"plain version's (>= 0.99), matched dists within 1e-4 "
+                  f"({err:.2e})")
+        ms = cuda_ms(run)
+        bound, by = _screen_bound_ms(nq, n, d, k_sel, fast)
+        passes, peak, how = PRODUCT_BOUND[fast]
+        key = route + ("_fast" if fast else "")
+        out[key] = (ms, bound, by, err)
+        print(f"  {route} fast_math={fast}: {ms:.3f} ms, bound {bound:.3f} "
+              f"ms ({by}: {how}, {passes} pass(es) at {peak:g} TFLOP/s), "
+              f"{bound / ms:.3f} of the bound", flush=True)
+    lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "n/a"
+    print(f"  plain (exact_screen_reference) {plain_ms:.3f} ms; library "
+          f"yardstick torch.topk(torch.cdist) {lib}", flush=True)
+    return out
+
+
 def phase_kernel_vs_plain() -> dict:
-    """exact_topk_fused through the kernel against the plain screen in its
-    place, both reranked in f32 on the card."""
-    from hnsw_tpu_torch.ops.exact_screen import (exact_screen,
-                                                 exact_screen_reference,
+    """exact_topk_fused through each K1 route against the plain screen in
+    its place, both reranked in f32 on the card; then the screen alone
+    timed per route."""
+    from hnsw_tpu_torch.ops.exact_screen import (exact_screen_reference,
                                                  exact_topk_fused,
-                                                 rerank_pool)
+                                                 rerank_pool, screen_route)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def table(n, n_valid, d=DIM):
@@ -165,8 +259,13 @@ def phase_kernel_vs_plain() -> dict:
                "cosine", f) for f in (False, True)]
     cases += [(f"k=10 > 6 valid rows, l2 fast={f}", q_few, few, 10, "l2", f)
               for f in (False, True)]
+    glove = table(N_GLOVE, N_GLOVE, D_GLOVE)
+    q_glove = torch.randn((1000, D_GLOVE), generator=gen, device="cuda")
+    cases += [(f"GloVe-50 shape N={N_GLOVE} D={D_GLOVE} Q=1000 cosine "
+               f"fast={f}", q_glove, glove, 10, "cosine", f)
+              for f in (False, True)]
 
-    max_err = 0.0
+    max_err = {"wgmma": 0.0, "fma": 0.0}
     print("# kernel vs plain (exact_topk_fused; median of 5 reps, ms)")
     for label, q, (v, sq, valid), k, metric, fast in cases:
         def kern():
@@ -179,12 +278,18 @@ def phase_kernel_vs_plain() -> dict:
                                             metric=metric, fast_math=fast)
             return rerank_pool(q, v, sq, ids, k=k, metric=metric)
 
+        route = screen_route(q, v)
+        check(route == ("wgmma" if q.shape[1] % 4 == 0 else "fma"),
+              f"{label}: D={q.shape[1]} takes the {route} route")
+        _reset_launches()
         dk, ik = (t.cpu().numpy() for t in kern())
+        check(_launches()[route] == 1,
+              f"{label}: one launch of the {route} kernel")
         dp, ip = (t.cpu().numpy() for t in plain())
         check(np.isfinite(dk).all() and dk.shape == (q.shape[0], k),
               f"{label}: finite [{q.shape[0]}, {k}] result")
         err = _matched_err(dk, ik, dp, ip)
-        max_err = max(max_err, err)
+        max_err[route] = max(max_err[route], err)
         if fast:
             ov = _overlap(ik, ip)
             check(ov >= 0.999 and err <= 1e-5,
@@ -198,21 +303,39 @@ def phase_kernel_vs_plain() -> dict:
             check(bool((ik[:, n_valid:] == -1).all()),
                   f"{label}: slots past the {n_valid} valid rows are -1")
         t_k, t_p = cuda_ms(kern), cuda_ms(plain)
-        print(f"  {label}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms",
-              flush=True)
+        print(f"  {label}: kernel ({route}) {t_k:.3f} ms, plain {t_p:.3f} "
+              f"ms", flush=True)
 
-    # the screen alone at the exact tier's shapes (Q padded to 1024)
+    # the screen alone at the exact tier's shapes (Q padded to 1024): the
+    # wgmma kernel, and the FMA kernel at the same shape as the "before"
     q = torch.randn((1024, DIM), generator=gen, device="cuda")
     v, sq, valid = big
-    ms = cuda_ms(lambda: exact_screen(q, v, sq, valid, k_sel=18,
-                                      metric="l2"))
-    plain_ms = cuda_ms(lambda: exact_screen_reference(
-        q, v, sq, valid, k_sel=18, metric="l2"))
-    print(f"# screen alone, Q=1024 N=1048576 D=128 k_sel=18 l2: kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+    sift = _time_screen("SIFT1M shape", q, v, sq, valid, 18, "l2",
+                        [("wgmma", False), ("wgmma", True), ("fma", False),
+                         ("fma", True)])
     del big, v, sq, valid
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    # the FMA kernel where the main path sends it: GloVe-50's D = 50
+    v, sq, valid = glove
+    q = torch.randn((1024, D_GLOVE), generator=gen, device="cuda")
+    glv = _time_screen("GloVe-50 shape", q, v, sq, valid, 18, "l2",
+                       [("fma", False), ("fma", True)])
+    del glove, v, sq, valid
+    torch.cuda.empty_cache()
+
+    def entry(name, t, key, err):
+        ms, bound, by, screen_err = t[key]
+        return dict(KERNEL, name=name, screen_route=key,
+                    max_abs_err=max(err, screen_err), ms=ms,
+                    plain_ms=t["plain"], bound_ms=bound, bound_by=by,
+                    library_ms=t["library"])
+    # "exact_screen" continues the series of earlier runs (the f32 screen
+    # at the SIFT1M shape), now on the wgmma route
+    return {"wgmma": dict(entry("exact_screen", sift, "wgmma",
+                                max_err["wgmma"]),
+                          fast_math_ms=sift["wgmma_fast"][0],
+                          fma_same_shape_ms=sift["fma"][0]),
+            "fma": entry("exact_screen_fma", glv, "fma", max_err["fma"])}
 
 
 def _recall(found: np.ndarray, truth: np.ndarray, k: int) -> float:
@@ -235,9 +358,42 @@ def _qps(fn, n_queries: int, reps: int = 3) -> float:
     return n_queries / statistics.median(times)
 
 
-def phase_exact_tier() -> int:
+def _profile(label: str, fn) -> None:
+    """One call of ``fn`` (after a warm-up) under torch.profiler: its wall
+    time, the device time of its kernels, the three largest by name, and
+    the device's idle share of the wall; nothing but a note when the
+    trace lost K1's event."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}   # every device activity, K1's ctypes launches included
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+    k1 = [us for n, us in by_name.items() if "screen_wgmma_kernel" in n]
+    if not k1:
+        print(f"  profile, {label}: the trace holds no screen_wgmma_kernel "
+              f"event; device split not measured", flush=True)
+        return
+    dev_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    print(f"  profile, {label}: wall {wall_us / 1e3:.3f} ms, device "
+          f"{dev_us / 1e3:.3f} ms, idle share "
+          f"{max(0.0, 1 - dev_us / wall_us):.3f}; "
+          + "; ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in top),
+          flush=True)
+
+
+def phase_exact_tier() -> dict:
+    """Returns K1's launches by route."""
     from hnsw_tpu_torch import ExactIndex
-    from hnsw_tpu_torch.ops import exact_screen
     from hnsw_tpu_torch.ops.topk import np_exact_topk
     rng = np.random.default_rng(0)
     base = rng.standard_normal((N_EXACT, DIM), dtype=np.float32)
@@ -256,15 +412,16 @@ def phase_exact_tier() -> int:
         return [idx.batch_search_slots(queries[b:b + 1000], 10)
                 for b in range(0, len(queries), 1000)]
 
-    launches = 0
+    launches = {}
     for fast in (False, True):
         idx.fast_math = fast
-        exact_screen.launches = 0
+        _reset_launches()
         out = serve()
-        launches += exact_screen.launches
-        check(exact_screen.launches == 10,
-              f"fast_math={fast}: 10 batches launched the kernel "
-              f"{exact_screen.launches} times")
+        by = _launches()
+        launches = _add(launches, by)
+        check(by == {"wgmma": 10, "fma": 0},
+              f"fast_math={fast}: 10 batches launched the wgmma kernel "
+              f"{by['wgmma']} times, the FMA kernel {by['fma']} times")
         d0, i0 = out[0]
         check(np.isfinite(d0).all() and i0.shape == (1000, 10),
               f"fast_math={fast}: finite [1000, 10] results")
@@ -275,9 +432,51 @@ def phase_exact_tier() -> int:
         qps = _qps(serve, len(queries))
         print(f"  exact tier fast_math={fast}: {qps:.1f} QPS (10,000 "
               f"queries in batches of 1000, median of 3)", flush=True)
+        _profile(f"one batch of 1000, fast_math={fast}",
+                 lambda: idx.batch_search_slots(queries[:1000], 10))
     del idx
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_exact_tier_glove50() -> dict:
+    """The exact tier at ANN-benchmarks' glove-50-angular shape
+    (1,183,514 x 50, cosine, k=10; synthetic rows from a seed): D % 4 != 0
+    sends K1 down its FMA route. Returns K1's launches by route."""
+    from hnsw_tpu_torch import ExactIndex
+    from hnsw_tpu_torch.ops.topk import np_exact_topk
+    rng = np.random.default_rng(5)
+    base = rng.standard_normal((N_GLOVE, D_GLOVE), dtype=np.float32)
+    queries = rng.standard_normal((10_000, D_GLOVE), dtype=np.float32)
+    gt = np.concatenate([np_exact_topk(queries[b:b + 100], base, 10,
+                                       "cosine")[1]
+                         for b in range(0, 1000, 100)])
+    idx = ExactIndex(metric="cosine", device=DEVICE)
+    idx.batch_add(list(range(N_GLOVE)), base)
+    idx.batch_search_slots(queries[:1000], 10)   # table upload + warm-up
+
+    def serve():
+        return [idx.batch_search_slots(queries[b:b + 1000], 10)
+                for b in range(0, len(queries), 1000)]
+
+    _reset_launches()
+    out = serve()
+    by = _launches()
+    check(by == {"wgmma": 0, "fma": 10}, f"glove-50 shape: 10 batches "
+          f"launched the FMA kernel {by['fma']} times, the wgmma kernel "
+          f"{by['wgmma']} times")
+    d0, i0 = out[0]
+    rec = _recall(i0, gt, 10)
+    check(np.isfinite(d0).all() and i0.shape == (1000, 10) and rec == 1.0,
+          f"glove-50 shape: finite [1000, 10] results, recall@10 "
+          f"{rec:.4f} == 1 against the numpy oracle (1000 queries)")
+    qps = _qps(serve, len(queries))
+    print(f"  exact tier at glove-50's shape ({N_GLOVE} x {D_GLOVE} cosine, "
+          f"FMA route): {qps:.1f} QPS (10,000 queries in batches of 1000, "
+          f"median of 3)", flush=True)
+    del idx
+    torch.cuda.empty_cache()
+    return by
 
 
 def phase_graph_tier() -> dict:
@@ -383,9 +582,9 @@ def _check_table(idx, rung: str, n: int) -> None:
           f"GB")
 
 
-def phase_capacity_ladder() -> int:
-    """BIGANN-10M's shape through the hbm_dtype ladder; returns the
-    kernel's launches (the float32 rung)."""
+def phase_capacity_ladder() -> dict:
+    """BIGANN-10M's shape through the hbm_dtype ladder; returns K1's
+    launches by route (the float32 rung)."""
     from hnsw_tpu_torch import ExactIndex
     from hnsw_tpu_torch.ops import exact_screen
     rng = np.random.default_rng(2)
@@ -411,16 +610,17 @@ def phase_capacity_ladder() -> int:
         _sync_device()
         return out, time.perf_counter() - t
 
-    exact_screen.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     idx._sync()
     t_sync = time.perf_counter() - t0
     _check_table(idx, "float32", N_CAPACITY)
     truth, wall = timed(serve)
     truth = np.concatenate([i for _, i in truth])
-    launches = exact_screen.launches
-    check(launches == N_BATCHES, f"float32: {N_BATCHES} batches launched "
-          f"the kernel {launches} times")
+    launches = _launches()
+    check(launches == {"wgmma": N_BATCHES, "fma": 0},
+          f"float32: {N_BATCHES} batches launched the wgmma kernel "
+          f"{launches['wgmma']} times, the FMA kernel {launches['fma']}")
     d_np, i_np = _np_scan_topk(batches[0][:20],
                                idx.store.vectors[:N_CAPACITY],
                                idx.store.sq_norms[:N_CAPACITY], 10, "l2")
@@ -432,7 +632,6 @@ def phase_capacity_ladder() -> int:
           f"(ties within 1e-4), matched dists within 1e-4 ({err:.2e})")
     print(f"  capacity float32 (kernel): {n_q / wall:.1f} QPS ({n_q} "
           f"queries, one pass), upload {t_sync:.1f} s", flush=True)
-    launches = exact_screen.launches
 
     for rung in ("int8", "bf16", "fp16"):
         idx.hbm_dtype = rung
@@ -441,7 +640,7 @@ def phase_capacity_ladder() -> int:
         t_sync = time.perf_counter() - t0
         _check_table(idx, rung, N_CAPACITY)
         idx.batch_search_slots(batches[0], 10)             # warm-up
-        exact_screen.launches = 0
+        _reset_launches()
         seq, t_seq = timed(serve)
         streamed, t_stream = timed(
             lambda: list(idx.batch_search_stream(iter(batches), 10)))
@@ -469,12 +668,11 @@ def phase_capacity_ladder() -> int:
     return launches
 
 
-def phase_auto_ladder() -> int:
+def phase_auto_ladder() -> dict:
     """hbm_dtype="auto" on tight clusters (tests/test_fast_serving.py's
-    recipe, then five times tighter); returns the kernel's launches."""
+    recipe, then five times tighter); returns K1's launches by route."""
     from hnsw_tpu_torch import ExactIndex
-    from hnsw_tpu_torch.ops import exact_screen
-    launches = 0
+    launches = {}
     for noise, want in ((0.3, None), (0.05, "float32")):
         rng = np.random.default_rng(3)
         centers = rng.standard_normal((40, DIM)).astype(np.float32) * 5
@@ -486,13 +684,13 @@ def phase_auto_ladder() -> int:
         idx = ExactIndex(hbm_dtype="auto", device=DEVICE)       # cosine
         _fill(idx, N_CLUSTER, rows)
         q = rows(BATCH)
-        exact_screen.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         d, i = idx.batch_search_slots(q, 10)
         _sync_device()
         t_first = time.perf_counter() - t0
         rung = idx._resolved_hbm
-        n_k = exact_screen.launches
+        n_k = _launches()
         qps = _qps(lambda: idx.batch_search_slots(q, 10), BATCH)
         _check_table(idx, rung, N_CLUSTER)
         d_np, _ = _np_scan_topk(q[:100], idx.store.vectors[:N_CLUSTER],
@@ -510,11 +708,13 @@ def phase_auto_ladder() -> int:
             check(rung == want, f"auto, clusters of width {noise}: "
                   f"resolves to {rung} (expected {want})")
         if rung == "float32":
-            check(n_k == 1, f"auto -> float32: one batch launched the "
-                  f"kernel {n_k} times")
+            check(n_k == {"wgmma": 1, "fma": 0}, f"auto -> float32: one "
+                  f"batch launched the wgmma kernel {n_k['wgmma']} times, "
+                  f"the FMA kernel {n_k['fma']}")
         else:
-            check(n_k == 0, f"auto -> {rung}: the kernel was not launched")
-        launches += exact_screen.launches
+            check(n_k == {"wgmma": 0, "fma": 0},
+                  f"auto -> {rung}: the kernel was not launched")
+        launches = _add(launches, _launches())
         print(f"  auto, {N_CLUSTER} x {DIM} cosine in 40 clusters of width "
               f"{noise}: resolves to {rung}; {qps:.1f} QPS (1024-query "
               f"batch, median of 3); first batch with the fit checks and "
@@ -691,19 +891,18 @@ def _check_structure(g, n: int, label: str) -> float:
 
 def phase_device_builds(st: dict) -> int:
     """Phase 9: every mode of the wave builder on the 100k cosine vectors
-    of phase_graph_tier; returns the kernel's launches (the exact-tier
+    of phase_graph_tier; returns K1's launches by route (the exact-tier
     oracle over the survivors of the delete)."""
     import tempfile
 
     from hnsw_tpu_torch import ExactIndex, Graph
     from hnsw_tpu_torch.convert import graph_from_host_arrays
     from hnsw_tpu_torch.core.build_device import BuildDeadlineExceeded
-    from hnsw_tpu_torch.ops import exact_screen
     base, queries, gt = st["base"], st["queries"], st["gt"]
     n = N_GRAPH
     keys = list(range(n))
     host_rec = st["recall"]
-    exact_screen.launches = 0
+    _reset_launches()
     print(f"# device builds: {n} x {DIM} cosine, m=16, ef_construction=100,"
           f" wave={WAVE}", flush=True)
 
@@ -819,9 +1018,10 @@ def phase_device_builds(st: dict) -> int:
           flush=True)
     del gr
     torch.cuda.empty_cache()
-    launches = exact_screen.launches
-    check(launches >= 1, f"the exact-tier oracle launched the kernel "
-          f"{launches} times")
+    launches = _launches()
+    check(launches["wgmma"] >= 1 and launches["fma"] == 0,
+          f"the exact-tier oracle launched the wgmma kernel "
+          f"{launches['wgmma']} times")
     return launches
 
 
@@ -905,10 +1105,9 @@ class _WaveProbe:
 
 def phase_sift_shape_build() -> int:
     """Phase 10: a 1,048,576 x 128 L2 build that Graph.build's "auto"
-    routes to the wave builder; returns the kernel's launches (the
+    routes to the wave builder; returns K1's launches by route (the
     exact-tier oracle)."""
     from hnsw_tpu_torch import ExactIndex
-    from hnsw_tpu_torch.ops import exact_screen
     rng = np.random.default_rng(4)
     base = rng.standard_normal((N_SIFT, DIM), dtype=np.float32)
     queries = rng.standard_normal((BATCH, DIM), dtype=np.float32)
@@ -935,14 +1134,15 @@ def phase_sift_shape_build() -> int:
           f"vectors, ef=64), {orphans:.4f} of the nodes with no layer-0 "
           f"in-edge", flush=True)
 
-    exact_screen.launches = 0
+    _reset_launches()
     oracle = ExactIndex(metric="l2", device=DEVICE)
     oracle.host_serve_max_batch = 0
     oracle.batch_add(keys, base)
     _, gt = oracle.batch_search_slots(queries, 10)
-    launches = exact_screen.launches
-    check(launches >= 1, f"the exact-tier oracle launched the kernel "
-          f"{launches} times")
+    launches = _launches()
+    check(launches["wgmma"] >= 1 and launches["fma"] == 0,
+          f"the exact-tier oracle launched the wgmma kernel "
+          f"{launches['wgmma']} times")
     del oracle
     for ef in (64, 192):
         d, ids = g.batch_search_slots(queries, 10, ef=ef)
@@ -971,20 +1171,26 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     timing = phase_kernel_vs_plain()
     launches = phase_exact_tier()
+    launches = _add(launches, phase_exact_tier_glove50())
     graph = phase_graph_tier()
-    launches += phase_capacity_ladder()
-    launches += phase_auto_ladder()
+    launches = _add(launches, phase_capacity_ladder())
+    launches = _add(launches, phase_auto_ladder())
     phase_graph_modes(graph)
-    launches += phase_device_builds(graph)
+    launches = _add(launches, phase_device_builds(graph))
     del graph
-    launches += phase_sift_shape_build()
+    launches = _add(launches, phase_sift_shape_build())
+    check(all(launches[r] > 0 for r in timing),
+          f"the main path launched every K1 route: {launches}")
+    print(f"# smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
+          f"build included", flush=True)
     print(smi)
-    print(json.dumps({"kernels": [dict(KERNEL, launches=launches,
-                                       **timing)]}))
+    print(json.dumps({"kernels": [dict(timing[r], launches=launches[r])
+                                  for r in ("wgmma", "fma")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

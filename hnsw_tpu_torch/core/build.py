@@ -37,7 +37,8 @@ import torch
 from hnsw_tpu_torch.config import canonical_metric
 from hnsw_tpu_torch.core import host_build
 from hnsw_tpu_torch.core.search import beam_search_layer
-from hnsw_tpu_torch.core.state import DeviceGraph, bucket_pow2, from_host
+from hnsw_tpu_torch.core.state import (DeviceGraph, bucket_pow2,
+                                      default_device, from_host)
 from hnsw_tpu_torch.ops.distance import (DEFAULT, HIGHEST, INF_DIST,
                                          bf16_round, gathered_dist,
                                          pairwise_dist)
@@ -341,15 +342,15 @@ def bulk_insert(host: host_build.HostGraph, slots: np.ndarray, *,
                 wave: int = 1024, intra_k: Optional[int] = None,
                 device=None) -> None:
     """Insert ``slots`` (already in the vector store) into the host graph
-    by device-batched waves on ``device`` (default: the first CUDA device
-    when there is one, else the CPU). Mutates host arrays in place."""
+    by device-batched waves on ``device`` (default: the CUDA device; raises
+    without one, pass ``device="cpu"`` for the CPU). Mutates host arrays
+    in place."""
     cfg = host.cfg
     metric = host.metric
     intra_k = intra_k if intra_k is not None else cfg.m_base
     store = host.store
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = torch.device(device) if device is not None \
+        else default_device()
 
     slots = np.asarray(slots, np.int64)
     n_new = len(slots)

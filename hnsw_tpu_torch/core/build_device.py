@@ -51,7 +51,7 @@ from hnsw_tpu_torch.core.build import (_diverse_select_dev,
                                        construction_descent)
 from hnsw_tpu_torch.core.search import beam_search_layer
 from hnsw_tpu_torch.core.state import (DeviceGraph, _gather_blocks,
-                                       bucket_pow2, upload)
+                                       bucket_pow2, default_device, upload)
 from hnsw_tpu_torch.ops.distance import (DEFAULT, HIGHEST, INF_DIST,
                                          _custom_pairwise, gathered_dist,
                                          pairwise_dist, registered)
@@ -396,7 +396,7 @@ def bulk_insert_device(host: host_build.HostGraph, slots: np.ndarray, *,
                        on_checkpoint=None,
                        checkpoint_every: int = 0,
                        abort_deadline: Optional[float] = None,
-                       device="cpu") -> None:
+                       device=None) -> None:
     """Device-resident wave insertion on ``device``; syncs host arrays
     once at the end.
 
@@ -429,7 +429,8 @@ def bulk_insert_device(host: host_build.HostGraph, slots: np.ndarray, *,
     metric = canonical_metric(host.metric)
     intra_k = intra_k if intra_k is not None else cfg.m_base
     store = host.store
-    device = torch.device(device)
+    device = torch.device(device) if device is not None \
+        else default_device()
     # The intra-wave kNN is a dense [W, W] f32 matrix: the JAX package
     # caps W at 16384 (1 GB) for a 16 GB TPU chip; kept for parity.
     if wave > 16384:
@@ -595,7 +596,7 @@ def _local_repair_wave(g: DeviceGraph, nb0_dev, vectors, sq, wsl, valid,
 def refine_device(host: host_build.HostGraph, *, wave: int = 2048,
                   slots=None, quant_descent: bool = False,
                   block_m: Optional[int] = None, local: bool = False,
-                  local_hops: int = 3, device="cpu") -> None:
+                  local_hops: int = 3, device=None) -> None:
     """Second-pass graph refinement on ``device``.
 
     Re-runs the construction descent for every node against the FINAL
@@ -618,7 +619,8 @@ def refine_device(host: host_build.HostGraph, *, wave: int = 2048,
     cfg = host.cfg
     metric = canonical_metric(host.metric)
     store = host.store
-    device = torch.device(device)
+    device = torch.device(device) if device is not None \
+        else default_device()
     if slots is None:
         alive_slots = np.flatnonzero(host.levels >= 0)
     else:

@@ -252,6 +252,17 @@ def _upload_layers(nb: np.ndarray, cap: int, device) -> torch.Tensor:
     return out
 
 
+def default_device() -> torch.device:
+    """The device an entry point given ``device=None`` serves on: the
+    current CUDA device. Raises when CUDA is absent, so that a machine
+    whose driver or card has failed never serves on the CPU unnoticed."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device=\"cpu\" to run on "
+            "the CPU")
+    return torch.device("cuda")
+
+
 def from_host(vectors: np.ndarray, sq_norms: np.ndarray,
               neighbors: np.ndarray, levels: np.ndarray,
               alive: np.ndarray, entry: int,
@@ -265,9 +276,10 @@ def from_host(vectors: np.ndarray, sq_norms: np.ndarray,
               metric: str = "cosine",
               split_layers: "bool | str" = False,
               upper_m: int | None = None,
-              device="cpu") -> DeviceGraph:
-    """Upload host arrays to ``device``, padding capacity to ``cap_pad``
-    (default: n bucketed to a power of two).
+              device=None) -> DeviceGraph:
+    """Upload host arrays to ``device`` (default: the CUDA device; raises
+    without one), padding capacity to ``cap_pad`` (default: n bucketed to
+    a power of two).
 
     ``store_dtype``: float32, float16 or bfloat16 (numpy dtype, torch
     dtype or name) for ``vectors``. ``quantize`` adds the int8 traversal
@@ -284,6 +296,8 @@ def from_host(vectors: np.ndarray, sq_norms: np.ndarray,
     [L-1, cap, upper_m] tensor, "compact" as a tuple of per-layer tables
     indexed through ``upper_map``.
     """
+    device = torch.device(device) if device is not None \
+        else default_device()
     if not hbm_vectors and not (quantize or block_layout):
         raise ValueError("hbm_vectors=False requires quantize=True")
     if block_layout:

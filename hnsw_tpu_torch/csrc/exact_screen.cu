@@ -6,53 +6,102 @@
 // validity mask applied, and never writes the [Q, N] score matrix to
 // device memory.
 //
-// What bounds it on this card: 2*Q*N*D flops of f32 FMA (no tensor cores
-// in this version; 67 TFLOP/s peak on an H100 SXM) against one read of the
-// table per query tile. A 64-query tile does 64 FMAs for every 4-byte table
-// element it loads, well above the card's ~20 flop/byte balance point, and
-// the table tiles of neighbouring query tiles meet in L2, so the FMA pipe
-// and the shared-memory loads that feed it are the limit, not HBM.
+// Two routes compute that contract, chosen by shape in ops/exact_screen.py:
 //
-// What the design does about it:
-//   * a register tile of 4 queries x 8 columns per thread, fed from
-//     shared-memory stages of 32 dimensions, so each shared load feeds
-//     several FMAs;
-//   * grid = (query tiles, N segments); a loop inside the block walks the
-//     segment's column tiles (the TPU's sequential grid axis), and N is cut
-//     into enough segments that a 1024-query batch still fills every SM;
-//   * selection keeps each query's running best k_sel in shared memory as
-//     int64 keys (order-preserving int32 of the distance in the high half,
-//     global column id in the low half). A candidate costs one compare
-//     against the current worst key; only winners take the warp-wide
-//     sorted insert. Keys are unique, so ties go to the lower id;
-//   * a second small kernel merges each query's per-segment lists.
-// Tensor cores (bf16 wgmma, 3xTF32) with TMA-fed stages are the next step.
+// * wgmma (screen_wgmma_kernel): the Gram product on the tensor cores. TMA
+//   copies [rows x 32] f32 boxes (128 bytes a row, 128-byte swizzle) of
+//   the queries and the table into a ring of shared-memory stages, one
+//   mbarrier a stage, issued by one thread. One elementwise pass over each
+//   landed stage rounds it in place: f32 mode splits x into
+//   hi = tf32_rna(x) (in place) and lo = tf32_rna(x - hi) (a second buffer
+//   of the same swizzled layout), and the product is 3xTF32,
+//   hi*lo + lo*hi + hi*hi with the small terms first (the dropped lo*lo
+//   term is ~2^-22 of sum |q_i v_i|); fast_math rounds x to bf16 in place,
+//   which is exact in TF32 (8 significand bits of TF32's 11), so one TF32
+//   pass gives exactly the bf16 x bf16 -> f32 products fast_math means.
+//   Both operands are row-major [rows, D], i.e. K-major, the only layout
+//   TF32 wgmma takes: nothing is transposed. Needs D % 4 == 0 (TMA row
+//   pitch a multiple of 16 bytes) and 16-byte aligned base pointers.
+// * fma (screen_kernel): the f32 FMA pipe, for every other shape.
+//
+// What bounds it on this card (H100 SXM). At Q=1024, N=2^20, D=128 the
+// Gram is 275 GFLOP. Done f32-accurate it takes at least 1.67 ms, as
+// 3xTF32 (3 passes at 495 TFLOP/s; the FMA pipe's 67 TFLOP/s would take
+// 4.10 ms). fast_math's bf16 operands could run at the bf16 rate (989
+// TFLOP/s): 0.28 ms. The table read once from HBM is 0.16 ms. So both
+// modes are bound by operations, not bytes.
+// The query tile is blockIdx.x, the fastest-varying grid index, so the
+// query tiles of one segment run together and meet its table boxes in L2.
+// Measured on the wgmma route, the product itself hides behind the rest:
+// the staging (TMA from L2 and the conversion pass), the epilogue and the
+// selection each take a share of the time, and they overlap only across
+// blocks. So the design aims at two resident blocks an SM. (That split
+// comes from tools/screen_split.py, which times builds with
+// -DSPLIT_NO_SELECT, -DSPLIT_NO_EPILOGUE and -DSPLIT_NO_PRODUCT: each
+// compiles that part of screen_wgmma_kernel out, so their results are
+// wrong by design. The library the port loads defines none of them.)
+//
+// Shared memory of the wgmma route (dynamic; 227 KB a block, 228 KB an SM
+// on this card), for TQ = 64 queries by TC = 128 columns a tile:
+//   ring   2 stages x (8 KiB query box + 16 KiB table box), twice that in
+//          f32 mode for the lo buffers: 96 KiB f32, 48 KiB fast_math
+//   lists  TQ x k_sel int64 keys: 9 KiB at k_sel = 18, 64 KiB at 128
+//   dt     TQ x (TC + 8) f32 distance tile, 34 KiB: its own region in
+//          fast_math; in f32 mode the stage the tile's last k block used,
+//          whose refill waits until the selection is done
+//   qsq, thresholds, flags, the tile's norms and mask, mbarriers and the
+//          alignment slack: 3 KiB
+// f32 at k_sel = 18: 108 KiB, two blocks an SM (up to k_sel = 28); at
+// k_sel = 128: 163 KiB, one block. fast_math at k_sel = 18: 94 KiB, two
+// blocks. The query tile is not kept resident: it streams through the
+// ring beside the table boxes (8 KiB of L2 reads a stage), so the budget
+// does not grow with D (D = 960 fits as D = 128).
+//
+// A block runs 2 warpgroups; each computes the m64 x n64 half of the
+// 64 x 128 tile with wgmma.m64n64k8.f32.tf32.tf32 from shared memory,
+// 4 k8 steps a stage, the descriptor's start address advancing 32 bytes
+// a step inside the 128-byte swizzle row. The epilogue is compiled per
+// metric and selects l2 on the squared distance (the merge kernel takes
+// the square root of the surviving keys); it flags the rows with a
+// distance below their current worst, and the selection visits only
+// those. While the warps run the epilogue and the selection of one column
+// tile, TMA loads for the next tile are in flight.
+//
+// Selection (both routes): each query's running best k_sel sit in shared
+// memory as int64 keys (order-preserving int32 of the distance in the
+// high half, global column id in the low half). A candidate costs one
+// compare against the current worst distance; only winners take the
+// warp-wide sorted insert. Keys are unique, so ties go to the lower id.
+// grid = (query tiles, N segments); a loop inside the block walks the
+// segment's column tiles (the TPU's sequential grid axis); a second small
+// kernel merges each query's per-segment lists.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only, no driver link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
 
 namespace {
 
-constexpr int TQ = 64;       // queries per block
-constexpr int TC = 128;      // table columns per tile
-constexpr int DK = 32;       // dimensions per shared-memory stage
-constexpr int NT = 256;      // threads per block, as a 16 x 16 grid
-constexpr int RQ = TQ / 16;  // query rows per thread
-constexpr int RC = TC / 16;  // columns per thread
-constexpr int QS = TQ + 1;   // padded strides: transposed stores hit
-constexpr int CS = TC + 1;   // distinct banks
+// ---- shared by both routes -------------------------------------------------
+
+constexpr int TQ = 64;   // queries per block
+constexpr int TC = 128;  // table columns per tile
+constexpr int CS = TC + 1;  // padded distance-tile stride
+constexpr int NT = 256;  // threads per block
 constexpr int MERGE_THREADS = 256;
 constexpr float INF_DIST = 3.0e38f;  // ops/distance.py INF_DIST
 constexpr long long EMPTY = LLONG_MAX;
 
 enum Metric { COSINE = 0, L2 = 1, SQEUCLIDEAN = 2, DOT = 3 };
+enum Route { FMA = 0, WGMMA = 1 };
 
 // fast_math rounds both Gram operands to bf16; products and sums stay f32,
 // which is bf16 x bf16 with f32 output.
-__device__ __forceinline__ float stage_value(float x, int fast) {
-  return fast ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+__device__ __forceinline__ float bf16_value(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Order-preserving f32 -> int32 (pallas_exact.py:_mono_int32) in the high
@@ -62,6 +111,15 @@ __device__ __forceinline__ long long pack_key(float d, int col) {
   int m = u >= 0 ? u : INT_MIN - u;
   return (long long)(((unsigned long long)(unsigned)m << 32) |
                      (unsigned)col);
+}
+
+// Metric epilogue (ops/distance.py _epilogue) of one Gram value.
+__device__ __forceinline__ float metric_dist(int metric, float g, float qq,
+                                             float vq) {
+  if (metric == DOT) return -g;
+  if (metric == COSINE) return 1.f - g * rsqrtf(qq * vq + 1e-30f);
+  float dist = fmaxf(qq + vq - 2.f * g, 0.f);
+  return metric == L2 ? sqrtf(dist) : dist;
 }
 
 // Insert c into the ascending list L[0, k) in shared memory, dropping the
@@ -86,8 +144,93 @@ __device__ __forceinline__ void warp_insert(long long* L, int k, long long c,
   __syncwarp();
 }
 
+// Empty key lists and the f32 squared query norms (before any rounding).
+__device__ __forceinline__ void init_block(long long* lists, float* qsq,
+                                           const float* queries, int q0,
+                                           int nq, int d, int k_sel,
+                                           int tid) {
+  for (int i = tid; i < TQ * k_sel; i += NT) lists[i] = EMPTY;
+  if (tid < TQ) {
+    float s = 0.f;
+    if (q0 + tid < nq) {
+      const float* row = queries + (size_t)(q0 + tid) * d;
+      for (int j = 0; j < d; ++j) s = fmaf(row[j], row[j], s);
+    }
+    qsq[tid] = s;
+  }
+}
+
+// The distance of a list key; INF_DIST for EMPTY.
+__device__ __forceinline__ float key_dist(long long key) {
+  if (key == EMPTY) return INF_DIST;
+  int m = (int)(key >> 32);
+  return __int_as_float(m >= 0 ? m : INT_MIN - m);
+}
+
+// Selection of one [TQ, TC] distance tile (row stride cs): one warp per
+// query row, a candidate is inserted only if it beats the row's current
+// worst key. A row's list only holds columns left of the candidate's
+// (tiles, chunks and lanes go left to right), so a candidate at the worst
+// distance never beats the worst key: comparing distances is exact, and
+// only winners are packed. With hit/thr (the wgmma route), a row is
+// visited only if the epilogue flagged a distance below thr[row], its
+// worst distance when the tile began; the warp then clears the flag and
+// lowers thr.
+__device__ __forceinline__ void select_tile(long long* lists, const float* dt,
+                                            int cs, int k_sel, int c0,
+                                            int warp, int lane,
+                                            int* hit = nullptr,
+                                            float* thr = nullptr) {
+  for (int row = warp; row < TQ; row += NT / 32) {
+    if (hit != nullptr && !hit[row]) continue;
+    long long* L = lists + row * k_sel;
+    float worst = key_dist(L[k_sel - 1]);
+#pragma unroll
+    for (int r = 0; r < TC / 32; ++r) {
+      const float dist = dt[row * cs + lane + 32 * r];
+      unsigned b = __ballot_sync(0xffffffffu, dist < worst);
+      while (b) {
+        const int src = __ffs(b) - 1;
+        const float d = __shfl_sync(0xffffffffu, dist, src);
+        warp_insert(L, k_sel, pack_key(d, c0 + 32 * r + src), lane);
+        worst = key_dist(L[k_sel - 1]);
+        b = __ballot_sync(0xffffffffu, dist < worst) & ~((2u << src) - 1u);
+      }
+    }
+    if (hit != nullptr && lane == 0) {
+      hit[row] = 0;
+      thr[row] = worst;
+    }
+  }
+}
+
+__device__ __forceinline__ void write_partial(const long long* lists,
+                                              long long* partial, int q0,
+                                              int nq, int seg, int n_seg,
+                                              int k_sel, int tid) {
+  for (int i = tid; i < TQ * k_sel; i += NT) {
+    int row = i / k_sel, e = i % k_sel;
+    if (q0 + row < nq)
+      partial[((size_t)(q0 + row) * n_seg + seg) * k_sel + e] = lists[i];
+  }
+}
+
+// ---- fma route: the f32 FMA pipe -------------------------------------------
+
+constexpr int DK = 32;       // dimensions per shared-memory stage
+constexpr int RQ = TQ / 16;  // query rows per thread (16 x 16 thread grid)
+constexpr int RC = TC / 16;  // columns per thread
+constexpr int QS = TQ + 1;   // padded stride: transposed stores hit
+                             // distinct banks
+
+__device__ __forceinline__ float stage_value(float x, int fast) {
+  return fast ? bf16_value(x) : x;
+}
+
 // partial[q, seg, :] = ascending k_sel smallest keys of query q over
 // columns [seg * seg_len, min(n, (seg + 1) * seg_len)); EMPTY pads.
+// A register tile of 4 queries x 8 columns per thread, fed from
+// shared-memory stages of 32 dimensions.
 __global__ void __launch_bounds__(NT)
     screen_kernel(const float* __restrict__ queries,
                   const float* __restrict__ vectors,
@@ -109,15 +252,7 @@ __global__ void __launch_bounds__(NT)
   const int c_begin = seg * seg_len;
   const int c_end = min(n, c_begin + seg_len);
 
-  for (int i = tid; i < TQ * k_sel; i += NT) lists[i] = EMPTY;
-  if (tid < TQ) {  // squared query norms in f32, before any bf16 rounding
-    float s = 0.f;
-    if (q0 + tid < nq) {
-      const float* row = queries + (size_t)(q0 + tid) * d;
-      for (int j = 0; j < d; ++j) s = fmaf(row[j], row[j], s);
-    }
-    qsq[tid] = s;
-  }
+  init_block(lists, qsq, queries, q0, nq, d, k_sel, tid);
   __syncthreads();
 
   for (int c0 = c_begin; c0 < c_end; c0 += TC) {
@@ -160,8 +295,8 @@ __global__ void __launch_bounds__(NT)
       __syncthreads();
     }
 
-    // metric epilogue (ops/distance.py _epilogue) + validity mask; rows
-    // past the segment end (the ragged edge of N included) are masked too
+    // metric epilogue + validity mask; rows past the segment end (the
+    // ragged edge of N included) are masked too
 #pragma unroll
     for (int j = 0; j < RC; ++j) {
       int cc = tx + 16 * j, gc = c0 + cc;
@@ -170,61 +305,421 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int i = 0; i < RQ; ++i) {
         int row = ty + 16 * i;
-        float g = acc[i][j], dist;
-        if (metric == DOT) {
-          dist = -g;
-        } else if (metric == COSINE) {
-          dist = 1.f - g * rsqrtf(qsq[row] * vq + 1e-30f);
-        } else {
-          dist = fmaxf(qsq[row] + vq - 2.f * g, 0.f);
-          if (metric == L2) dist = sqrtf(dist);
-        }
-        dt[row * CS + cc] = ok ? dist : INF_DIST;
+        dt[row * CS + cc] =
+            ok ? metric_dist(metric, acc[i][j], qsq[row], vq) : INF_DIST;
       }
     }
     __syncthreads();
-
-    // selection: one warp per query row, a candidate is inserted only if
-    // it beats the row's current worst key
-    for (int row = warp; row < TQ; row += NT / 32) {
-      long long* L = lists + row * k_sel;
-      long long worst = L[k_sel - 1];
-#pragma unroll
-      for (int r = 0; r < TC / 32; ++r) {
-        int cc = lane + 32 * r;
-        float dist = dt[row * CS + cc];
-        long long mine = dist < INF_DIST ? pack_key(dist, c0 + cc) : EMPTY;
-        unsigned b = __ballot_sync(0xffffffffu, mine < worst);
-        while (b) {
-          int src = __ffs(b) - 1;
-          long long c = __shfl_sync(0xffffffffu, mine, src);
-          warp_insert(L, k_sel, c, lane);
-          worst = L[k_sel - 1];
-          if (lane == src) mine = EMPTY;
-          b = __ballot_sync(0xffffffffu, mine < worst);
-        }
-      }
-    }
+    select_tile(lists, dt, CS, k_sel, c0, warp, lane);
     __syncthreads();
   }
-
-  for (int i = tid; i < TQ * k_sel; i += NT) {
-    int row = i / k_sel, e = i % k_sel;
-    if (q0 + row < nq)
-      partial[((size_t)(q0 + row) * n_seg + seg) * k_sel + e] = lists[i];
-  }
+  write_partial(lists, partial, q0, nq, seg, n_seg, k_sel, tid);
 }
+
+size_t fma_smem_bytes(int k_sel) {
+  return (size_t)TQ * k_sel * sizeof(long long) +
+         (size_t)(DK * QS + DK * CS + TQ * CS + TQ) * sizeof(float);
+}
+
+// ---- wgmma route: TMA-fed TF32 tensor cores --------------------------------
+
+constexpr int WK = 32;                     // f32 per 128-byte swizzle row
+constexpr int STAGES = 2;                  // ring depth
+constexpr int Q_BOX = TQ * WK * 4;         // 8 KiB query box
+constexpr int V_BOX = TC * WK * 4;         // 16 KiB table box
+constexpr int X_BYTES = Q_BOX + V_BOX;     // what TMA lands in a stage
+constexpr int V_HALF = V_BOX / 2;          // one warpgroup's 64 table rows
+constexpr int WCS = TC + 8;  // distance-tile stride: the epilogue's float2
+                             // stores of a half-warp hit 32 distinct banks
+
+__host__ __device__ constexpr int stage_bytes(bool fast) {
+  return fast ? X_BYTES : 2 * X_BYTES;     // f32: + the lo buffers
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand in 128-byte swizzle
+// atoms (8 rows x 128 bytes, 1024-byte aligned): start address >> 4, the
+// leading offset unused for this layout (1), the stride between 8-row
+// groups 1024 bytes, layout type 1 (128B swizzle).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// acc[64 x 64] (+)= A[64 x 8] * B[64 x 8]^T, both tf32 from shared memory;
+// scale_d = 0 overwrites acc.
+__device__ __forceinline__ void mma_tf32(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Keeps the compiler from moving accumulator accesses across the async
+// wgmma fence / wait.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// One thread: arm the stage's barrier for X_BYTES and start both boxes.
+__device__ __forceinline__ void issue_stage(unsigned char* st, uint64_t* bar,
+                                            const CUtensorMap* tq,
+                                            const CUtensorMap* tv, int k0,
+                                            int q0, int c0) {
+  mbar_expect_tx(bar, X_BYTES);
+  tma_load_2d(st, tq, k0, q0, bar);
+  tma_load_2d(st + Q_BOX, tv, k0, c0, bar);
+}
+
+// The landed stage's conversion pass, then its product into acc (this
+// warpgroup's 64 x 64 half). Every thread of the block calls it. The pass
+// rewrites each value at its own byte offset, so the TMA swizzle stands;
+// first = overwrite acc instead of adding.
+template <bool FAST>
+__device__ __forceinline__ void stage_product(float (&acc)[32],
+                                              unsigned char* st, int tid,
+                                              int wg, bool first) {
+  float4* x = reinterpret_cast<float4*>(st);
+  float4* lo = reinterpret_cast<float4*>(st + X_BYTES);
+#pragma unroll
+  for (int r = 0; r < X_BYTES / 16 / NT; ++r) {
+    const int i = tid + r * NT;
+    float4 v = x[i];
+    if (FAST) {
+      x[i] = make_float4(bf16_value(v.x), bf16_value(v.y), bf16_value(v.z),
+                         bf16_value(v.w));
+    } else {
+      float4 h = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z),
+                             tf32_rna(v.w));
+      x[i] = h;
+      lo[i] = make_float4(tf32_rna(v.x - h.x), tf32_rna(v.y - h.y),
+                          tf32_rna(v.z - h.z), tf32_rna(v.w - h.w));
+    }
+  }
+  // generic-proxy writes -> visible to wgmma's async-proxy reads
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  const uint32_t base = smem_u32(st);
+  const uint64_t a_hi = smem_desc(base);
+  const uint64_t b_hi = smem_desc(base + Q_BOX + wg * V_HALF);
+  const uint64_t a_lo = smem_desc(base + X_BYTES);
+  const uint64_t b_lo = smem_desc(base + X_BYTES + Q_BOX + wg * V_HALF);
+  fence_acc(acc);
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#ifndef SPLIT_NO_PRODUCT
+#pragma unroll
+  for (int k = 0; k < WK / 8; ++k) {
+    const int off = 2 * k;  // 8 tf32 = 32 bytes, in 16-byte units
+    const int keep = (first && k == 0) ? 0 : 1;
+    if (FAST) {
+      mma_tf32(acc, a_hi + off, b_hi + off, keep);
+    } else {  // 3xTF32, small terms first
+      mma_tf32(acc, a_hi + off, b_lo + off, keep);
+      mma_tf32(acc, a_lo + off, b_hi + off, 1);
+      mma_tf32(acc, a_hi + off, b_hi + off, 1);
+    }
+  }
+#endif  // SPLIT_NO_PRODUCT
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(acc);
+}
+
+// A distance in the wgmma route's selection domain: l2 is kept squared
+// (the square root is monotone; the merge kernel takes it at the end).
+template <int M>
+__device__ __forceinline__ float select_dist(float g, float qq, float vq) {
+  if (M == DOT) return -g;
+  if (M == COSINE) return 1.f - g * rsqrtf(qq * vq + 1e-30f);
+  return fmaxf(qq + vq - 2.f * g, 0.f);
+}
+
+// Metric epilogue of this warpgroup's 64 x 64 accumulator into the
+// distance tile dt (stride WCS): register 4j + 2h + e holds row r0 + 8h,
+// column 8j + 2(lane % 4) + e of the half. pen[c] is 0, or +inf for a
+// masked column (so its distance is +inf, never selected); a row with a
+// distance below its threshold is flagged for the selection.
+template <int M>
+__device__ __forceinline__ void epilogue(const float (&acc)[32], float* dt,
+                                         const float* qsq, const float* thr,
+                                         int* hit, const float* vqs,
+                                         const float* pen, int r0, int wg,
+                                         int lane) {
+  const float qq0 = qsq[r0], qq1 = qsq[r0 + 8];
+  const float t0 = thr[r0], t1 = thr[r0 + 8];
+  bool beats0 = false, beats1 = false;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int cc = wg * 64 + 8 * j + 2 * (lane % 4);
+    const float2 vq = *reinterpret_cast<const float2*>(vqs + cc);
+    const float2 p = *reinterpret_cast<const float2*>(pen + cc);
+    const float2 d0 =
+        make_float2(select_dist<M>(acc[4 * j], qq0, vq.x) + p.x,
+                    select_dist<M>(acc[4 * j + 1], qq0, vq.y) + p.y);
+    const float2 d1 =
+        make_float2(select_dist<M>(acc[4 * j + 2], qq1, vq.x) + p.x,
+                    select_dist<M>(acc[4 * j + 3], qq1, vq.y) + p.y);
+    beats0 |= d0.x < t0 || d0.y < t0;
+    beats1 |= d1.x < t1 || d1.y < t1;
+    *reinterpret_cast<float2*>(dt + r0 * WCS + cc) = d0;
+    *reinterpret_cast<float2*>(dt + (r0 + 8) * WCS + cc) = d1;
+  }
+  if (beats0) hit[r0] = 1;
+  if (beats1) hit[r0 + 8] = 1;
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// Same contract as screen_kernel. tm_q / tm_v: TMA maps of the queries
+// [nq, d] (box 32 x TQ) and the table [n, d] (box 32 x TC), 128B swizzle,
+// zero fill past the edges (the ragged end of N, D past a multiple of 32).
+template <bool FAST>
+__global__ void __launch_bounds__(NT, 2)
+    screen_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const float* __restrict__ queries,
+                        const float* __restrict__ v_sq,
+                        const unsigned char* __restrict__ valid, int nq,
+                        int n, int d, int k_sel, int seg_len, int metric,
+                        long long* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int SB = stage_bytes(FAST);
+  // f32: the distance tile lives in the stage the tile's last k block
+  // used (48 KiB, free until its refill, which waits for the selection),
+  // so that two blocks fit an SM at the usual k_sel
+  constexpr bool DT_IN_RING = !FAST;
+  unsigned char* ring = align_1024(smem_raw);                  // [STAGES][SB]
+  long long* lists = reinterpret_cast<long long*>(ring + STAGES * SB);
+  float* dt_own = reinterpret_cast<float*>(lists + TQ * k_sel);  // [TQ][WCS]
+  float* qsq = dt_own + (DT_IN_RING ? 0 : TQ * WCS);           // [TQ]
+  float* thr = qsq + TQ;         // [TQ] worst listed distance of each row
+  int* hit = reinterpret_cast<int*>(thr + TQ);  // [TQ] row beats thr
+  float* vqs = reinterpret_cast<float*>(hit + TQ);  // [TC] the tile's v_sq
+  float* pen = vqs + TC;        // [TC] 0, or +inf for a masked column
+  uint64_t* bars = reinterpret_cast<uint64_t*>(pen + TC);      // [STAGES]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wg = tid / 128;               // warpgroup: column half
+  const int r0 = (warp % 4) * 16 + lane / 4;  // accumulator rows r0, r0+8
+  const int q0 = blockIdx.x * TQ;
+  const int seg = blockIdx.y, n_seg = gridDim.y;
+  const int c_begin = seg * seg_len;
+  const int c_end = min(n, c_begin + seg_len);
+  const int n_kb = (d + WK - 1) / WK;
+  const int n_tiles = (c_end - c_begin + TC - 1) / TC;
+  const int total = n_tiles * n_kb;  // stage loads, in (tile, k block) order
+
+  init_block(lists, qsq, queries, q0, nq, d, k_sel, tid);
+  if (tid < TQ) {
+    thr[tid] = INF_DIST;
+    hit[tid] = 0;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // one thread: start stage load l (in (tile, k block) order)
+  const CUtensorMap* pq = &tm_q;
+  const CUtensorMap* pv = &tm_v;
+  auto load = [&](int l) {
+    if (l < total)
+      issue_stage(ring + l % STAGES * SB, &bars[l % STAGES], pq, pv,
+                  (l % n_kb) * WK, q0, c_begin + (l / n_kb) * TC);
+  };
+  if (tid == 0)
+    for (int l = 0; l < STAGES; ++l) load(l);
+
+  float acc[32] = {};
+  for (int t = 0, l = 0; t < n_tiles; ++t) {
+    const int c0 = c_begin + t * TC;
+    // the tile's column norms and mask, loaded while the product runs
+    // (unconditionally, so that nothing waits on them before the epilogue)
+    float vq_mine = 0.f;
+    unsigned char ok_mine = 0;
+    if (tid < TC && c0 + tid < c_end) {  // rows past the segment: masked
+      vq_mine = v_sq[c0 + tid];
+      ok_mine = valid[c0 + tid];
+    }
+    for (int kb = 0; kb < n_kb; ++kb, ++l) {
+      const int s = l % STAGES;
+      mbar_wait(&bars[s], (l / STAGES) & 1);
+      stage_product<FAST>(acc, ring + s * SB, tid, wg, kb == 0);
+      __syncthreads();  // every warpgroup's wgmma has read stage s
+      if (tid == 0 && !(DT_IN_RING && kb == n_kb - 1)) load(l + STAGES);
+    }
+    float* dt = DT_IN_RING
+                    ? reinterpret_cast<float*>(ring + (l - 1) % STAGES * SB)
+                    : dt_own;
+
+    if (tid < TC) {
+      vqs[tid] = vq_mine;
+      pen[tid] = ok_mine ? 0.f : __int_as_float(0x7f800000);
+    }
+    __syncthreads();
+
+#ifndef SPLIT_NO_EPILOGUE
+    switch (metric) {  // one branch a tile, none a value
+      case COSINE:
+        epilogue<COSINE>(acc, dt, qsq, thr, hit, vqs, pen, r0, wg, lane);
+        break;
+      case DOT:
+        epilogue<DOT>(acc, dt, qsq, thr, hit, vqs, pen, r0, wg, lane);
+        break;
+      default:  // l2 selects on the squared distance, as sqeuclidean
+        epilogue<SQEUCLIDEAN>(acc, dt, qsq, thr, hit, vqs, pen, r0, wg,
+                              lane);
+    }
+#endif  // SPLIT_NO_EPILOGUE
+    __syncthreads();
+#ifndef SPLIT_NO_SELECT
+    select_tile(lists, dt, WCS, k_sel, c0, warp, lane, hit, thr);
+#endif  // SPLIT_NO_SELECT
+    if (DT_IN_RING)  // generic-proxy use of dt before TMA rewrites it
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (DT_IN_RING && tid == 0) load(l - 1 + STAGES);
+  }
+  write_partial(lists, partial, q0, nq, seg, n_seg, k_sel, tid);
+}
+
+size_t wgmma_smem_bytes(int k_sel, bool fast) {
+  static_assert(TQ * WCS * sizeof(float) <= stage_bytes(false),
+                "the f32 distance tile fits one stage");
+  return 1024 + (size_t)STAGES * stage_bytes(fast) +
+         (size_t)TQ * k_sel * sizeof(long long) +
+         (size_t)((fast ? TQ * WCS : 0) + 3 * TQ + 2 * TC) * sizeof(float) +
+         STAGES * sizeof(uint64_t);
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime so the library
+// needs no link against the driver.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Past every cudaError_t: ERR_TMA + the CUresult of a tensor map that
+// could not be made.
+constexpr int ERR_TMA = 100000;
+
+// TMA map of a row-major [rows, d] f32 matrix in [box_rows x 32] boxes.
+int encode_rows(CUtensorMap* map, const void* ptr, int rows, int d,
+                int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ERR_TMA + CUDA_ERROR_NOT_FOUND;
+  cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(float)};
+  cuuint32_t box[2] = {(cuuint32_t)WK, (cuuint32_t)box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                  const_cast<void*>(ptr), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TMA + (int)r;
+}
+
+// ---- merge ------------------------------------------------------------------
 
 // out[q, :] = ascending k_sel smallest of query q's n_seg * k_sel keys:
 // one block per query, bitonic sort of the padded list in shared memory.
+// sqrt_keys: the keys hold squared l2 distances; each becomes the key of
+// its square root before the sort.
 __global__ void __launch_bounds__(MERGE_THREADS)
     merge_kernel(const long long* __restrict__ partial, int width, int p2,
-                 int k_sel, long long* __restrict__ out) {
+                 int k_sel, int sqrt_keys, long long* __restrict__ out) {
   extern __shared__ long long buf[];
   const size_t q = blockIdx.x;
   const long long* src = partial + q * width;
-  for (int i = threadIdx.x; i < p2; i += MERGE_THREADS)
-    buf[i] = i < width ? src[i] : EMPTY;
+  for (int i = threadIdx.x; i < p2; i += MERGE_THREADS) {
+    long long k = i < width ? src[i] : EMPTY;
+    if (sqrt_keys && k != EMPTY)
+      k = pack_key(sqrtf(key_dist(k)), (int)(unsigned)(k & 0xffffffffLL));
+    buf[i] = k;
+  }
   __syncthreads();
   for (int size = 2; size <= p2; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
@@ -246,55 +741,80 @@ __global__ void __launch_bounds__(MERGE_THREADS)
     out[q * k_sel + i] = buf[i];
 }
 
-size_t screen_smem_bytes(int k_sel) {
-  return (size_t)TQ * k_sel * sizeof(long long) +
-         (size_t)(DK * QS + DK * CS + TQ * CS + TQ) * sizeof(float);
+// The screen kernel of a route and mode, and its dynamic shared memory.
+const void* screen_fn(int route, int fast) {
+  if (route == FMA) return reinterpret_cast<const void*>(screen_kernel);
+  return fast ? reinterpret_cast<const void*>(screen_wgmma_kernel<true>)
+              : reinterpret_cast<const void*>(screen_wgmma_kernel<false>);
+}
+
+size_t screen_smem(int route, int k_sel, int fast) {
+  return route == FMA ? fma_smem_bytes(k_sel) : wgmma_smem_bytes(k_sel, fast);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tile sizes, so the Python wrapper can plan segments without copying them.
+// The tile sizes (both routes use TQ x TC), so the Python wrapper can plan
+// segments without copying them.
 int exact_screen_tile_queries() { return TQ; }
 int exact_screen_tile_columns() { return TC; }
 
-// Resident screen blocks per SM for this k_sel; negative cudaError_t on
-// failure.
-int exact_screen_blocks_per_sm(int k_sel) {
-  size_t smem = screen_smem_bytes(k_sel);
+// Resident screen blocks per SM for this route, k_sel and mode; negative
+// cudaError_t on failure.
+int exact_screen_blocks_per_sm(int route, int k_sel, int fast) {
+  const void* fn = screen_fn(route, fast);
+  size_t smem = screen_smem(route, k_sel, fast);
   cudaError_t e = cudaFuncSetAttribute(
-      screen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -(int)e;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, screen_kernel,
-                                                    NT, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, NT, smem);
   return e != cudaSuccess ? -(int)e : blocks;
 }
 
-// Screen + merge on `stream`. partial: [nq, n_seg, k_sel] int64 scratch;
-// out: [nq, k_sel] int64 keys. Returns the cudaError_t of the launches.
-int exact_screen_launch(const void* queries, const void* vectors,
+// Screen (route: 0 fma, 1 wgmma) + merge on `stream`. partial:
+// [nq, n_seg, k_sel] int64 scratch; out: [nq, k_sel] int64 keys. Returns
+// the cudaError_t of the launches, or ERR_TMA + CUresult when a TMA map
+// fails.
+int exact_screen_launch(int route, const void* queries, const void* vectors,
                         const void* v_sq, const void* valid, int nq, int n,
                         int d, int k_sel, int n_seg, int seg_len, int metric,
                         int fast, void* partial, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  size_t smem = screen_smem_bytes(k_sel);
+  size_t smem = screen_smem(route, k_sel, fast);
   cudaError_t e = cudaFuncSetAttribute(
-      screen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      screen_fn(route, fast), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((nq + TQ - 1) / TQ, n_seg);
-  screen_kernel<<<grid, NT, smem, st>>>(
-      static_cast<const float*>(queries), static_cast<const float*>(vectors),
-      static_cast<const float*>(v_sq),
-      static_cast<const unsigned char*>(valid), nq, n, d, k_sel, seg_len,
-      metric, fast, static_cast<long long*>(partial));
+  const float* qp = static_cast<const float*>(queries);
+  const float* vp = static_cast<const float*>(vectors);
+  const float* sqp = static_cast<const float*>(v_sq);
+  const unsigned char* okp = static_cast<const unsigned char*>(valid);
+  long long* pp = static_cast<long long*>(partial);
+  if (route == FMA) {
+    screen_kernel<<<grid, NT, smem, st>>>(qp, vp, sqp, okp, nq, n, d, k_sel,
+                                          seg_len, metric, fast, pp);
+  } else {
+    CUtensorMap tq, tv;
+    int rc = encode_rows(&tq, queries, nq, d, TQ);
+    if (rc == 0) rc = encode_rows(&tv, vectors, n, d, TC);
+    if (rc != 0) return rc;
+    if (fast)
+      screen_wgmma_kernel<true><<<grid, NT, smem, st>>>(
+          tq, tv, qp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pp);
+    else
+      screen_wgmma_kernel<false><<<grid, NT, smem, st>>>(
+          tq, tv, qp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pp);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   int width = n_seg * k_sel, p2 = 1;
   while (p2 < width) p2 <<= 1;
   merge_kernel<<<nq, MERGE_THREADS, p2 * sizeof(long long), st>>>(
-      static_cast<const long long*>(partial), width, p2, k_sel,
+      pp, width, p2, k_sel, route == WGMMA && metric == L2,
       static_cast<long long*>(out));
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from hnsw_tpu_torch.config import canonical_dtype, canonical_metric
-from hnsw_tpu_torch.core.state import bucket_pow2, upload
+from hnsw_tpu_torch.core.state import bucket_pow2, default_device, upload
 from hnsw_tpu_torch.ops.distance import (INF_DIST, np_bf16_round,
                                          np_gram_epilogue)
 from hnsw_tpu_torch.ops.topk import exact_topk, quantized_topk_candidates
@@ -41,11 +41,6 @@ def _pad_queries(queries: np.ndarray) -> np.ndarray:
     if q_pad != nq:
         queries = np.pad(queries, ((0, q_pad - nq), (0, 0)))
     return queries
-
-
-def default_device() -> torch.device:
-    """The first CUDA device when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 class ExactIndex:

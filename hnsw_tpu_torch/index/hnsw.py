@@ -436,7 +436,8 @@ class Graph:
                      device=None) -> "Graph":
         """Resume a crashed, killed or deadline-aborted
         ``build(checkpoint_path=...)`` into a Graph on ``device``
-        (default: the first CUDA device when there is one, else the CPU).
+        (default: the CUDA device; raises without one, pass
+        ``device="cpu"`` for the CPU).
 
         The checkpoint stores every assigned key + vector; nodes the
         build had not yet inserted are exactly those with level < 0.

@@ -22,7 +22,7 @@ with pickle; loading those requires an explicit ``allow_pickle=True``
 opt-in because unpickling untrusted data executes arbitrary code.
 
 Loading takes the serving ``device=`` of the returned Graph (default:
-the first CUDA device when there is one, else the CPU).
+the CUDA device; raises without one, pass ``device="cpu"`` for the CPU).
 """
 
 from __future__ import annotations

@@ -6,9 +6,11 @@ and keeps each query's k_sel best (distance, id) pairs on chip; the
 [Q, N] score matrix never reaches device memory. ``exact_topk_fused``
 then reranks that pool in f32, as the JAX wrapper does.
 
-Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
+Dispatch: a CUDA tensor launches a kernel (or raises); a CPU tensor
 takes ``exact_screen_reference``, the plain torch version of the same
-contract. The kernel's keys are int64 (distance bits high, column id
+contract. On CUDA the shape picks the route (``screen_route``): the
+TMA-fed TF32 ``wgmma`` kernel when TMA can take both operands, else the
+f32 FMA kernel. The kernel's keys are int64 (distance bits high, column id
 low), so unlike the TPU's packed int32 keys they lose no distance bits
 and cannot collide; ties go to the lower id in both versions.
 
@@ -38,14 +40,20 @@ SOURCE = os.path.join(_PKG, "csrc", "exact_screen.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hnsw_tpu_torch")
 _METRIC_CODE = {"cosine": 0, "l2": 1, "sqeuclidean": 2, "dot": 3}
 _EMPTY_KEY = (1 << 63) - 1
+#: exact_screen_launch returns this + the CUresult when a TMA map fails
+_ERR_TMA = 100000
 #: most candidates the merge kernel sorts per query (n_seg * k_sel)
 _MERGE_MAX = 4096
 K_SEL_MAX = 128
 #: table rows per matmul + sort step of the plain version
 _REF_CHUNK = 65536
 
-#: kernel launches so far (one per screen call on a CUDA tensor)
+#: the kernels of the library, by its route code
+ROUTES = {"fma": 0, "wgmma": 1}
+#: kernel launches so far (one per screen call on a CUDA tensor), in all
+#: and by route
 launches = 0
+launches_by_route = {"wgmma": 0, "fma": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -61,9 +69,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def build() -> str:
+def build(defines=()) -> str:
     """Compile ``csrc/exact_screen.cu`` if the library is missing or older
-    than the source; returns the library's path."""
+    than the source; returns the library's path. ``defines``: macros
+    passed as ``-D`` (the timing variants of ``tools/screen_split.py``;
+    the port defines none)."""
     so = os.path.join(BUILD_DIR, "libexact_screen.so")
     if (os.path.exists(so)
             and os.path.getmtime(so) >= os.path.getmtime(SOURCE)):
@@ -72,7 +82,7 @@ def build() -> str:
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", SOURCE, "-o", tmp]
+           "-Xptxas", "-v", *(f"-D{m}" for m in defines), SOURCE, "-o", tmp]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
@@ -88,24 +98,26 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.exact_screen_launch.argtypes = [vp, vp, vp, vp] + [ci] * 8 \
+            lib.exact_screen_launch.argtypes = [ci] + [vp] * 4 + [ci] * 8 \
                 + [vp, vp, vp]
             lib.exact_screen_launch.restype = ci
-            lib.exact_screen_blocks_per_sm.argtypes = [ci]
+            lib.exact_screen_blocks_per_sm.argtypes = [ci, ci, ci]
             lib.exact_screen_blocks_per_sm.restype = ci
-            lib.exact_screen_tile_queries.restype = ci
-            lib.exact_screen_tile_columns.restype = ci
+            for fn in (lib.exact_screen_tile_queries,
+                       lib.exact_screen_tile_columns):
+                fn.argtypes = []
+                fn.restype = ci
             _lib = lib
         return _lib
 
 
-def _plan_segments(lib, device, nq: int, n: int, k_sel: int
-                   ) -> Tuple[int, int]:
+def _plan_segments(lib, device, route: int, nq: int, n: int, k_sel: int,
+                   fast: bool) -> Tuple[int, int]:
     """(n_seg, seg_len): cut N so that the (query tiles x segments) grid
-    fills about two waves of resident blocks."""
+    of ``route``'s kernel fills about two waves of resident blocks."""
     tq = lib.exact_screen_tile_queries()
     tc = lib.exact_screen_tile_columns()
-    per_sm = lib.exact_screen_blocks_per_sm(k_sel)
+    per_sm = lib.exact_screen_blocks_per_sm(route, k_sel, int(fast))
     if per_sm <= 0:
         raise RuntimeError(f"exact_screen occupancy query failed "
                            f"(cudaError {-per_sm})")
@@ -128,7 +140,19 @@ def _decode(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return dists, ids
 
 
-def _screen_cuda(queries, vectors, v_sq, valid, k_sel, metric, fast_math):
+def screen_route(queries: torch.Tensor, vectors: torch.Tensor) -> str:
+    """The CUDA kernel a screen of these tensors takes: "wgmma" when TMA
+    can copy both matrices (D % 4 == 0, so a row is a multiple of 16
+    bytes, and 16-byte aligned base pointers), else "fma"."""
+    if (queries.shape[-1] % 4 == 0 and queries.data_ptr() % 16 == 0
+            and vectors.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "fma"
+
+
+def _screen_cuda(queries, vectors, v_sq, valid, k_sel, metric, fast_math,
+                 route):
+    """Checks, then one launch of ``route``'s screen + merge."""
     global launches
     dev = queries.device
     for name, t, dt in (("queries", queries, torch.float32),
@@ -162,19 +186,26 @@ def _screen_cuda(queries, vectors, v_sq, valid, k_sel, metric, fast_math):
     if nq == 0:
         return _decode(keys)
     lib = _load()
+    code = ROUTES[route]
     with torch.cuda.device(dev):
-        n_seg, seg_len = _plan_segments(lib, dev, nq, n, k_sel)
+        n_seg, seg_len = _plan_segments(lib, dev, code, nq, n, k_sel,
+                                        fast_math)
         partial = torch.empty((nq, n_seg, k_sel), dtype=torch.int64,
                               device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.exact_screen_launch(
-            queries.data_ptr(), vectors.data_ptr(), v_sq.data_ptr(),
+            code, queries.data_ptr(), vectors.data_ptr(), v_sq.data_ptr(),
             valid.data_ptr(), nq, n, d, k_sel, n_seg, seg_len,
             _METRIC_CODE[metric], int(fast_math), partial.data_ptr(),
             keys.data_ptr(), stream)
+    if rc >= _ERR_TMA:
+        raise RuntimeError(f"exact_screen ({route}): no TMA map, CUresult "
+                           f"{rc - _ERR_TMA}")
     if rc != 0:
-        raise RuntimeError(f"exact_screen launch failed: cudaError {rc}")
+        raise RuntimeError(f"exact_screen ({route}) launch failed: "
+                           f"cudaError {rc}")
     launches += 1
+    launches_by_route[route] += 1
     return _decode(keys)
 
 
@@ -215,11 +246,12 @@ def exact_screen(queries: torch.Tensor, vectors: torch.Tensor,
                  metric: str = "cosine", fast_math: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Screening pass: (dists [Q, k_sel], ids [Q, k_sel]). CUDA tensors go
-    through the kernel, CPU tensors through ``exact_screen_reference``."""
+    through the kernel of ``screen_route``, CPU tensors through
+    ``exact_screen_reference``."""
     metric = canonical_metric(metric)
     if queries.is_cuda:
         return _screen_cuda(queries, vectors, v_sq, valid, k_sel, metric,
-                            fast_math)
+                            fast_math, screen_route(queries, vectors))
     if vectors.is_cuda:
         raise ValueError("queries are on the CPU but vectors are on CUDA")
     return exact_screen_reference(queries, vectors, v_sq, valid,
@@ -232,9 +264,14 @@ def rerank_pool(queries: torch.Tensor, vectors: torch.Tensor,
                 metric: str = "cosine"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """f32 rerank of a screened pool (ids [Q, k_sel], -1 = none) ->
-    (dists [Q, k], ids [Q, k]) exact-ordered, -1/INF for misses."""
+    (dists [Q, k], ids [Q, k]) exact-ordered, -1/INF for misses. Equal
+    f32 distances go to the lower id, whatever order the screen left the
+    pool in (the screens of the two kernels and the plain version round
+    differently)."""
     q = queries.to(torch.float32)
     n = vectors.shape[0]
+    ids = torch.sort(torch.where(ids >= 0, ids, n), dim=1).values
+    ids = torch.where(ids < n, ids, -1)
     safe = torch.clamp(ids, 0, n - 1)
     q_sq = torch.sum(q * q, dim=-1)
     d = gathered_dist(q, vectors[safe].to(torch.float32), v_sq[safe], q_sq,

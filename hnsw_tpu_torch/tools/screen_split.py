@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Where the wgmma screen's time goes, on one NVIDIA GPU.
+
+    python3 hnsw_tpu_torch/tools/screen_split.py [--out DIR]
+
+Builds csrc/exact_screen.cu three more times with parts of
+``screen_wgmma_kernel`` compiled out (``-DSPLIT_NO_SELECT``,
+``-DSPLIT_NO_EPILOGUE``, ``-DSPLIT_NO_PRODUCT``: guards in the source),
+and times each build's screen at the exact tier's shape (Q=1024,
+N=1,048,576, D=128, k_sel=18, l2; median of 5 CUDA-event reps), f32 and
+fast_math:
+
+* full: the kernel as shipped;
+* no selection: the epilogue still writes the distance tile;
+* staging + product: no epilogue and no selection;
+* staging: no epilogue, no selection and no wgmma (TMA, the conversion
+  pass and the barriers alone).
+
+The differences split the time into staging, product, epilogue and
+selection. The variants' results are wrong by design; only their times
+mean anything. Needs nvcc and a CUDA card; the builds go to ``--out``
+(default build/screen_split).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+
+from hnsw_tpu_torch.ops import exact_screen as es  # noqa: E402
+
+#: variant -> the parts of screen_wgmma_kernel compiled out
+VARIANTS = {"full": (), "no selection": ("SELECT",),
+            "staging + product": ("SELECT", "EPILOGUE"),
+            "staging": ("SELECT", "EPILOGUE", "PRODUCT")}
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=os.path.join(
+        os.path.dirname(es.BUILD_DIR), "screen_split"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("screen_split: needs a CUDA card", file=sys.stderr)
+        return 2
+    g = torch.Generator(device="cuda").manual_seed(0)
+    v = torch.randn((1 << 20, 128), generator=g, device="cuda")
+    q = torch.randn((1024, 128), generator=g, device="cuda")
+    sq = (v * v).sum(-1)
+    valid = torch.ones(v.shape[0], dtype=torch.bool, device="cuda")
+    print(f"# {torch.cuda.get_device_name(0)}; screen at Q=1024 N=1048576 "
+          f"D=128 k_sel=18 l2, wgmma route, median of 5 reps")
+    for name, parts in VARIANTS.items():
+        es.BUILD_DIR = os.path.join(
+            args.out, name.replace(" ", "_").replace("+", ""))
+        es._lib = None
+        es.build(tuple(f"SPLIT_NO_{p}" for p in parts))
+        lib = es._load()
+        row = []
+        for fast in (False, True):
+            ms = cuda_ms(lambda: es._screen_cuda(q, v, sq, valid, 18, "l2",
+                                                 fast, "wgmma"))
+            per_sm = lib.exact_screen_blocks_per_sm(1, 18, int(fast))
+            row.append(f"{'fast_math' if fast else 'f32'} {ms:.3f} ms "
+                       f"({per_sm} blocks/SM)")
+        print(f"  {name}: " + ", ".join(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

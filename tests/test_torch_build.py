@@ -189,7 +189,8 @@ def test_construction_descent_candidates_match_jax():
     sq = _sq(v)
     alive = np.ones(n, bool)
     jg = jstate.from_host(v, sq, nb[:, :n], levels[:n], alive, entry)
-    tg = tstate.from_host(v, sq, nb[:, :n], levels[:n], alive, entry)
+    tg = tstate.from_host(v, sq, nb[:, :n], levels[:n], alive, entry,
+                          device="cpu")
     q = _ints(6, 64, 16)
     jd, ji = (np.asarray(x) for x in jbuild.construction_descent(
         jg, jnp.asarray(q), ef=48, m_out=24, metric="l2", max_hops=64))

@@ -8,6 +8,9 @@ Both versions screen the same tensors; the pools are then reranked in f32
 by the same code. f32: ids equal, distances within 1e-5 (both are
 reranked in f32). fast_math: id overlap >= 0.999 (the bf16 screens may
 cut their pools at different places), matched distances within 1e-5.
+Each case also checks which kernel ran (``launches_by_route``): the TF32
+``wgmma`` kernel where D % 4 == 0 and the rows are 16-byte aligned, the
+f32 FMA kernel elsewhere.
 """
 
 import numpy as np
@@ -37,11 +40,21 @@ def _case(device, n, n_valid, nq, d=64, seed=0):
     return q, v, (v * v).sum(-1), valid
 
 
-def _both(q, v, sq, valid, k, metric, fast):
+def _route(d):
+    return "wgmma" if d % 4 == 0 else "fma"
+
+
+def _reset():
     es.launches = 0
+    es.launches_by_route.update(wgmma=0, fma=0)
+
+
+def _both(q, v, sq, valid, k, metric, fast, route=None):
+    _reset()
     dk, ik = es.exact_topk_fused(q, v, sq, valid, k=k, metric=metric,
                                  fast_math=fast)
     assert es.launches == 1
+    assert es.launches_by_route[route or _route(q.shape[1])] == 1
     k_sel = min(k + 8, 128, v.shape[0])
     _, ids = es.exact_screen_reference(q, v, sq, valid, k_sel=k_sel,
                                        metric=metric, fast_math=fast)
@@ -119,3 +132,110 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         es.exact_screen(q, v.t(), sq, valid, k_sel=8)
     with pytest.raises(ValueError):
         es.exact_screen(q, v.cpu(), sq, valid, k_sel=8)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("d", [4, 32, 36, 128])
+def test_wgmma_tile_product_matches_matmul(cuda, d, fast):
+    """One 64 x 128 tile through the TMA-fed TF32 wgmma kernel: with the
+    dot metric and k_sel = N = 128 the screen returns every column, so
+    -dist is the kernel's Gram. Held against a float64 product of the
+    same operands (bf16-rounded for fast_math) within 1e-5 of
+    sum |q_i v_i|: 3xTF32 drops ~2^-22 of it and f32 sums add ~D 2^-24,
+    while one TF32 pass on f32 operands would be off by ~1e-4 and a
+    wrong descriptor or swizzle by O(1)."""
+    q, v, sq, valid = _case(cuda, 128, 128, 64, d=d, seed=d)
+    _reset()
+    dist, ids = es.exact_screen(q, v, sq, valid, k_sel=128, metric="dot",
+                                fast_math=fast)
+    assert es.launches_by_route["wgmma"] == 1
+    assert (torch.sort(ids, dim=1).values
+            == torch.arange(128, device=cuda)).all()
+    gram = torch.empty_like(dist).scatter_(1, ids, -dist)
+    qq, vv = q.double(), v.double()
+    if fast:
+        qq, vv = q.bfloat16().double(), v.bfloat16().double()
+    want = qq @ vv.T
+    scale = qq.abs() @ vv.abs().T
+    err = ((gram.double() - want).abs() / scale).max().item()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sqeuclidean", "dot"])
+def test_wgmma_route_at_d128_matches_plain(cuda, metric, fast):
+    dk, ik, dp, ip = _both(*_case(cuda, 50_000, 47_000, 128, d=128,
+                                  seed=7), 10, metric, fast, "wgmma")
+    if fast:
+        hits = sum(len(set(a) & set(b)) for a, b in zip(ik, ip))
+        assert hits / ip.size >= 0.999
+    else:
+        np.testing.assert_array_equal(ik, ip)
+    same = ik == ip
+    np.testing.assert_allclose(dk[same], dp[same], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("nq", [1, 37])
+def test_wgmma_small_batches(cuda, nq):
+    dk, ik, dp, ip = _both(*_case(cuda, 33_000, 33_000, nq, d=128), 10,
+                           "l2", False, "wgmma")
+    np.testing.assert_array_equal(ik, ip)
+
+
+def test_k_sel_128_at_d960_screen_keys(cuda):
+    """The shared-memory budget case: k_sel = 128 key lists beside the
+    ring at D = 960 (30 stages a tile)."""
+    q, v, sq, valid = _case(cuda, 6_000, 6_000, 70, d=960, seed=9)
+    _reset()
+    dk, ik = es.exact_screen(q, v, sq, valid, k_sel=128, metric="l2")
+    assert es.launches_by_route["wgmma"] == 1
+    dp, ip = es.exact_screen_reference(q, v, sq, valid, k_sel=128,
+                                       metric="l2")
+    assert (ik == ip).float().mean() >= 0.99
+    torch.testing.assert_close(dk, dp, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("seg_len", [1000, 4_321])
+def test_segment_boundary_inside_a_tile(cuda, monkeypatch, seg_len):
+    """N = 20,001 (not a multiple of the 128-column tile) cut into
+    segments whose ends fall inside a tile: the rows TMA loads past a
+    segment's end belong to the next segment and are masked."""
+    q, v, sq, valid = _case(cuda, 20_001, 19_000, 70, d=128, seed=11)
+    monkeypatch.setattr(es, "_plan_segments",
+                        lambda *a: (-(-v.shape[0] // seg_len), seg_len))
+    for fast in (False, True):
+        dk, ik, dp, ip = _both(q, v, sq, valid, 10, "cosine", fast,
+                               "wgmma")
+        if not fast:
+            np.testing.assert_array_equal(ik, ip)
+        same = ik == ip
+        assert same.mean() >= 0.99
+        np.testing.assert_allclose(dk[same], dp[same], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d", [7, 128])
+def test_misaligned_or_odd_rows_take_the_fma_route(cuda, d):
+    """A table whose base pointer is 4 bytes past 16-byte alignment, and
+    D = 7 (a row of 28 bytes), cannot be TMA-copied: the FMA kernel runs
+    and gives the plain version's ids."""
+    n = 30_000
+    g = torch.Generator(device=cuda).manual_seed(d)
+    v = torch.randn(n * d + 1, generator=g, device=cuda)[1:].view(n, d)
+    q = torch.randn((50, d), generator=g, device=cuda)
+    assert es.screen_route(q, v) == "fma"
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    dk, ik, dp, ip = _both(q, v, (v * v).sum(-1), valid, 10, "l2", False,
+                           "fma")
+    np.testing.assert_array_equal(ik, ip)
+
+
+def test_wrapper_raises_when_the_library_fails_to_load(cuda, monkeypatch):
+    def broken():
+        raise RuntimeError("nvcc failed (1): simulated")
+    q, v, sq, valid = _case(cuda, 1_000, 1_000, 4)
+    monkeypatch.setattr(es, "_lib", None)
+    monkeypatch.setattr(es, "build", broken)
+    _reset()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        es.exact_screen(q, v, sq, valid, k_sel=8)
+    assert es.launches == 0

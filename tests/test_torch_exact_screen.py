@@ -8,7 +8,15 @@ rerank: ids equal and distances within 1e-5 (f32 sums in another
 order). With fast_math both round the Gram operands to bf16, but at other
 places in the two frameworks, so the pools may be cut at different
 places: id overlap >= 0.999, matched distances within 1e-5.
+
+The CUDA screen's tensor-core route cannot run here, so its arithmetic is
+emulated below (``cvt.rna.tf32.f32`` in torch) and held to the same
+contract: 3xTF32 Gram products within 1e-6 of the f32 Gram relative to
+sum |q_i v_i| and the same reranked ids as JAX, and a bf16-rounded value
+exact in TF32, so one TF32 pass is the fast_math product.
 """
+
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +27,8 @@ torch.set_num_threads(1)
 
 from hnsw_tpu.ops.pallas_exact import exact_topk_fused as jax_fused  # noqa
 from hnsw_tpu_torch.ops import exact_screen as es  # noqa: E402
+from hnsw_tpu_torch.ops.distance import _epilogue, bf16_round  # noqa: E402
+from hnsw_tpu_torch.ops.topk import topk_smallest  # noqa: E402
 
 METRICS = ["cosine", "l2", "sqeuclidean", "dot"]
 
@@ -145,3 +155,124 @@ def test_screen_dispatch_and_limits():
     with pytest.raises(ValueError):
         es.exact_topk_fused(torch.from_numpy(q), torch.from_numpy(v), sq,
                             valid, k=121)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on finite f32: round to nearest at the low 13
+    mantissa bits, ties away from zero (adding half a kept ulp to the
+    sign-magnitude bits rounds the magnitude up at a tie)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _gram_3xtf32(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The wgmma route's f32 Gram: hi = tf32(x), lo = tf32(x - hi) for
+    both operands, hi*lo + lo*hi + hi*hi; the products are exact in f32
+    and summed here in float64."""
+    qh, vh = _tf32_rna(q), _tf32_rna(v)
+    ql, vl = _tf32_rna(q - qh), _tf32_rna(v - vh)
+    qh, ql, vh, vl = (t.double() for t in (qh, ql, vh, vl))
+    return qh @ vl.T + ql @ vh.T + qh @ vh.T
+
+
+def test_tf32_rna_emulation_rounds_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10                       # TF32 keeps 10 mantissa bits
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0, -0.0], dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + ulp, 3.0,
+                         -0.0], dtype=torch.float32)
+    got = _tf32_rna(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    r = torch.from_numpy(_data(15, 500, 64))
+    assert ((_tf32_rna(r).view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((_tf32_rna(r) - r).abs() <= r.abs() * 2.0 ** -11).all()
+
+
+@pytest.mark.parametrize("d", [32, 24])
+def test_3xtf32_gram_within_1e6_of_f32(d):
+    """On the JAX test inputs: |gram_3xtf32 - f32 Gram| <= 1e-6 of
+    sum |q_i v_i| (not of the Gram, which may cancel to near zero); the
+    f32 Gram is the float64 product rounded once."""
+    v = torch.from_numpy(_data(1, 2500, d))
+    q = torch.from_numpy(_data(2, 40, d))
+    g3 = _gram_3xtf32(q, v).float().double()
+    g32 = (q.double() @ v.double().T).float().double()
+    scale = q.double().abs() @ v.double().abs().T
+    assert ((g3 - g32).abs() / scale).max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_3xtf32_screen_then_f32_rerank_matches_jax(metric):
+    """Screening with the emulated 3xTF32 Gram (the kernel's epilogue,
+    mask and k_sel = k + 8 pool) and reranking in f32 gives JAX's fused
+    ids; distances within 1e-5 (f32 sums in another order)."""
+    v, q = _data(1, 2500), _data(2, 40)
+    valid = np.ones(2500, bool)
+    valid[::7] = False
+    k = 10
+    sq = np.sum(v * v, axis=1).astype(np.float32)
+    jd, ji = jax_fused(q, v, jnp.asarray(sq), jnp.asarray(valid), k=k,
+                       metric=metric, interpret=True)
+    tq, tv, tsq = (torch.from_numpy(x) for x in (q, v, sq))
+    d = _epilogue(metric, _gram_3xtf32(tq, tv).float(),
+                  torch.sum(tq * tq, dim=-1), tsq)
+    d = torch.where(torch.from_numpy(valid)[None, :], d, float(es.INF_DIST))
+    _, ids = topk_smallest(d, k + 8)
+    td, ti = es.rerank_pool(tq, tv, tsq, ids, k=k, metric=metric)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji, np.int64))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-5,
+                               rtol=0)
+
+
+def test_bf16_values_are_exact_in_tf32():
+    """fast_math rounds both operands to bf16 (8 significand bits); TF32
+    keeps 11, so tf32(bf16(x)) == bf16(x) bit for bit and one TF32 pass
+    gives exactly the bf16 x bf16 -> f32 products fast_math means."""
+    r = np.random.default_rng(16)
+    x = torch.from_numpy(np.concatenate([
+        _data(17, 400, 64).ravel(),
+        (r.standard_normal(4096) * 10.0 ** r.integers(-30, 30, 4096))
+        .astype(np.float32)]))
+    b = bf16_round(x)
+    assert torch.equal(_tf32_rna(b).view(torch.int32), b.view(torch.int32))
+    assert not torch.equal(_tf32_rna(x), x)      # f32 values are not
+
+
+def test_screen_split_tool_guards_three_parts_of_the_wgmma_kernel(
+        tmp_path, monkeypatch):
+    """hnsw_tpu_torch/tools/screen_split.py builds the kernel with
+    -DSPLIT_NO_<part> to time the rest: each part it names must have one
+    guard in the source around that part (the selection call, the
+    epilogue, the product loop), and build() must pass the macros to
+    nvcc, so that the tool keeps measuring what it names."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(es.SOURCE), os.pardir, "tools",
+                        "screen_split.py")
+    spec = importlib.util.spec_from_file_location("screen_split", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(es.SOURCE) as f:
+        src = f.read()
+    want = {"SELECT": "select_tile(", "EPILOGUE": "epilogue<SQEUCLIDEAN>",
+            "PRODUCT": "mma_tf32(acc, a_hi + off, b_lo + off, keep)"}
+    assert {p for parts in tool.VARIANTS.values() for p in parts} == set(want)
+    for name, inside in want.items():
+        assert src.count(f"#ifndef SPLIT_NO_{name}\n") == 1
+        a = src.index(f"#ifndef SPLIT_NO_{name}\n")
+        b = src.index(f"#endif  // SPLIT_NO_{name}\n")
+        assert a < b and inside in src[a:b]
+
+    seen = []
+
+    def fake_run(cmd, **kw):
+        seen.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "w").close()
+        return types.SimpleNamespace(returncode=0, stderr="")
+    monkeypatch.setattr(es, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(es, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(es.subprocess, "run", fake_run)
+    es.build(("SPLIT_NO_SELECT", "SPLIT_NO_EPILOGUE"))
+    assert "-DSPLIT_NO_SELECT" in seen[0] and "-DSPLIT_NO_EPILOGUE" in seen[0]
+    assert (tmp_path / "libexact_screen.so").exists()

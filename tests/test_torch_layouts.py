@@ -105,7 +105,7 @@ def test_from_host_matches_jax_in_every_layout(layout):
     jkw, tkw = LAYOUTS[layout]
     host = _random_host()
     jg = jstate.from_host(*host, metric="l2", **jkw)
-    tg = tstate.from_host(*host, metric="l2", **tkw)
+    tg = tstate.from_host(*host, metric="l2", device="cpu", **tkw)
     _assert_fields_equal(tg, jg)
     if layout == "quantized":
         assert tuple(tg.vectors.shape) == (1, 16) and tg.cap == 64
@@ -126,7 +126,8 @@ def test_device_graph_from_numpy_round_trips(layout):
     jg = jstate.from_host(*host, metric="cosine", **jkw)
     tg = device_graph_from_numpy(jax_fields(jg), "cpu")
     _assert_fields_equal(tg, jg)
-    _assert_fields_equal(tstate.from_host(*host, metric="cosine", **tkw), jg)
+    _assert_fields_equal(
+        tstate.from_host(*host, metric="cosine", device="cpu", **tkw), jg)
 
 
 def test_quantize_rows_and_block_fit_match_jax():

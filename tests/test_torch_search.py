@@ -144,7 +144,7 @@ def test_from_host_matches_jax():
     lv = r.integers(-1, L, n).astype(np.int32)
     alive = r.random(n) > 0.2
     jg = jstate.from_host(vec, sq, nb, lv, alive, 4)
-    tg = tstate.from_host(vec, sq, nb, lv, alive, 4)
+    tg = tstate.from_host(vec, sq, nb, lv, alive, 4, device="cpu")
     for name, want in jg._asdict().items():
         got = getattr(tg, name, None)
         if want is None:
@@ -152,14 +152,17 @@ def test_from_host_matches_jax():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want), name)
     assert tg.cap == jg.cap == 64 and tg.num_layers == jg.num_layers
     with pytest.raises(ValueError, match="2\\^30"):
-        tstate.from_host(vec, sq, nb, lv, alive, 4, cap_pad=1 << 30)
+        tstate.from_host(vec, sq, nb, lv, alive, 4, cap_pad=1 << 30,
+                         device="cpu")
     # the int8 traversal store, once not ported, is JAX's bit for bit
     jq = jstate.from_host(vec, sq, nb, lv, alive, 4, quantize=True)
-    tq = tstate.from_host(vec, sq, nb, lv, alive, 4, quantize=True)
+    tq = tstate.from_host(vec, sq, nb, lv, alive, 4, quantize=True,
+                          device="cpu")
     np.testing.assert_array_equal(tq.qvec.numpy(), np.asarray(jq.qvec))
     np.testing.assert_array_equal(tq.qscale.numpy(), np.asarray(jq.qscale))
     with pytest.raises(ValueError, match="hbm_vectors"):
-        tstate.from_host(vec, sq, nb, lv, alive, 4, hbm_vectors=False)
+        tstate.from_host(vec, sq, nb, lv, alive, 4, hbm_vectors=False,
+                         device="cpu")
 
 
 def test_device_graph_from_numpy_rejects_other_layouts(graphs):
