@@ -12,6 +12,8 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    sources in the checkout;
 3. kernel vs plain: exact_topk_fused through each K1 route against the
    same wrapper with the plain torch screen in its place, on the card;
+   (the exact tier's shapes, and the adaptive engine's: a 131,072-row
+   table, batches of 1,024 and single queries padded to 8 rows);
    then the screen alone timed per route and mode at the exact tier's
    shape (Q=1024, N=1,048,576, D=128, k_sel=18, l2) and, for the FMA
    route, at glove-50's, each beside its bound, with the plain version
@@ -35,17 +37,34 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    configuration (fast_math, block_layout, entry_mode="pivots") at ef 192
    and 384, hbm_mode float16 and quantized at ef 192, and compact upper
    layers at ef 64 (ids equal to the dense layout's);
-9. the device wave builder on the same 100k vectors (wave 2048): a
-   build checked against the native build's recall and served on the
-   card and the CPU, the int8-block fp16 descent, batch_delete of every
-   10th key with refine=True, and a build aborted at its deadline,
-   served as its inserted prefix and finished by Graph.resume_build;
-   the recall oracle is the exact tier (the kernel) on the card;
-10. a device build at SIFT1M's shape (1,048,576 x 128, L2, synthetic rows
-   from a seed) through Graph.build's "auto" routing: build time, peak
-   memory, levels, recall@10 against the exact tier at ef 64 and 192,
-   and a profile of one mid-build wave split into descent, row assembly
-   (diversity selection) and reverse update.
+9. the device wave builder on the first 50,000 of the same vectors (wave
+   2048): a build held to the recall of the native build of the same
+   50,000 (phase 5's graph, measured when it held only them) and
+   served on the card and the CPU, the int8-block fp16
+   descent, batch_delete of every 10th key with refine=True, and a build
+   aborted at its deadline, served as its inserted prefix and finished by
+   Graph.resume_build; the recall oracle is the exact tier (the kernel)
+   on the card;
+10. a device build of 262,144 x 128 L2 rows (synthetic, from a seed) by
+   method="device", after a check that "auto" sends 1,048,576 rows to
+   the wave builder: build time, peak memory, levels, recall@10 against
+   the exact tier at ef 64 and 192, and a profile of one mid-build wave
+   split into descent, row assembly (diversity selection) and reverse
+   update;
+11. IVFIndex on 1,000,000 x 128 cosine rows of a 1,024-centre Gaussian
+   mixture, 1,024 partitions: training, assignment, commit and block
+   table times, then nprobe 1, 4, 16, 64 and "auto": recall@10 against
+   the exact tier on the card and QPS of 1,024-query batches, with the
+   host's share of a batch;
+12. AdaptiveHybridIndex (exact_threshold=500, one int8 capacity arm) on the
+   100,000 x 128 cosine rows of phase 5: warm(), 16 batches of 1,024
+   queries and 1,024 single queries, recall@10 against the exact tier,
+   the arms that served, K1's launches by the exact arm and the recall
+   probes, fallback_errors == 0; and the LSH arm's recall and
+   candidate-set sizes;
+13. bench.py's configuration (10,000 x 128 cosine, k=10): HybridIndex with
+   target_recall 0.95 and 1.0 and without a target, batch_delete of
+   every 10th key, and AdaptiveHybridIndex over 1,024 single queries.
 
 The last two lines are the kernel table (one entry a K1 route, with its
 launches on the main path) and
@@ -69,11 +88,21 @@ N_EXACT, N_GRAPH, DIM = 1_000_000, 100_000, 128
 N_GLOVE, D_GLOVE = 1_183_514, 50
 N_CAPACITY, N_CLUSTER = 10_000_000, 1_000_000
 BATCH, N_BATCHES = 1024, 8
-#: phase 10: past the 1,000,000 rows up to which "auto" routes to the
-#: native builder (hnsw_tpu_torch/index/hnsw.py _route)
-N_SIFT, WAVE = 1_048_576, 2048
+#: phase 9: the wave builder's modes, on the first rows of phase 5's set
+N_DEVICE_BUILD = 50_000
+#: phase 10: one long device build (128 waves), and the row count whose
+#: "auto" routing it checks (hnsw_tpu_torch/index/hnsw.py _route)
+N_SIFT, N_AUTO_DEVICE, WAVE = 262_144, 1_048_576, 2048
 #: the mid-build wave phase 10 profiles
-PROFILE_WAVE = 256
+PROFILE_WAVE = 64
+#: phase 11: rows, mixture centres (= partitions) and the nprobe ladder
+N_IVF, IVF_PARTS, IVF_NPROBES = 1_000_000, 1024, (1, 4, 16, 64)
+#: phase 12: served batches and single queries of the adaptive engine
+N_ADAPT_BATCHES, N_SINGLE = 16, 1024
+#: phase 12: queries also held against the numpy oracle
+N_NUMPY = 32
+#: phase 13: bench.py's rows
+N_BENCH = 10_000
 #: where the index phases serve; the smoke itself refuses to run off CUDA
 DEVICE = "cuda"
 KERNEL = {"route": "cuda",
@@ -234,6 +263,7 @@ def phase_kernel_vs_plain() -> dict:
     """exact_topk_fused through each K1 route against the plain screen in
     its place, both reranked in f32 on the card; then the screen alone
     timed per route."""
+    from hnsw_tpu_torch.index.exact import _pad_queries
     from hnsw_tpu_torch.ops.exact_screen import (exact_screen_reference,
                                                  exact_topk_fused,
                                                  rerank_pool, screen_route)
@@ -263,6 +293,15 @@ def phase_kernel_vs_plain() -> dict:
     q_glove = torch.randn((1000, D_GLOVE), generator=gen, device="cuda")
     cases += [(f"GloVe-50 shape N={N_GLOVE} D={D_GLOVE} Q=1000 cosine "
                f"fast={f}", q_glove, glove, 10, "cosine", f)
+              for f in (False, True)]
+    # the adaptive engine's exact arm and recall probes (phase 12):
+    # N_GRAPH rows in a table padded to a power of two, cosine, batches
+    # of BATCH and single queries (below)
+    n_adp = 1 << (N_GRAPH - 1).bit_length()
+    adp = table(n_adp, N_GRAPH)
+    q_adp = torch.randn((BATCH, DIM), generator=gen, device="cuda")
+    cases += [(f"adaptive exact arm N={n_adp} ({N_GRAPH} valid) Q={BATCH} "
+               f"cosine fast={f}", q_adp, adp, 10, "cosine", f)
               for f in (False, True)]
 
     max_err = {"wgmma": 0.0, "fma": 0.0}
@@ -305,6 +344,47 @@ def phase_kernel_vs_plain() -> dict:
         t_k, t_p = cuda_ms(kern), cuda_ms(plain)
         print(f"  {label}: kernel ({route}) {t_k:.3f} ms, plain {t_p:.3f} "
               f"ms", flush=True)
+
+    # single queries as the exact tier hands them to the kernel: padded
+    # with zero rows to 8, one launch a query; row 0 is compared
+    v, sq, valid = adp
+    singles = [torch.from_numpy(_pad_queries(
+        q_adp[i:i + 1].cpu().numpy())).cuda() for i in range(32)]
+    for fast in (False, True):
+        label = (f"adaptive exact arm N={n_adp} single queries "
+                 f"(Q=1 padded to {singles[0].shape[0]}) cosine fast={fast}")
+        _reset_launches()
+        got = [exact_topk_fused(q, v, sq, valid, k=10, metric="cosine",
+                                fast_math=fast) for q in singles]
+        check(_launches() == {"wgmma": len(singles), "fma": 0},
+              f"{label}: one launch of the wgmma kernel a query")
+        dk, ik = (torch.cat([g[j][:1] for g in got]).cpu().numpy()
+                  for j in (0, 1))
+        want = []
+        for q in singles:
+            _, ids = exact_screen_reference(q, v, sq, valid, k_sel=18,
+                                            metric="cosine", fast_math=fast)
+            want.append(rerank_pool(q, v, sq, ids, k=10, metric="cosine"))
+        dp, ip = (torch.cat([w[j][:1] for w in want]).cpu().numpy()
+                  for j in (0, 1))
+        err = _matched_err(dk, ik, dp, ip)
+        max_err["wgmma"] = max(max_err["wgmma"], err)
+        if fast:
+            ov = _overlap(ik, ip)
+            check(ov >= 0.99 and err <= 1e-5,
+                  f"{label}: id overlap {ov:.5f} >= 0.99 over "
+                  f"{len(singles)} queries, matched dists within 1e-5 "
+                  f"({err:.2e})")
+        else:
+            check(np.array_equal(ik, ip) and np.isfinite(dk).all()
+                  and err <= 1e-5,
+                  f"{label}: ids equal over {len(singles)} queries, dists "
+                  f"within 1e-5 ({err:.2e})")
+        q = singles[0]
+        t_k = cuda_ms(lambda: exact_topk_fused(
+            q, v, sq, valid, k=10, metric="cosine", fast_math=fast))
+        print(f"  {label}: kernel (wgmma) {t_k:.3f} ms a query", flush=True)
+    del adp, singles, got, want
 
     # the screen alone at the exact tier's shapes (Q padded to 1024): the
     # wgmma kernel, and the FMA kernel at the same shape as the "before"
@@ -358,11 +438,12 @@ def _qps(fn, n_queries: int, reps: int = 3) -> float:
     return n_queries / statistics.median(times)
 
 
-def _profile(label: str, fn) -> None:
+def _profile(label: str, fn, need: str = "screen_wgmma_kernel") -> None:
     """One call of ``fn`` (after a warm-up) under torch.profiler: its wall
     time, the device time of its kernels, the three largest by name, and
     the device's idle share of the wall; nothing but a note when the
-    trace lost K1's event."""
+    trace holds no event whose name contains ``need`` (K1's by default:
+    a trace that lost events would give a false split)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -377,10 +458,9 @@ def _profile(label: str, fn) -> None:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us())
-    k1 = [us for n, us in by_name.items() if "screen_wgmma_kernel" in n]
-    if not k1:
-        print(f"  profile, {label}: the trace holds no screen_wgmma_kernel "
-              f"event; device split not measured", flush=True)
+    if not any(need in n for n in by_name):
+        print(f"  profile, {label}: the trace holds no {need} event; "
+              f"device split not measured", flush=True)
         return
     dev_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
@@ -389,6 +469,22 @@ def _profile(label: str, fn) -> None:
           f"{max(0.0, 1 - dev_us / wall_us):.3f}; "
           + "; ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in top),
           flush=True)
+
+
+def _device_work(fn) -> tuple:
+    """(device events, their summed ms) of one call of ``fn`` under
+    torch.profiler; (None, 0.0) off CUDA."""
+    if DEVICE != "cuda":
+        fn()
+        return None, 0.0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
 
 
 def phase_exact_tier() -> dict:
@@ -488,16 +584,28 @@ def phase_graph_tier() -> dict:
     check(native.available(), "native builder available")
     g = Graph(m=16, ef_construction=100, metric="cosine", seed=0,
               device=DEVICE)
-    t0 = time.perf_counter()
-    g.build(list(range(N_GRAPH)), base, method="host")
-    print(f"# graph tier: native build of {N_GRAPH} x {DIM} cosine "
-          f"{time.perf_counter() - t0:.1f} s, {g.num_layers} layers",
-          flush=True)
     g.native_serve_max_batch = 0
-
     oracle = ExactIndex(metric="cosine", device=DEVICE)
     oracle.host_serve_max_batch = 0
-    oracle.batch_add(list(range(N_GRAPH)), base)
+    # the native builder inserts in key order, so the build pauses at
+    # phase 9's prefix: the recall of that prefix graph is the floor of
+    # phase 9's wave builds of the same rows
+    n_pre = N_DEVICE_BUILD
+    t0 = time.perf_counter()
+    g.build(list(range(n_pre)), base[:n_pre], method="host")
+    t_build = time.perf_counter() - t0
+    oracle.batch_add(list(range(n_pre)), base[:n_pre])
+    _, gt_pre = oracle.batch_search_slots(queries, 10)
+    prefix_recall = _graph_recalls(g, queries, gt_pre,
+                                   f"native build of the first {n_pre}")
+    t0 = time.perf_counter()
+    g.build(list(range(n_pre, N_GRAPH)), base[n_pre:], method="host")
+    t_build += time.perf_counter() - t0
+    print(f"# graph tier: native build of {N_GRAPH} x {DIM} cosine "
+          f"{t_build:.1f} s, {g.num_layers} layers (at its first {n_pre} "
+          f"rows: recall@10 {prefix_recall[64]:.4f} / "
+          f"{prefix_recall[192]:.4f} at ef 64 / 192)", flush=True)
+    oracle.batch_add(list(range(n_pre, N_GRAPH)), base[n_pre:])
     _, gt = oracle.batch_search_slots(queries, 10)
 
     cpu = graph_from_host_arrays(
@@ -528,7 +636,7 @@ def phase_graph_tier() -> dict:
     del oracle
     torch.cuda.empty_cache()
     return {"g": g, "cpu": cpu, "base": base, "queries": queries, "gt": gt,
-            "dense_ids_ef64": dense_ids, "recall": recall}
+            "dense_ids_ef64": dense_ids, "prefix_recall": prefix_recall}
 
 
 def _np_scan_topk(queries, rows, sq, k: int, metric: str,
@@ -890,21 +998,28 @@ def _check_structure(g, n: int, label: str) -> float:
 
 
 def phase_device_builds(st: dict) -> int:
-    """Phase 9: every mode of the wave builder on the 100k cosine vectors
-    of phase_graph_tier; returns K1's launches by route (the exact-tier
-    oracle over the survivors of the delete)."""
+    """Phase 9: every mode of the wave builder on the first
+    N_DEVICE_BUILD cosine vectors of phase_graph_tier; returns K1's
+    launches by route (the exact-tier oracle over those rows, and over
+    the survivors of the delete). The recall floor is that of the native
+    build of the same rows (phase_graph_tier's graph when it held only
+    them), less 0.05."""
     import tempfile
 
     from hnsw_tpu_torch import ExactIndex, Graph
     from hnsw_tpu_torch.convert import graph_from_host_arrays
     from hnsw_tpu_torch.core.build_device import BuildDeadlineExceeded
-    base, queries, gt = st["base"], st["queries"], st["gt"]
-    n = N_GRAPH
+    n = N_DEVICE_BUILD
+    base, queries = st["base"][:n], st["queries"]
     keys = list(range(n))
-    host_rec = st["recall"]
     _reset_launches()
+    oracle = ExactIndex(metric="cosine", device=DEVICE)
+    oracle.host_serve_max_batch = 0
+    oracle.batch_add(keys, base)
+    _, gt = oracle.batch_search_slots(queries, 10)
     print(f"# device builds: {n} x {DIM} cosine, m=16, ef_construction=100,"
           f" wave={WAVE}", flush=True)
+    host_rec = st["prefix_recall"]
 
     with _NativeInserts() as nat:
         gd, t_build = _device_build(keys, base, "cosine", method="device")
@@ -925,12 +1040,12 @@ def phase_device_builds(st: dict) -> int:
               f"{ov:.4f} >= 0.99 (128 queries)")
         check(rec[ef] >= host_rec[ef] - 0.05,
               f"device build ef={ef}: recall@10 {rec[ef]:.4f} >= the native "
-              f"build's {host_rec[ef]:.4f} - 0.05")
+              f"build's on the same rows {host_rec[ef]:.4f} - 0.05")
     del cpu
     print(f"  device build: {t_build:.1f} s ({n / t_build:.1f} nodes/s), "
           f"{gd.num_layers} layers, {orphans:.4f} of the nodes with no "
           f"layer-0 in-edge, recall@10 {rec[64]:.4f} / "
-          f"{rec[192]:.4f} at ef 64 / 192 (native build "
+          f"{rec[192]:.4f} at ef 64 / 192 (native build of the same rows "
           f"{host_rec[64]:.4f} / {host_rec[192]:.4f})", flush=True)
 
     gq, t_q = _device_build(keys, base, "cosine", method="device",
@@ -953,9 +1068,6 @@ def phase_device_builds(st: dict) -> int:
     t_del = time.perf_counter() - t0
     check(all(oks) and len(gd) == n - len(doomed),
           f"batch_delete(refine=True) of {len(doomed)} keys")
-    oracle = ExactIndex(metric="cosine", device=DEVICE)
-    oracle.host_serve_max_batch = 0
-    oracle.batch_add(keys, base)
     oracle.batch_delete(doomed)
     _, gt_surv = oracle.batch_search_slots(queries, 10)
     del oracle
@@ -1019,7 +1131,7 @@ def phase_device_builds(st: dict) -> int:
     del gr
     torch.cuda.empty_cache()
     launches = _launches()
-    check(launches["wgmma"] >= 1 and launches["fma"] == 0,
+    check(launches["wgmma"] >= 2 and launches["fma"] == 0,
           f"the exact-tier oracle launched the wgmma kernel "
           f"{launches['wgmma']} times")
     return launches
@@ -1104,20 +1216,25 @@ class _WaveProbe:
 
 
 def phase_sift_shape_build() -> int:
-    """Phase 10: a 1,048,576 x 128 L2 build that Graph.build's "auto"
-    routes to the wave builder; returns K1's launches by route (the
-    exact-tier oracle)."""
+    """Phase 10: an N_SIFT x 128 L2 build by the wave builder (named
+    explicitly: "auto" takes it from N_AUTO_DEVICE rows, which is
+    checked); returns K1's launches by route (the exact-tier oracle)."""
     from hnsw_tpu_torch import ExactIndex
+    from hnsw_tpu_torch.index.hnsw import _route
     rng = np.random.default_rng(4)
     base = rng.standard_normal((N_SIFT, DIM), dtype=np.float32)
     queries = rng.standard_normal((BATCH, DIM), dtype=np.float32)
     keys = list(range(N_SIFT))
-    print(f"# device build at SIFT1M's shape: {N_SIFT} x {DIM} l2, m=16, "
-          f"ef_construction=100, wave={WAVE}, method=auto", flush=True)
+    print(f"# device build: {N_SIFT} x {DIM} l2 (SIFT's width), m=16, "
+          f"ef_construction=100, wave={WAVE}, method=device", flush=True)
+    check(_route("auto", N_AUTO_DEVICE) == "device"
+          and _route("auto", N_SIFT) == "host",
+          f'"auto" routes {N_AUTO_DEVICE} rows to the wave builder and '
+          f"{N_SIFT} to the native one")
     torch.cuda.reset_peak_memory_stats()
     with _NativeInserts() as nat, _WaveProbe(PROFILE_WAVE) as probe:
-        g, t_build = _device_build(keys, base, "l2", method="auto")
-    check(nat.calls == 0, "auto routed past the native builder (0 calls)")
+        g, t_build = _device_build(keys, base, "l2", method="device")
+    check(nat.calls == 0, "the native builder saw 0 calls")
     check(_all_inserted(g, N_SIFT), "every key inserted")
     peak = torch.cuda.max_memory_allocated() / 1e9
     hist = np.bincount(g.host.levels[:N_SIFT]).tolist()
@@ -1129,7 +1246,7 @@ def phase_sift_shape_build() -> int:
     # the closest-m reverse update leaves nodes with no in-edge: ROADMAP
     # fault F8). The build is held to its invariants; its quality against
     # the native builder is phase 9's check.
-    orphans = _check_structure(g, N_SIFT, "SIFT1M-shape build")
+    orphans = _check_structure(g, N_SIFT, "SIFT-width build")
     print(f"  self-retrieval {_self_hits(g, base):.4f} (1024 stored "
           f"vectors, ef=64), {orphans:.4f} of the nodes with no layer-0 "
           f"in-edge", flush=True)
@@ -1165,6 +1282,430 @@ def phase_sift_shape_build() -> int:
     torch.cuda.empty_cache()
     return launches
 
+class _Stopwatch:
+    """Host-clock seconds spent inside callables patched onto objects or
+    modules, summed by label; ``restore()`` puts the originals back."""
+
+    def __init__(self):
+        self.seconds, self._patched = {}, []
+
+    def wrap(self, owner, name: str, label: str) -> None:
+        fn = getattr(owner, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                _sync_device()
+                self.seconds[label] = (self.seconds.get(label, 0.0)
+                                       + time.perf_counter() - t0)
+        self._patched.append((owner, name, fn, name in vars(owner)))
+        setattr(owner, name, timed)
+
+    def restore(self) -> None:
+        for owner, name, fn, own in reversed(self._patched):
+            if own:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)
+        self._patched = []
+
+
+def _key_recall(rows, truth: np.ndarray, k: int) -> float:
+    """recall@k of keyed results (rows of keys, None where short) against
+    slot ids; keys are row numbers in every phase that uses this."""
+    hits = sum(len({x for x in r[:k] if x is not None}
+                   & set(t[:k].tolist())) for r, t in zip(rows, truth))
+    return hits / (k * len(truth))
+
+
+def _exact_truth(base: np.ndarray, batches, metric: str) -> tuple:
+    """Top-10 ids of each batch from the exact tier on the card (K1's
+    wgmma route, checked), and its launches by route."""
+    from hnsw_tpu_torch import ExactIndex
+    _reset_launches()
+    oracle = ExactIndex(metric=metric, device=DEVICE)
+    oracle.host_serve_max_batch = 0
+    oracle.batch_add(list(range(len(base))), base)
+    gt = [oracle.batch_search_slots(b, 10)[1] for b in batches]
+    by = _launches()
+    if DEVICE == "cuda" and len(base) >= 32768:
+        check(by == {"wgmma": len(gt), "fma": 0},
+              f"the exact-tier oracle over {len(base)} rows launched the "
+              f"wgmma kernel {by['wgmma']} times for {len(gt)} batches, the "
+              f"FMA kernel {by['fma']}")
+    oracle.close()
+    return gt, by
+
+
+def phase_ivf_clustered() -> dict:
+    """Phase 11: IVFIndex on a 1,024-centre Gaussian mixture; returns K1's
+    launches by route (the exact-tier oracle)."""
+    from hnsw_tpu_torch import IVFIndex
+    from hnsw_tpu_torch.index import ivf as ivf_mod
+    rng = np.random.default_rng(6)
+    centres = rng.standard_normal((IVF_PARTS, DIM), dtype=np.float32)
+
+    def draw(m):
+        return (centres[rng.integers(0, IVF_PARTS, m)] + np.float32(0.3)
+                * rng.standard_normal((m, DIM), dtype=np.float32))
+
+    base, queries = draw(N_IVF), draw(BATCH)
+    print(f"# ivf-1m-clustered: {N_IVF} x {DIM} cosine, {IVF_PARTS} mixture "
+          f"centres (noise 0.3), {IVF_PARTS} partitions, k=10, batches of "
+          f"{BATCH}", flush=True)
+    idx = IVFIndex(num_partitions=IVF_PARTS, nprobe="auto", auto_recall=0.9,
+                   device=DEVICE)
+    watch = _Stopwatch()
+    watch.wrap(idx, "_train", "train")
+    watch.wrap(ivf_mod, "_device_assign", "assign")
+    watch.wrap(idx, "_commit", "commit")
+    t0 = time.perf_counter()
+    idx.build(list(range(N_IVF)), base)
+    t_build = time.perf_counter() - t0
+    watch.restore()
+    t0 = time.perf_counter()
+    blocks = idx._sync()[0]
+    _sync_device()
+    t_sync = time.perf_counter() - t0
+    sec = watch.seconds
+    check(blocks.device.type == DEVICE and blocks.dtype == torch.float32
+          and len(idx) == N_IVF,
+          f"block table on {DEVICE}: {list(blocks.shape)} f32, "
+          f"{blocks.numel() * 4 / 1e9:.3f} GB for {N_IVF} rows")
+    st = idx.stats()
+    print(f"  build {t_build:.1f} s: k-means ({idx.kmeans_iters} steps) "
+          f"{sec['train']:.2f} s, assignment {sec['assign']:.2f} s, commit "
+          f"(host loop over rows) {sec['commit']:.2f} s = "
+          f"{sec['commit'] / t_build:.2f} of the build; block table "
+          f"(_sync) {t_sync:.2f} s; partition sizes {st['sizes_min']}.."
+          f"{st['sizes_max']}", flush=True)
+
+    gt, launches = _exact_truth(base, [queries], "cosine")
+    gt = gt[0]
+    recalls = {}
+    for npb in IVF_NPROBES + ("auto",):
+        idx.nprobe = npb
+        t0 = time.perf_counter()
+        used = idx._resolve_nprobe()       # "auto": calibrates, once
+        t_cal = time.perf_counter() - t0
+        keys, d = idx.batch_search(queries, 10)
+        rec = recalls[npb] = _key_recall(keys, gt, 10)
+        check(np.isfinite(d).all() and d.shape == (BATCH, 10)
+              and all(x is not None for row in keys for x in row),
+              f"nprobe={npb}: finite [{BATCH}, 10] results, no None key")
+        qps = _qps(lambda: idx.batch_search(queries, 10), BATCH)
+        watch = _Stopwatch()          # one more batch, its steps timed
+        watch.wrap(idx, "_group_by_block", "group")
+        watch.wrap(ivf_mod, "_scan_blocks", "scan")
+        watch.wrap(idx, "_merge_positions", "merge_host")
+        watch.wrap(ivf_mod, "_merge_probed", "merge")
+        t0 = time.perf_counter()
+        idx.batch_search(queries, 10)
+        wall = time.perf_counter() - t0
+        watch.restore()
+        parts = dict(watch.seconds)
+        host = parts["group"] + parts["merge_host"]
+        parts["probe, copies, keys"] = wall - sum(parts.values())
+        note = (f" (resolved to {used}, calibration {t_cal:.1f} s)"
+                if npb == "auto" else "")
+        print(f"  nprobe={npb}{note}: recall@10 {rec:.4f} vs the exact tier, "
+              f"{qps:.1f} QPS (one {BATCH}-query batch, median of 3); a "
+              f"batch with each step synchronised {wall * 1e3:.1f} ms: "
+              + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in parts.items())
+              + f" ms; host grouping loops {host / wall:.2f} of it",
+              flush=True)
+    ladder = [recalls[n] for n in IVF_NPROBES]
+    check(all(b >= a for a, b in zip(ladder, ladder[1:])),
+          f"recall does not fall as nprobe grows: {ladder}")
+    check(ladder[-1] >= 0.95,
+          f"nprobe={IVF_NPROBES[-1]}: recall@10 {ladder[-1]:.4f} >= 0.95")
+    check(recalls["auto"] >= 0.9, f'"auto" (auto_recall 0.9) serves '
+          f"recall@10 {recalls['auto']:.4f} >= 0.9")
+    if DEVICE == "cuda":
+        idx.nprobe = 16
+        _profile(f"one {BATCH}-query IVF batch at nprobe 16",
+                 lambda: idx.batch_search(queries, 10), need="gemm")
+    idx.close()
+    del idx, blocks
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _single_queries(eng, queries, gt, k: int) -> tuple:
+    """(p50 ms, mean ms, recall@k) of eng.search over ``queries``, one at
+    a time, host clock (every arm returns numpy or floats: its device
+    work has ended when it returns)."""
+    lats, hits = [], 0
+    for q, t in zip(queries, gt):
+        t0 = time.perf_counter()
+        res = eng.search(q, k)
+        lats.append(time.perf_counter() - t0)
+        hits += len({kk for kk, _ in res} & set(t[:k].tolist()))
+    return (statistics.median(lats) * 1e3, statistics.fmean(lats) * 1e3,
+            hits / (k * len(queries)))
+
+
+def _arm_stats(eng) -> str:
+    """The selector's sliding window by arm: samples held, mean measured
+    recall (None where no probe scored the arm)."""
+    return "; ".join(
+        f"{s} {v['count']} samples, recall "
+        + ("None" if v["avg_recall"] is None else f"{v['avg_recall']:.3f}")
+        for s, v in eng.get_stats()["strategies"].items()
+        if isinstance(v, dict))
+
+
+def phase_adaptive(base: np.ndarray) -> dict:
+    """Phase 12: the adaptive engine on the graph tier's rows; returns
+    K1's launches by route (warm-up and oracle included)."""
+    from hnsw_tpu_torch import (AdaptiveConfig, AdaptiveHybridIndex,
+                                HybridConfig)
+    from hnsw_tpu_torch.ops.topk import np_exact_topk
+    n = len(base)
+    rng = np.random.default_rng(7)
+    batches = [rng.standard_normal((BATCH, DIM), dtype=np.float32)
+               for _ in range(N_ADAPT_BATCHES)]
+    singles = rng.standard_normal((N_SINGLE, DIM), dtype=np.float32)
+    print(f"# adaptive-100k: AdaptiveHybridIndex(exact_threshold=500, "
+          f"capacity_arms=('int8',)) on {n} x {DIM} cosine, k=10",
+          flush=True)
+    gt, launches = _exact_truth(base, batches + [singles], "cosine")
+    gt_single = gt.pop()
+    # the kernel-backed oracle itself, and below the served results, held
+    # against numpy on the first batch and the first N_NUMPY single queries
+    _, np_batch = np_exact_topk(batches[0], base, 10, "cosine")
+    _, np_single = np_exact_topk(singles[:N_NUMPY], base, 10, "cosine")
+    agree = (_recall(gt[0], np_batch, 10),
+             _recall(gt_single[:N_NUMPY], np_single, 10))
+    check(min(agree) >= 0.9999,
+          f"the exact-tier oracle equals the numpy oracle over {n} rows: "
+          f"recall@10 {agree[0]:.5f} on a batch of {BATCH}, {agree[1]:.5f} on "
+          f"{N_NUMPY} queries (>= 0.9999)")
+
+    eng = AdaptiveHybridIndex(HybridConfig(exact_threshold=500),
+                              AdaptiveConfig(capacity_arms=("int8",)),
+                              device=DEVICE)
+    watch = _Stopwatch()
+    for sub, name, label in ((eng.exact, "batch_add", "exact"),
+                             (eng.graph, "build", "graph (native build)"),
+                             (eng.lsh, "batch_add", "lsh (host loop)"),
+                             (eng.ivf, "batch_add", "ivf")):
+        watch.wrap(sub, name, label)
+    t0 = time.perf_counter()
+    eng.batch_add(list(range(n)), base)
+    t_add = time.perf_counter() - t0
+    watch.restore()
+    check(len(eng) == len(eng.graph) == len(eng.lsh) == len(eng.ivf) == n
+          and len(eng.capacity["exact_int8"]) == n,
+          f"every vector is in the exact, graph, LSH, IVF and int8 arms")
+    print(f"  batch_add {t_add:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in watch.seconds.items())
+          + " s", flush=True)
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    eng.warm(10)
+    t_warm = time.perf_counter() - t0
+    arms = set(eng.selector.explore) | {"hybrid"}
+    check(eng._warmed == arms and eng.get_stats()["total_queries"] == 0,
+          f"warm() ran and marked every arm {sorted(arms)}, recorded nothing")
+    launches = _add(launches, _launches())
+    print(f"  warm(10): {t_warm:.1f} s, K1 launches {_launches()}",
+          flush=True)
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    outs = [eng.batch_search(b, 10) for b in batches]
+    _sync_device()
+    wall = time.perf_counter() - t0
+    by_batches = _launches()
+    rec = float(np.mean([_key_recall([[kk for kk, _ in r] for r in out], g,
+                                     10) for out, g in zip(outs, gt)]))
+    ok = all(len(r) == 10 and all(np.isfinite(d) for _, d in r)
+             for out in outs for r in out)
+    check(ok, f"{N_ADAPT_BATCHES} batches: 10 finite results a query")
+    check(rec >= 0.95, f"batches: recall@10 {rec:.4f} >= 0.95 against the "
+          f"exact tier ({N_ADAPT_BATCHES * BATCH} queries)")
+    rec_np = _key_recall([[kk for kk, _ in r] for r in outs[0]], np_batch,
+                         10)
+    check(rec_np >= 0.95, f"the first served batch: recall@10 {rec_np:.4f} "
+          f">= 0.95 against the numpy oracle")
+    if DEVICE == "cuda":
+        check(by_batches["wgmma"] >= 1 and by_batches["fma"] == 0,
+              f"the engine's exact arm and recall probes launched the wgmma "
+              f"kernel {by_batches['wgmma']} times over the batches")
+    print(f"  {N_ADAPT_BATCHES} batches of {BATCH}: "
+          f"{N_ADAPT_BATCHES * BATCH / wall:.1f} QPS (one pass), recall@10 "
+          f"{rec:.4f}; window by arm: {_arm_stats(eng)}; _graph_ef "
+          f"{eng._graph_ef}", flush=True)
+
+    _reset_launches()
+    p50, mean, rec1 = _single_queries(eng, singles, gt_single, 10)
+    check(mean / p50 < 20, f"single queries after warm(): mean / p50 "
+          f"{mean / p50:.2f} < 20")
+    by_single = _launches()
+    rec1_np = _key_recall(
+        [[kk for kk, _ in eng.search(q, 10)] for q in singles[:N_NUMPY]],
+        np_single, 10)
+    by_np = {r: c - by_single[r] for r, c in _launches().items()}
+    check(rec1_np >= 0.95, f"{N_NUMPY} single queries served again: "
+          f"recall@10 {rec1_np:.4f} >= 0.95 against the numpy oracle (K1 "
+          f"launches {by_np})")
+    print(f"  {N_SINGLE} single queries: p50 {p50:.3f} ms, mean {mean:.3f} "
+          f"ms, recall@10 {rec1:.4f}; K1 launches {by_single}; window by "
+          f"arm: {_arm_stats(eng)}; _graph_ef {eng._graph_ef}", flush=True)
+
+    # the exact arm and the probe oracle, called alone: one launch each
+    _reset_launches()
+    eng._run_batch("exact", batches[0], 10)
+    probe = eng._probe_oracle(batches[0][:32], 10)
+    by_direct = _launches()
+    if DEVICE == "cuda":
+        check(by_direct == {"wgmma": 2, "fma": 0},
+              f"the exact arm's table ({eng.exact._dev[0].shape[0]} padded "
+              f"rows) and the recall probe each launched the wgmma kernel "
+              f"once: {by_direct}")
+    check(_key_recall(probe, gt[0][:32], 10) == 1.0,
+          "the probe oracle equals the exact tier on 32 queries")
+    check(eng.fallback_errors == 0,
+          f"fallback_errors == 0 (last: {eng.last_fallback_error!r})")
+    for b in (by_batches, by_single, by_np, by_direct):
+        launches = _add(launches, b)
+
+    # the LSH arm alone (4 tables x 8 bits): no bound, for the record
+    lsh = eng.lsh
+    sizes = [len(lsh.get_candidates(q)) for q in batches[0][:256]]
+    watch = _Stopwatch()
+    watch.wrap(lsh, "get_candidates", "candidates")
+    t0 = time.perf_counter()
+    keys, _ = lsh.batch_search(batches[0], 10)
+    _sync_device()
+    t_lsh = time.perf_counter() - t0
+    watch.restore()
+    print(f"  LSH arm ({lsh.num_tables} tables x {lsh.num_bits} bits) at {n} "
+          f"rows: recall@10 {_key_recall(keys, gt[0], 10):.4f}, candidates "
+          f"a query min / median / max {min(sizes)} / "
+          f"{int(statistics.median(sizes))} / {max(sizes)}; one "
+          f"{BATCH}-query batch {t_lsh * 1e3:.1f} ms, its per-query "
+          f"candidate loop {watch.seconds['candidates'] / t_lsh:.2f} of it",
+          flush=True)
+    if DEVICE == "cuda":
+        _profile(f"one {BATCH}-query adaptive batch",
+                 lambda: eng.batch_search(batches[1], 10))
+    eng.close()
+    del eng
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_hybrid_bench() -> None:
+    """Phase 13: bench.py's configuration (10,000 x 128 cosine Gaussian
+    rows from seed 0, k=10) through HybridIndex and AdaptiveHybridIndex.
+    Below K1's 32,768-row switch: no launch is expected or counted. The
+    engine's single queries are answered by each arm's host latency tier
+    (ExactIndex at <= 16 queries over <= 65,536 rows, the LSH index at
+    <= 16 queries, the graph's native search), as in the JAX package:
+    the phase prints the arms that served and the device work queued."""
+    from hnsw_tpu_torch import (AdaptiveHybridIndex, HybridConfig,
+                                HybridIndex)
+    from hnsw_tpu_torch.ops.topk import np_exact_topk
+    n, k = N_BENCH, 10
+    rng = np.random.default_rng(0)
+    data = rng.standard_normal((n, DIM)).astype(np.float32)
+    queries = rng.standard_normal((N_BATCHES * BATCH, DIM)).astype(
+        np.float32)
+    batches = [queries[b:b + BATCH] for b in range(0, len(queries), BATCH)]
+    gt = np.concatenate([np_exact_topk(b, data, k, "cosine")[1]
+                         for b in batches])
+    print(f"# hybrid-bench-10k: {n} x {DIM} cosine, k={k}, "
+          f"HybridConfig(exact_threshold=500), {N_BATCHES} batches of "
+          f"{BATCH}; recall against the numpy oracle", flush=True)
+    h = HybridIndex(HybridConfig(exact_threshold=500), device=DEVICE)
+    t0 = time.perf_counter()
+    h.batch_add(list(range(n)), data)
+    print(f"  batch_add {time.perf_counter() - t0:.1f} s; tiers: exact "
+          f"{len(h.exact)}, graph {len(h.graph)}, lsh {len(h.lsh)}, ivf "
+          f"{len(h.ivf)}", flush=True)
+
+    def serve(target):
+        rows, t_all = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            keys, d = h.batch_search(b, k, target_recall=target)
+            _sync_device()
+            t_all.append(time.perf_counter() - t0)
+            if not rows:
+                check(np.isfinite(d).all() and d.shape == (len(b), k),
+                      f"target_recall={target}: finite [{len(b)}, {k}] "
+                      f"results")
+            rows.extend(keys)
+        # the first batch pays the calibration: QPS over the others
+        return rows, t_all[0], (len(queries) - BATCH) / sum(t_all[1:])
+
+    for target, floor in ((0.95, 0.93), (1.0, 0.999), (None, None)):
+        rows, t_first, qps = serve(target)
+        rec = _key_recall(rows, gt, k)
+        if floor is not None:
+            check(rec >= floor, f"target_recall={target}: served recall@10 "
+                  f"{rec:.4f} >= {floor}")
+        print(f"  target_recall={target}: route {h.stats.last_strategy!r}, "
+              f"recall@10 {rec:.4f}, {qps:.1f} QPS (batches 2-{N_BATCHES}; "
+              f"the first, with any calibration, {t_first:.2f} s)",
+              flush=True)
+
+    doomed = list(range(0, n, 10))
+    t0 = time.perf_counter()
+    flags = h.batch_delete(doomed)
+    t_del = time.perf_counter() - t0
+    keys, d = h.batch_search(batches[0], k)
+    dead = set(doomed)
+    check(all(flags) and len(h) == n - len(doomed)
+          and not any(x in dead for row in keys for x in row),
+          f"batch_delete of {len(doomed)} keys ({t_del:.2f} s): no deleted "
+          f"key is returned")
+    h.close()
+    del h
+
+    eng = AdaptiveHybridIndex(hybrid_config=HybridConfig(exact_threshold=500),
+                              device=DEVICE)
+    eng.batch_add(list(range(n)), data)
+    eng.warm(k)
+    for i in range(64):               # steady state, as bench.py runs it
+        eng.search(queries[i], k)
+    p50, mean, rec = _single_queries(eng, queries[64:64 + N_SINGLE],
+                                     gt[64:64 + N_SINGLE], k)
+    check(eng.fallback_errors == 0 and rec >= 0.95,
+          f"adaptive engine, single queries: recall@10 {rec:.4f} >= 0.95, "
+          f"fallback_errors == 0")
+    print(f"  adaptive engine, {N_SINGLE} single queries after warm() and 64 "
+          f"warm queries: p50 {p50:.3f} ms, mean {mean:.3f} ms, recall@10 "
+          f"{rec:.4f}; window by arm: {_arm_stats(eng)}", flush=True)
+    # who served them: the arms of 64 more single queries, and the device
+    # work they queued (none where each arm's host latency tier answers)
+    arms, real_run = {}, eng._run
+
+    def counted(strategy, query, k_):
+        arms[strategy] = arms.get(strategy, 0) + 1
+        return real_run(strategy, query, k_)
+    eng._run = counted
+    more = queries[64 + N_SINGLE:128 + N_SINGLE]
+    n_ev, dev_ms = _device_work(lambda: [eng.search(q, k) for q in more])
+    del eng._run
+    where = ("device work not traced off CUDA" if n_ev is None else
+             "no device work: these latencies are the host latency "
+             "tiers', not the card's" if n_ev == 0 else
+             f"{n_ev} device kernels and copies, {dev_ms:.3f} ms")
+    print(f"  64 more single queries under torch.profiler: arm calls "
+          f"{arms}; {where}", flush=True)
+    eng.close()
+    del eng
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1182,8 +1723,14 @@ def main() -> int:
     launches = _add(launches, phase_auto_ladder())
     phase_graph_modes(graph)
     launches = _add(launches, phase_device_builds(graph))
+    base_graph = graph["base"]
     del graph
     launches = _add(launches, phase_sift_shape_build())
+    print(f"# smoke: phases 1-10 took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    launches = _add(launches, phase_ivf_clustered())
+    launches = _add(launches, phase_adaptive(base_graph))
+    phase_hybrid_bench()
     check(all(launches[r] > 0 for r in timing),
           f"the main path launched every K1 route: {launches}")
     print(f"# smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "

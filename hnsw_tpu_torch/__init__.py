@@ -3,7 +3,8 @@
 A port of ``hnsw_tpu`` (JAX, TPU) to PyTorch on NVIDIA GPUs, with the
 same module layout and public names. It imports neither JAX nor the JAX
 package. Ported so far: both index types with their serving and capacity
-modes, the device wave builder and checkpoints.
+modes, the device wave builder, checkpoints, and the hybrid and adaptive
+engines with their LSH, IVF and partitioner tiers.
 
   Graph              HNSW index: native C++ host build or the device wave
                      builder (core/build_device.py: build, refine, delete
@@ -15,6 +16,16 @@ modes, the device wave builder and checkpoints.
                      table runs the hand-written screen kernel
                      (csrc/exact_screen.cu); int8/bf16/fp16 capacity
                      tables scan with plain torch and rerank on the host
+  HybridIndex        tiered dispatch exact / graph / LSH or IVF, and
+                     recall-aware routing (search(..., target_recall=))
+  AdaptiveHybridIndex  every vector in every tier; a per-query bandit
+                     (AdaptiveSelector) picks the arm, probes recall
+                     against the exact tier and backstops weak arms;
+                     warm(k) before serving, fallback_errors to watch
+  IVFIndex           k-means partitions scanned as batched matmuls
+  LSHIndex           random-hyperplane buckets + exact re-rank
+  Partitioner        centroid routing and rebalance
+  MultiIndexAdapter  fan-out search over several indexes
   save_graph/load_graph/SavedGraph  checkpoints, in the JAX package's
                      file format (io/codec.py)
   register_distance  custom metrics
@@ -28,13 +39,22 @@ __version__ = "0.1.0"
 
 from hnsw_tpu_torch.config import (AdaptiveConfig, GraphConfig, HybridConfig,
                                    ShardingConfig, StoreConfig)
+from hnsw_tpu_torch.index.adapters import MultiIndexAdapter
+from hnsw_tpu_torch.index.adaptive import (AdaptiveHybridIndex,
+                                           AdaptiveSelector)
 from hnsw_tpu_torch.index.exact import ExactIndex
 from hnsw_tpu_torch.index.hnsw import Graph
+from hnsw_tpu_torch.index.hybrid import HybridIndex
+from hnsw_tpu_torch.index.ivf import IVFIndex
+from hnsw_tpu_torch.index.lsh import LSHIndex
+from hnsw_tpu_torch.index.partitioner import Partitioner
 from hnsw_tpu_torch.io.codec import (SavedGraph, export_graph, import_graph,
                                      load_graph, save_graph)
 from hnsw_tpu_torch.ops.distance import register_distance
 
-__all__ = ["AdaptiveConfig", "ExactIndex", "Graph", "GraphConfig",
-           "HybridConfig", "SavedGraph", "ShardingConfig", "StoreConfig",
+__all__ = ["AdaptiveConfig", "AdaptiveHybridIndex", "AdaptiveSelector",
+           "ExactIndex", "Graph", "GraphConfig", "HybridConfig",
+           "HybridIndex", "IVFIndex", "LSHIndex", "MultiIndexAdapter",
+           "Partitioner", "SavedGraph", "ShardingConfig", "StoreConfig",
            "export_graph", "import_graph", "load_graph", "register_distance",
            "save_graph", "__version__"]

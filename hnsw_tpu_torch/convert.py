@@ -93,3 +93,82 @@ def graph_from_host_arrays(config, slot_to_key: Sequence[Any],
     h.entry, h.top = int(entry), int(top)
     h.count = int((h.levels >= 0).sum())
     return g
+
+
+def _carry_slots(dst, src_slots) -> None:
+    """Copy a SlotMap's state (keys by slot, free list) into ``dst``."""
+    dst.slot_to_key = list(src_slots.slot_to_key)
+    dst.key_to_slot = dict(src_slots.key_to_slot)
+    dst.free = list(src_slots.free)
+
+
+def _carry_store(dst, src_store, n: int) -> None:
+    """Copy the first ``n`` rows of a host vector store into ``dst``."""
+    if src_store.dim is None:
+        return
+    dst.ensure_dim(int(src_store.dim))
+    dst.ensure_capacity(max(n, 1))
+    dst.vectors[:n] = np.asarray(src_store.vectors[:n], np.float32)
+    dst.sq_norms[:n] = np.asarray(src_store.sq_norms[:n], np.float32)
+    dst.alive[:n] = np.asarray(src_store.alive[:n], bool)
+
+
+def ivf_from_jax(ivf, device=None):
+    """An ``IVFIndex`` of this package holding the state of a trained
+    ``hnsw_tpu`` IVFIndex (centroids, slot map, store, partition
+    members, auto-nprobe cache), so both search identical indexes without
+    retraining. Takes the object's numpy state; imports nothing of the
+    JAX package."""
+    from hnsw_tpu_torch.index.ivf import IVFIndex
+    out = IVFIndex(num_partitions=ivf.P, nprobe=ivf.nprobe,
+                   metric=ivf.metric, seed=ivf.seed,
+                   kmeans_iters=ivf.kmeans_iters,
+                   auto_recall=ivf.auto_recall, device=device)
+    if ivf.centroids is not None:
+        out.centroids = np.array(ivf.centroids, np.float32)
+    _carry_slots(out.slots, ivf.slots)
+    _carry_store(out.store, ivf.store, ivf.slots.capacity_used)
+    # a set's iteration order follows its insertion history, and _sync
+    # lays a block out in that order: re-insert in the source's order
+    out._members = [set() for _ in range(ivf.P)]
+    for p, mem in enumerate(ivf._members):
+        for s in mem:
+            out._members[p].add(int(s))
+    out._part_of = {int(s): int(p) for s, p in ivf._part_of.items()}
+    out._auto_cache = ivf._auto_cache
+    return out
+
+
+def lsh_from_jax(lsh, device=None):
+    """An ``LSHIndex`` of this package holding the state of a filled
+    ``hnsw_tpu`` LSHIndex (planes, slot map, store, bucket tables and
+    per-slot codes)."""
+    from hnsw_tpu_torch.index.lsh import LSHIndex
+    out = LSHIndex(metric=lsh.metric, num_tables=lsh.num_tables,
+                   num_bits=lsh.num_bits, seed=lsh.seed, device=device)
+    if lsh.planes is not None:
+        out.planes = np.array(lsh.planes, np.float32)
+    _carry_slots(out.slots, lsh.slots)
+    _carry_store(out.store, lsh.store, lsh.slots.capacity_used)
+    out.tables = [{int(c): {int(s) for s in b} for c, b in t.items()}
+                  for t in lsh.tables]
+    out._codes = {int(s): np.array(c, np.int64)
+                  for s, c in lsh._codes.items()}
+    out.host_serve_max_batch = lsh.host_serve_max_batch
+    return out
+
+
+def partitioner_from_jax(p, device=None):
+    """A ``Partitioner`` of this package holding the state of a
+    ``hnsw_tpu`` Partitioner (centroids, members, assignment, vectors)."""
+    from hnsw_tpu_torch.index.partitioner import Partitioner
+    out = Partitioner(p.num_partitions, metric=p.metric, seed=p.seed,
+                      device=device)
+    out.dim = p.dim
+    if p.centroids is not None:
+        out.centroids = np.array(p.centroids, np.float32)
+    out.members = [set(m) for m in p.members]
+    out.assignment = dict(p.assignment)
+    out._vectors = {k: np.array(v, np.float32)
+                    for k, v in p._vectors.items()}
+    return out

@@ -6,6 +6,9 @@ takes ``device=None`` raises and names ``device="cpu"``; with
 ``device="cpu"`` written out the same calls build and answer.
 """
 
+import ast
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -87,12 +90,18 @@ def _call(name, tmp_path, device):
                                               **kw)
     if name == "resume_build":
         return hnsw_tpu_torch.Graph.resume_build(_saved(tmp_path), **kw)
+    if name == "Partitioner":
+        return hnsw_tpu_torch.Partitioner(4, **kw)
+    if name in ("LSHIndex", "IVFIndex", "HybridIndex",
+                "AdaptiveHybridIndex"):
+        return getattr(hnsw_tpu_torch, name)(**kw)
     raise AssertionError(name)
 
 
 ENTRY_POINTS = ["ExactIndex", "Graph", "bulk_insert", "bulk_insert_device",
                 "refine_device", "from_host", "load_graph",
-                "SavedGraph.load", "resume_build"]
+                "SavedGraph.load", "resume_build", "LSHIndex", "IVFIndex",
+                "Partitioner", "HybridIndex", "AdaptiveHybridIndex"]
 
 
 def test_default_device_is_the_card_or_an_error(monkeypatch):
@@ -133,3 +142,36 @@ def test_bulk_insert_on_cpu_inserts_every_node(no_cuda):
     tbuild.bulk_insert(g.host, slots, wave=32, device="cpu")
     assert g.host.count == len(slots)
     assert (g.host.levels[:len(slots)] >= 0).all()
+
+
+def test_hybrid_engines_on_cpu_answer(no_cuda):
+    """With device="cpu" the hybrid and the adaptive engine answer: a
+    stored vector is its own nearest neighbour."""
+    v = _vecs(300, 16)
+    for cls in (hnsw_tpu_torch.HybridIndex, hnsw_tpu_torch.AdaptiveHybridIndex):
+        idx = cls(hnsw_tpu_torch.HybridConfig(exact_threshold=100),
+                  device="cpu")
+        idx.batch_add(list(range(300)), v)
+        key, dist = idx.search(v[42], 3)[0]
+        assert key == 42 and dist < 1e-5
+        idx.close()
+
+
+def _imported_roots(path):
+    """Top-level names of every module a file imports, anywhere in it."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_the_port_imports_neither_jax_nor_the_jax_package():
+    root = pathlib.Path(hnsw_tpu_torch.__file__).resolve().parent
+    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    assert len(files) > 20 and files[-1].exists()
+    bad = {str(f.relative_to(root.parent)): sorted(
+        _imported_roots(f) & {"jax", "jaxlib", "hnsw_tpu"}) for f in files}
+    assert {f: r for f, r in bad.items() if r} == {}
