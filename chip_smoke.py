@@ -56,15 +56,33 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    table times, then nprobe 1, 4, 16, 64 and "auto": recall@10 against
    the exact tier on the card and QPS of 1,024-query batches, with the
    host's share of a batch;
-12. AdaptiveHybridIndex (exact_threshold=500, one int8 capacity arm) on the
-   100,000 x 128 cosine rows of phase 5: warm(), 16 batches of 1,024
-   queries and 1,024 single queries, recall@10 against the exact tier,
-   the arms that served, K1's launches by the exact arm and the recall
-   probes, fallback_errors == 0; and the LSH arm's recall and
-   candidate-set sizes;
+12. AdaptiveHybridIndex (exact_threshold=500, one int8 capacity arm, a
+   StreamingExactIndex attached as the stream arm) on the 100,000 x 128
+   cosine rows of phase 5: warm(), 16 batches of 1,024 queries and 1,024
+   single queries, recall@10 against the exact tier, the arms that
+   served, K1's launches by the exact arm and the recall probes,
+   fallback_errors == 0; two batches served by the stream arm (measured
+   recall >= 0.99, K1 on its one 100,000-row chunk); and the LSH arm's
+   recall and candidate-set sizes;
 13. bench.py's configuration (10,000 x 128 cosine, k=10): HybridIndex with
    target_recall 0.95 and 1.0 and without a target, batch_delete of
-   every 10th key, and AdaptiveHybridIndex over 1,024 single queries.
+   every 10th key, and AdaptiveHybridIndex over 1,024 single queries;
+14. StreamingExactIndex at BIGANN-10M's shape: phase 6's 10,000,000 x 128
+   L2 rows in a memory-mapped row file (a temporary directory with twice
+   the file free, removed after), streamed in 131,072-row chunks through
+   K1: ids equal to phase 6's float32 rung on its first batch (or a
+   tie-aware recall of 1.0), QPS cold, warm (every chunk pinned on the
+   card) and with a 2 GB budget, a warm batch beside the plain scan per
+   chunk, and one cold batch of each reduced rung (recall@10 >= 0.99);
+15. DiskGraph on phase 5's graph (npz tables): persist without a rebuild,
+   reopen with keys and distances equal to phase 5's at ef 64, 200 adds
+   and 100 deletes through the WAL and an incremental reopen, then the
+   same directory with vectors on disk and the int8 store on the card
+   (recall@10 at ef 64 and 192);
+16. facets, metadata and the analyzer on phase 5's graph: the masked exact
+   scan (K1) under a 1% equality and a 10% range filter at recall 1.0,
+   the over-fetch search beside it, payloads attached, the analyzer's
+   height, topography and connectivity.
 
 The last two lines are the kernel table (one entry a K1 route, with its
 launches on the main path) and
@@ -690,9 +708,11 @@ def _check_table(idx, rung: str, n: int) -> None:
           f"GB")
 
 
-def phase_capacity_ladder() -> dict:
+def phase_capacity_ladder() -> tuple:
     """BIGANN-10M's shape through the hbm_dtype ladder; returns K1's
-    launches by route (the float32 rung)."""
+    launches by route (the float32 rung) and what phase 14 streams and
+    holds itself to: the host rows, the first batch and the float32
+    rung's (dists, ids) for it."""
     from hnsw_tpu_torch import ExactIndex
     from hnsw_tpu_torch.ops import exact_screen
     rng = np.random.default_rng(2)
@@ -724,6 +744,8 @@ def phase_capacity_ladder() -> dict:
     t_sync = time.perf_counter() - t0
     _check_table(idx, "float32", N_CAPACITY)
     truth, wall = timed(serve)
+    kept = {"rows": idx.store.vectors[:N_CAPACITY], "queries": batches[0],
+            "dists": truth[0][0], "ids": truth[0][1]}
     truth = np.concatenate([i for _, i in truth])
     launches = _launches()
     check(launches == {"wgmma": N_BATCHES, "fma": 0},
@@ -773,7 +795,7 @@ def phase_capacity_ladder() -> dict:
     idx.close()
     del idx
     torch.cuda.empty_cache()
-    return launches
+    return launches, kept
 
 
 def phase_auto_ladder() -> dict:
@@ -1461,8 +1483,13 @@ def _arm_stats(eng) -> str:
 def phase_adaptive(base: np.ndarray) -> dict:
     """Phase 12: the adaptive engine on the graph tier's rows; returns
     K1's launches by route (warm-up and oracle included)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
     from hnsw_tpu_torch import (AdaptiveConfig, AdaptiveHybridIndex,
                                 HybridConfig)
+    from hnsw_tpu_torch.index.streaming import StreamingExactIndex
     from hnsw_tpu_torch.ops.topk import np_exact_topk
     n = len(base)
     rng = np.random.default_rng(7)
@@ -1470,8 +1497,8 @@ def phase_adaptive(base: np.ndarray) -> dict:
                for _ in range(N_ADAPT_BATCHES)]
     singles = rng.standard_normal((N_SINGLE, DIM), dtype=np.float32)
     print(f"# adaptive-100k: AdaptiveHybridIndex(exact_threshold=500, "
-          f"capacity_arms=('int8',)) on {n} x {DIM} cosine, k=10",
-          flush=True)
+          f"capacity_arms=('int8',)) on {n} x {DIM} cosine, k=10, with a "
+          f"StreamingExactIndex attached as the stream arm", flush=True)
     gt, launches = _exact_truth(base, batches + [singles], "cosine")
     gt_single = gt.pop()
     # the kernel-backed oracle itself, and below the served results, held
@@ -1488,19 +1515,26 @@ def phase_adaptive(base: np.ndarray) -> dict:
     eng = AdaptiveHybridIndex(HybridConfig(exact_threshold=500),
                               AdaptiveConfig(capacity_arms=("int8",)),
                               device=DEVICE)
+    # the streaming (disk) tier as a user attaches it: before the writes,
+    # in a directory of its own
+    stream_dir = tempfile.mkdtemp(prefix="hnsw_adaptive_stream_")
+    eng.attach_stream(StreamingExactIndex(stream_dir, metric="cosine",
+                                          device=DEVICE))
     watch = _Stopwatch()
     for sub, name, label in ((eng.exact, "batch_add", "exact"),
                              (eng.graph, "build", "graph (native build)"),
                              (eng.lsh, "batch_add", "lsh (host loop)"),
-                             (eng.ivf, "batch_add", "ivf")):
+                             (eng.ivf, "batch_add", "ivf"),
+                             (eng.stream, "batch_add", "stream (mmap)")):
         watch.wrap(sub, name, label)
     t0 = time.perf_counter()
     eng.batch_add(list(range(n)), base)
     t_add = time.perf_counter() - t0
     watch.restore()
     check(len(eng) == len(eng.graph) == len(eng.lsh) == len(eng.ivf) == n
-          and len(eng.capacity["exact_int8"]) == n,
-          f"every vector is in the exact, graph, LSH, IVF and int8 arms")
+          and len(eng.capacity["exact_int8"]) == len(eng.stream) == n,
+          f"every vector is in the exact, graph, LSH, IVF, int8 and "
+          f"stream arms")
     print(f"  batch_add {t_add:.1f} s: "
           + ", ".join(f"{k} {v:.1f}" for k, v in watch.seconds.items())
           + " s", flush=True)
@@ -1572,7 +1606,45 @@ def phase_adaptive(base: np.ndarray) -> dict:
           "the probe oracle equals the exact tier on 32 queries")
     check(eng.fallback_errors == 0,
           f"fallback_errors == 0 (last: {eng.last_fallback_error!r})")
-    for b in (by_batches, by_single, by_np, by_direct):
+
+    # the stream arm: every query of two batches explores it and each
+    # batch is probed (the JAX spec's recipe, exploration 1.0 and a probe
+    # a call); the arm scans one chunk of n rows, past K1's switch
+    cfg, explore = eng.selector.cfg, eng.selector.explore
+    eng.selector.cfg = dataclasses.replace(cfg, exploration_factor=1.0,
+                                           recall_probe_interval=1)
+    eng.selector.explore = ("stream",)
+    _reset_launches()
+    t0 = time.perf_counter()
+    outs = [eng.batch_search(b, 10) for b in batches[:2]]
+    t_stream = time.perf_counter() - t0
+    by_stream = _launches()
+    eng.selector.cfg, eng.selector.explore = cfg, explore
+    st = eng.selector.metrics.stats("stream")
+    arm_rec = None if st is None else st.avg_recall()
+    rec_s = float(np.mean([_key_recall([[kk for kk, _ in r] for r in out],
+                                       g, 10)
+                           for out, g in zip(outs, gt[:2])]))
+    check(arm_rec is not None and arm_rec >= 0.99 and rec_s >= 0.99,
+          f"stream arm: measured recall {arm_rec} >= 0.99, served recall@10 "
+          f"{rec_s:.4f} >= 0.99 against the exact tier (2 batches)")
+    _reset_launches()
+    eng._run_batch("stream", batches[0], 10)
+    by_arm = _launches()
+    if DEVICE == "cuda":
+        check(by_stream["wgmma"] >= 2 and by_stream["fma"] == 0
+              and by_arm == {"wgmma": 1, "fma": 0},
+              f"stream arm: the 2 batches and their probes launched the "
+              f"wgmma kernel {by_stream['wgmma']} times; one batch of the "
+              f"arm alone (one {n}-row chunk) once: {by_arm}")
+    check(eng.fallback_errors == 0,
+          f"fallback_errors == 0 after the stream batches (last: "
+          f"{eng.last_fallback_error!r})")
+    print(f"  stream arm, 2 batches of {BATCH}, each probed: "
+          f"{2 * BATCH / t_stream:.1f} QPS, served recall@10 {rec_s:.4f}, "
+          f"measured {arm_rec:.4f}; K1 launches {by_stream} (the arm alone "
+          f"{by_arm})", flush=True)
+    for b in (by_batches, by_single, by_np, by_direct, by_stream, by_arm):
         launches = _add(launches, b)
 
     # the LSH arm alone (4 tables x 8 bits): no bound, for the record
@@ -1596,6 +1668,7 @@ def phase_adaptive(base: np.ndarray) -> dict:
         _profile(f"one {BATCH}-query adaptive batch",
                  lambda: eng.batch_search(batches[1], 10))
     eng.close()
+    shutil.rmtree(stream_dir, ignore_errors=True)
     del eng
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
@@ -1707,6 +1780,348 @@ def phase_hybrid_bench() -> None:
         torch.cuda.empty_cache()
 
 
+def phase_streaming(kept: dict) -> dict:
+    """Phase 14: StreamingExactIndex at BIGANN-10M's shape: phase 6's rows
+    (seed 2) written into a fresh memory-mapped row file, streamed in
+    131,072-row float32 chunks through K1, cold, warm (every chunk pinned
+    on the card) and with a 2 GB budget, then one cold batch of each
+    reduced rung. Held to phase 6's float32 rung on its first batch.
+    Returns K1's launches by route."""
+    import shutil
+    import tempfile
+
+    from hnsw_tpu_torch.index import streaming as sm
+    from hnsw_tpu_torch.io.mmap_store import MmapVectorStore
+    from hnsw_tpu_torch.ops.topk import exact_topk
+    rows, q = kept["rows"], kept["queries"]
+    want_d, want_i = kept["dists"], kept["ids"]
+    n = len(rows)
+    file_bytes = n * DIM * 4
+    d = tempfile.mkdtemp(prefix="hnsw_stream_")
+    free = shutil.disk_usage(d).free
+    print(f"# streaming-bigann10m-shape: StreamingExactIndex(metric='l2', "
+          f"chunk_rows=131072) over {n} x {DIM} rows (phase 6's), batches of "
+          f"{len(q)}, k=10; {d}: {free / 1e9:.1f} GB free for a "
+          f"{file_bytes / 1e9:.2f} GB row file", flush=True)
+    try:
+        check(free >= 2 * file_bytes, f"{free / 1e9:.1f} GB free >= twice "
+              f"the {file_bytes / 1e9:.2f} GB row file")
+        t0 = time.perf_counter()
+        MmapVectorStore(d, dim=DIM, capacity=n).flush()   # sized up front
+        idx = sm.StreamingExactIndex(d, metric="l2", device=DEVICE)
+        for c0 in range(0, n, 1 << 20):
+            c1 = min(n, c0 + (1 << 20))
+            idx.batch_add(range(c0, c1), rows[c0:c1])
+        idx.flush()
+        t_write = time.perf_counter() - t0
+        step = idx.chunk_rows
+        n_chunks = -(-n // step)
+        print(f"  wrote the index in {t_write:.1f} s ({n_chunks} chunks); "
+              f"the page cache holds the file just written, so 'cold' "
+              f"below is a read from memory, not from the disk",
+              flush=True)
+
+        def batch():
+            return idx.batch_search_slots(q, 10)
+
+        def timed_batch():
+            _sync_device()
+            t = time.perf_counter()
+            out = batch()
+            return out, time.perf_counter() - t
+
+        launches = {}
+        _reset_launches()
+        (dc, ic), t_first = timed_batch()
+        by = _launches()
+        launches = _add(launches, by)
+        if DEVICE == "cuda":
+            check(by == {"wgmma": n_chunks, "fma": 0},
+                  f"one cold batch launched the wgmma kernel {by['wgmma']} "
+                  f"times ({n_chunks} chunks of >= 32768 rows), the FMA "
+                  f"kernel {by['fma']}")
+        same = float(np.mean(ic == want_i))
+        rec_t = _recall_ties(dc, want_d, 1e-4)
+        check(np.isfinite(dc).all() and (same == 1.0 or rec_t == 1.0),
+              f"stream vs phase 6's float32 rung ({len(q)} queries): ids "
+              f"equal at {same:.5f} of the positions, tie-aware recall@10 "
+              f"{rec_t:.4f} (ties within 1e-4)")
+        _reset_launches()
+        qps_cold = _qps(batch, len(q))
+        launches = _add(launches, _launches())
+        print(f"  cold (cache off): {qps_cold:.1f} QPS (median of 3 "
+              f"batches; the first {t_first:.3f} s)", flush=True)
+
+        chunk_bytes = (step * DIM * 4 + step * 5)
+        idx.hbm_cache_bytes = n_chunks * chunk_bytes
+        _reset_launches()
+        _, t_fill = timed_batch()
+        check(len(idx._cache) == n // step and
+              all(e[0].device.type == DEVICE for e in idx._cache.values()),
+              f"warm: {len(idx._cache)} full chunks pinned on {DEVICE} "
+              f"({idx._cache_bytes / 1e9:.2f} GB; the short last one "
+              f"streams)")
+        (dw, iw), t_warm = timed_batch()
+        check(np.array_equal(iw, ic), "warm: ids equal the cold batch's")
+        qps_warm = _qps(batch, len(q))
+        by_warm = _launches()
+        launches = _add(launches, by_warm)
+        print(f"  warm (hbm_cache_bytes {idx.hbm_cache_bytes / 1e9:.2f} GB): "
+              f"{qps_warm:.1f} QPS (median of 3; the filling batch "
+              f"{t_fill:.3f} s)", flush=True)
+
+        # the predicate's evidence: the same warm batch with every chunk
+        # on the plain exact_topk scan
+        real = sm.exact_scan
+        sm.exact_scan = (lambda qq, vv, ss, aa, **kw:
+                         exact_topk(qq, vv, ss, aa, **kw))
+        try:
+            _reset_launches()
+            (dp, ip), t_plain = timed_batch()
+            plain_launches = _launches()
+        finally:
+            sm.exact_scan = real
+        diff = ip != iw
+        err = float(np.abs(dp - dw).max())
+        check(plain_launches == {"wgmma": 0, "fma": 0}
+              and np.all(np.abs(dp[diff] - dw[diff]) <= 1e-4)
+              and diff.mean() <= 1e-3 and err <= 1e-3,
+              f"warm batch, plain exact_topk per chunk: ids equal at "
+              f"{1 - diff.mean():.5f} of the positions (the rest near ties "
+              f"within 1e-4), dists within {err:.2e}")
+        print(f"  one warm batch: K1 per chunk {t_warm * 1e3:.1f} ms, plain "
+              f"exact_topk per chunk {t_plain * 1e3:.1f} ms", flush=True)
+
+        idx._cache.clear()
+        idx._cache_bytes = 0
+        idx.hbm_cache_bytes = 2_000_000_000
+        _reset_launches()
+        _, t_fill = timed_batch()
+        pinned = len(idx._cache)
+        (db, ib), _ = timed_batch()
+        check(np.array_equal(ib, ic) and 0 < pinned < n_chunks,
+              f"2 GB budget: {pinned} of {n_chunks} chunks pinned, ids "
+              f"equal the cold batch's")
+        qps_part = _qps(batch, len(q))
+        launches = _add(launches, _launches())
+        print(f"  2 GB budget ({pinned} chunks warm, {n_chunks - pinned} "
+              f"cold): {qps_part:.1f} QPS (median of 3)", flush=True)
+
+        idx._cache.clear()
+        idx._cache_bytes = 0
+        idx.hbm_cache_bytes = 0
+        for rd in ("bf16", "fp16", "int8"):
+            idx.stream_dtype = rd
+            _reset_launches()
+            (dr, ir), t_r = timed_batch()
+            check(_launches() == {"wgmma": 0, "fma": 0},
+                  f"{rd}: the reduced scan runs without K1")
+            rec = _recall(ir, ic, 10)
+            check(np.isfinite(dr).all() and rec >= 0.99,
+                  f"{rd}: recall@10 {rec:.4f} >= 0.99 against the float32 "
+                  f"stream")
+            print(f"  {rd}, one cold batch: {t_r:.3f} s = "
+                  f"{len(q) / t_r:.1f} QPS, recall@10 {rec:.4f}",
+                  flush=True)
+        idx.stream_dtype = "float32"
+        print(f"  K1 launches in this phase: {launches}", flush=True)
+        idx.close()
+        del idx
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_disk_graph(st: dict) -> dict:
+    """Phase 15: phase 5's 100k graph written into a DiskGraph directory
+    (npz tables, no rebuild), reopened and served; 200 adds and 100
+    deletes through the WAL, an incremental reopen; then the same
+    directory with vectors on disk and the int8 store on the card.
+    Returns K1's launches by route (the exact-tier oracle)."""
+    import shutil
+    import tempfile
+
+    from hnsw_tpu_torch import DiskGraph, ExactIndex, Graph, StoreConfig
+    g, base, queries = st["g"], st["base"], st["queries"]
+    n = len(base)
+    d = tempfile.mkdtemp(prefix="hnsw_disk_")
+
+    def cfg(**kw):
+        return StoreConfig(directory=d, format="npz",
+                           wal_flush_interval_seconds=0, **kw)
+
+    def same_serving(x):
+        x.native_serve_max_batch = 0
+        for name in ("fast_math", "entry_mode", "merge_strategy",
+                     "split_layers", "hbm_mode", "block_layout"):
+            setattr(x, name, getattr(g, name))
+
+    builds = {"n": 0}
+    real_build = Graph.build
+
+    def counted_build(self, *a, **kw):
+        builds["n"] += 1
+        return real_build(self, *a, **kw)
+
+    print(f"# disk-graph-100k: phase 5's graph ({n} x {DIM} cosine) in a "
+          f"DiskGraph directory, npz tables", flush=True)
+    try:
+        t0 = time.perf_counter()
+        DiskGraph(d, store_config=cfg(), device=DEVICE)._persist(g)
+        t_persist = time.perf_counter() - t0
+        Graph.build = counted_build
+        try:
+            with _NativeInserts() as nat:
+                t0 = time.perf_counter()
+                dg = DiskGraph(d, store_config=cfg(), device=DEVICE)
+                t_open = time.perf_counter() - t0
+        finally:
+            Graph.build = real_build
+        check(builds["n"] == 0 and nat.calls == 0 and len(dg) == n,
+              f"reopen restores the structure of {len(dg)} keys without a "
+              f"build")
+        same_serving(dg.graph)
+        k_a, d_a = g.batch_search(queries, 10, ef=64)
+        k_b, d_b = dg.graph.batch_search(queries, 10, ef=64)
+        check(k_a == k_b and np.array_equal(d_a, d_b),
+              f"reopened graph at ef 64: keys and distances equal phase 5's "
+              f"({len(queries)} queries)")
+        rng = np.random.default_rng(9)
+        new_keys = list(range(n, n + 200))
+        new_vecs = rng.standard_normal((200, DIM), dtype=np.float32)
+        doomed = list(range(0, 1000, 10))
+        dg.batch_add(new_keys, new_vecs)
+        flags = dg.batch_delete(doomed)
+        check(all(flags), "batch_delete of 100 keys")
+        dg.close()
+        t0 = time.perf_counter()
+        dg = DiskGraph(d, store_config=cfg(), device=DEVICE)
+        t_inc = time.perf_counter() - t0
+        dg.graph.native_serve_max_batch = 0
+        gone = [k for k in doomed if dg.graph.lookup(k) is not None]
+        _, hit = dg.graph.batch_search_slots(new_vecs, 1, ef=64)
+        found = float(np.mean([dg.graph.slots.key_of(int(s)) == key
+                               for s, key in zip(hit[:, 0], new_keys)]))
+        check(len(dg) == n + 100 and not gone and found >= 0.99
+              and dg.wal.num_log_files > 0,
+              f"incremental reopen ({dg.wal.num_log_files} WAL log(s) kept): "
+              f"{len(dg)} keys, the 100 deleted gone, the 200 new found "
+              f"({found:.3f} of them their own nearest neighbour)")
+        stats = dg.stats()
+        dg._stop_flusher.set()
+
+        # the exact tier over the live rows, for the disk-resident reopen
+        live = [k for k in range(n) if k not in set(doomed)] + new_keys
+        rows = np.concatenate([np.delete(base, doomed, axis=0), new_vecs])
+        _reset_launches()
+        oracle = ExactIndex(metric="cosine", device=DEVICE)
+        oracle.batch_add(live, rows)
+        truth, _ = oracle.batch_search(queries, 10)
+        oracle.close()
+        launches = _launches()
+        t0 = time.perf_counter()
+        dq = DiskGraph(d, store_config=cfg(vectors_on_disk=True,
+                                           hbm_mode="quantized"),
+                       device=DEVICE)
+        t_mm = time.perf_counter() - t0
+        dq.graph.native_serve_max_batch = 0
+        check(type(dq.graph.store).__name__ == "MmapVectorStore"
+              and dq.graph.device_graph().qvec is not None
+              and tuple(dq.graph.device_graph().vectors.shape) == (1, DIM),
+              "vectors_on_disk + hbm_mode='quantized': a Graph over an "
+              "MmapVectorStore, only the int8 store on the card")
+        recs = {}
+        for ef in (64, 192):
+            keys, dist = dq.graph.batch_search(queries, 10, ef=ef)
+            recs[ef] = sum(len(set(a) & set(b)) for a, b in
+                           zip(keys, truth)) / (10 * len(queries))
+            check(np.isfinite(dist).all(), f"quantized over mmap, ef {ef}: "
+                  f"finite distances")
+        dq._stop_flusher.set()
+        print(f"  persist {t_persist:.2f} s, reopen {t_open:.2f} s, "
+              f"incremental reopen (200 adds, 100 deletes) {t_inc:.2f} s, "
+              f"reopen over mmap {t_mm:.2f} s; recall@10 over mmap + int8 "
+              f"{recs[64]:.4f} / {recs[192]:.4f} at ef 64 / 192 vs the exact "
+              f"tier; stats {stats}", flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def phase_facets(st: dict) -> dict:
+    """Phase 16: facets, metadata and the analyzer on phase 5's graph.
+    Returns K1's launches by route (the masked exact scans)."""
+    from hnsw_tpu_torch import (Analyzer, EqualityFilter, Facet,
+                                FacetedGraph, MetadataGraph, RangeFilter)
+    from hnsw_tpu_torch.ops.topk import np_exact_topk
+    g, base, queries = st["g"], st["base"], st["queries"]
+    n = len(base)
+    vals = np.random.default_rng(10).integers(0, 100, n)
+    fg = FacetedGraph(g)
+    for key in range(n):                      # the store, not Graph.add
+        fg.store.add(key, [Facet("bucket", int(vals[key]))])
+    print(f"# facets-100k: phase 5's graph, a facet of 100 values on its "
+          f"{n} keys, {len(queries)} queries, k=10", flush=True)
+    launches = {}
+    for label, flt, allowed in (
+            ("equality (1%)", EqualityFilter("bucket", 7), vals == 7),
+            ("range (10%)", RangeFilter("bucket", 10, 19),
+             (vals >= 10) & (vals <= 19))):
+        rows = np.flatnonzero(allowed)
+        t_d, t_i = np_exact_topk(queries, base[rows], 10, "cosine")
+        t_i = rows[t_i]
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = fg.batch_search_exact(queries, 10, [flt])
+        t_exact = time.perf_counter() - t0
+        by = _launches()
+        launches = _add(launches, by)
+        got_d = np.array([[dd for _, dd in r] for r in res], np.float32)
+        got_i = np.array([[kk for kk, _ in r] for r in res])
+        rec = _recall(got_i, t_i, 10)
+        rec_t = _recall_ties(got_d, t_d)
+        check(got_i.shape == (len(queries), 10)
+              and bool(allowed[got_i].all()) and rec_t == 1.0,
+              f"{label}: batch_search_exact recall@10 {rec:.4f} (ties within "
+              f"1e-5: {rec_t:.4f} == 1) against numpy over the {len(rows)} "
+              f"allowed rows, every result allowed")
+        if DEVICE == "cuda":
+            check(by == {"wgmma": 1, "fma": 0},
+                  f"{label}: the masked scan of {g.device_graph().cap} slots "
+                  f"launched the wgmma kernel once: {by}")
+        t0 = time.perf_counter()
+        over = fg.batch_search(queries, 10, [flt])
+        t_over = time.perf_counter() - t0
+        rec_o = _key_recall([[kk for kk, _ in r] for r in over], t_i, 10)
+        print(f"  {label}: batch_search_exact {t_exact * 1e3:.1f} ms, "
+              f"recall@10 {rec:.4f}; batch_search (over-fetch x3 + "
+              f"post-filter, ef {g.ef_search}) {t_over * 1e3:.1f} ms, recall@10 "
+              f"{rec_o:.4f}", flush=True)
+
+    mg = MetadataGraph(g)
+    for key in range(n):
+        mg.store.add(key, {"row": key, "bucket": int(vals[key])})
+    out = mg.batch_search(queries[:64], 10)
+    check(all(len(r) == 10 and all(x["metadata"]["row"] == x["key"]
+                                   and np.isfinite(x["dist"]) for x in r)
+              for r in out),
+          "MetadataGraph.batch_search attaches each key's payload (64 "
+          "queries)")
+    # height, topography, connectivity (quality_metrics' BFS over sampled
+    # pairs is a host loop; the CPU tests hold it to JAX's)
+    a = Analyzer(g)
+    t0 = time.perf_counter()
+    topo, conn = a.topography(), a.connectivity()
+    check(a.height() == g.num_layers and topo[0] == n,
+          f"Analyzer: height {a.height()}, {topo[0]} nodes on layer 0")
+    print(f"  Analyzer ({time.perf_counter() - t0:.2f} s): height "
+          f"{a.height()}, topography {topo}, connectivity "
+          f"{[round(c, 2) for c in conn]}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -1719,18 +2134,25 @@ def main() -> int:
     launches = phase_exact_tier()
     launches = _add(launches, phase_exact_tier_glove50())
     graph = phase_graph_tier()
-    launches = _add(launches, phase_capacity_ladder())
+    by, kept = phase_capacity_ladder()
+    launches = _add(launches, by)
     launches = _add(launches, phase_auto_ladder())
     phase_graph_modes(graph)
     launches = _add(launches, phase_device_builds(graph))
-    base_graph = graph["base"]
-    del graph
     launches = _add(launches, phase_sift_shape_build())
     print(f"# smoke: phases 1-10 took {time.perf_counter() - t_start:.1f} s",
           flush=True)
     launches = _add(launches, phase_ivf_clustered())
-    launches = _add(launches, phase_adaptive(base_graph))
+    launches = _add(launches, phase_adaptive(graph["base"]))
     phase_hybrid_bench()
+    t_new = time.perf_counter()
+    launches = _add(launches, phase_streaming(kept))
+    del kept
+    launches = _add(launches, phase_disk_graph(graph))
+    launches = _add(launches, phase_facets(graph))
+    del graph
+    print(f"# smoke: phases 14-16 took {time.perf_counter() - t_new:.1f} s",
+          flush=True)
     check(all(launches[r] > 0 for r in timing),
           f"the main path launched every K1 route: {launches}")
     print(f"# smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "

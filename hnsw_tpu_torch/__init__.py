@@ -2,9 +2,12 @@
 
 A port of ``hnsw_tpu`` (JAX, TPU) to PyTorch on NVIDIA GPUs, with the
 same module layout and public names. It imports neither JAX nor the JAX
-package. Ported so far: both index types with their serving and capacity
-modes, the device wave builder, checkpoints, and the hybrid and adaptive
-engines with their LSH, IVF and partitioner tiers.
+package. Ported: both index types with their serving and capacity modes,
+the device wave builder, checkpoints, the hybrid and adaptive engines
+with their LSH, IVF and partitioner tiers, disk storage (DiskGraph, WAL,
+mmap store), the streaming exact tier, facets, metadata and the analyzer;
+every public name of ``hnsw_tpu`` (its ``parallel`` package is not
+ported).
 
   Graph              HNSW index: native C++ host build or the device wave
                      builder (core/build_device.py: build, refine, delete
@@ -26,6 +29,20 @@ engines with their LSH, IVF and partitioner tiers.
   LSHIndex           random-hyperplane buckets + exact re-rank
   Partitioner        centroid routing and rebalance
   MultiIndexAdapter  fan-out search over several indexes
+  FacetedGraph       faceted filtering: over-fetch + post-filter, or one
+                     masked exact scan (batch_search_exact; K1 on CUDA at
+                     32768+ slots)
+  MetadataGraph      JSON payloads attached to results
+  Analyzer           structure metrics of a graph (host arrays)
+  DiskGraph          durable graph: parquet / arrow / npz tables + WAL,
+                     vectors in RAM or memory-mapped (io/mmap_store.py);
+                     the JAX package's directory format
+  ArrowAppender      streaming Arrow ingest (needs pyarrow)
+  index.streaming.StreamingExactIndex  exact k-NN over a memory-mapped
+                     row file streamed through the device in chunks (K1
+                     on float32 chunks of 32768+ rows; bf16 / fp16 / int8
+                     chunks with an f32 host rerank); an arm of the
+                     adaptive engine (attach_stream)
   save_graph/load_graph/SavedGraph  checkpoints, in the JAX package's
                      file format (io/codec.py)
   register_distance  custom metrics
@@ -37,24 +54,40 @@ and run on the tensors' device.
 
 __version__ = "0.1.0"
 
+from hnsw_tpu_torch.analyzer import Analyzer, QualityMetrics
 from hnsw_tpu_torch.config import (AdaptiveConfig, GraphConfig, HybridConfig,
                                    ShardingConfig, StoreConfig)
-from hnsw_tpu_torch.index.adapters import MultiIndexAdapter
+from hnsw_tpu_torch.facets import (BasicFacet, EqualityFilter, Facet,
+                                   FacetedGraph, FacetFilter, FacetStore,
+                                   MemoryFacetStore, RangeFilter,
+                                   StringContainsFilter)
+from hnsw_tpu_torch.index.adapters import MultiIndexAdapter, SearchableIndex
 from hnsw_tpu_torch.index.adaptive import (AdaptiveHybridIndex,
                                            AdaptiveSelector)
 from hnsw_tpu_torch.index.exact import ExactIndex
 from hnsw_tpu_torch.index.hnsw import Graph
-from hnsw_tpu_torch.index.hybrid import HybridIndex
+from hnsw_tpu_torch.index.hybrid import HybridIndex, IndexStats
 from hnsw_tpu_torch.index.ivf import IVFIndex
 from hnsw_tpu_torch.index.lsh import LSHIndex
 from hnsw_tpu_torch.index.partitioner import Partitioner
+from hnsw_tpu_torch.io.appender import AppenderConfig, ArrowAppender
 from hnsw_tpu_torch.io.codec import (SavedGraph, export_graph, import_graph,
                                      load_graph, save_graph)
+from hnsw_tpu_torch.io.disk_graph import DiskGraph
+from hnsw_tpu_torch.meta import (MemoryMetadataStore, MetadataGraph,
+                                 MetadataStore)
 from hnsw_tpu_torch.ops.distance import register_distance
+from hnsw_tpu_torch.telemetry import DistanceStats, MetricsWindow, QueryMetrics
 
 __all__ = ["AdaptiveConfig", "AdaptiveHybridIndex", "AdaptiveSelector",
-           "ExactIndex", "Graph", "GraphConfig", "HybridConfig",
-           "HybridIndex", "IVFIndex", "LSHIndex", "MultiIndexAdapter",
-           "Partitioner", "SavedGraph", "ShardingConfig", "StoreConfig",
-           "export_graph", "import_graph", "load_graph", "register_distance",
-           "save_graph", "__version__"]
+           "Analyzer", "AppenderConfig", "ArrowAppender", "BasicFacet",
+           "DiskGraph", "DistanceStats", "EqualityFilter", "ExactIndex",
+           "Facet", "FacetFilter", "FacetStore", "FacetedGraph", "Graph",
+           "GraphConfig", "HybridConfig", "HybridIndex", "IVFIndex",
+           "IndexStats", "LSHIndex", "MemoryFacetStore",
+           "MemoryMetadataStore", "MetadataGraph", "MetadataStore",
+           "MetricsWindow", "MultiIndexAdapter", "Partitioner",
+           "QualityMetrics", "QueryMetrics", "RangeFilter", "SavedGraph",
+           "SearchableIndex", "ShardingConfig", "StoreConfig",
+           "StringContainsFilter", "export_graph", "import_graph",
+           "load_graph", "register_distance", "save_graph", "__version__"]

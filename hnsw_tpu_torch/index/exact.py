@@ -25,7 +25,8 @@ from hnsw_tpu_torch.config import canonical_dtype, canonical_metric
 from hnsw_tpu_torch.core.state import bucket_pow2, default_device, upload
 from hnsw_tpu_torch.ops.distance import (INF_DIST, np_bf16_round,
                                          np_gram_epilogue)
-from hnsw_tpu_torch.ops.topk import exact_topk, quantized_topk_candidates
+from hnsw_tpu_torch.ops.exact_screen import exact_scan
+from hnsw_tpu_torch.ops.topk import quantized_topk_candidates
 from hnsw_tpu_torch.utils.keystore import HostVectorStore, SlotMap
 
 
@@ -266,21 +267,9 @@ class ExactIndex:
         q = torch.from_numpy(queries).to(self.device)
         # the fused CUDA screen at large N (the [Q, N] scores never reach
         # device memory); the chunked matmul scan at small N / large k /
-        # on the CPU
-        use_fused = (v.shape[0] >= 32768 and k <= 120
-                     and self.metric in ("cosine", "l2", "sqeuclidean",
-                                         "dot")
-                     and v.is_cuda)
-        if use_fused:
-            # exact_topk_fused reranks its winner pool in f32 internally,
-            # so fused results are exact-ordered for both precisions.
-            from hnsw_tpu_torch.ops.exact_screen import exact_topk_fused
-            d, i = exact_topk_fused(q, v, sq, alive, k=k,
-                                    metric=self.metric,
-                                    fast_math=self.fast_math)
-        else:
-            d, i = exact_topk(q, v, sq, alive, k=k, metric=self.metric,
-                              fast_math=self.fast_math)
+        # on the CPU (exact_screen.fused_applies)
+        d, i = exact_scan(q, v, sq, alive, k=k, metric=self.metric,
+                          fast_math=self.fast_math)
         return (d[:nq].cpu().numpy(),
                 i[:nq].cpu().numpy().astype(np.int64))
 

@@ -33,7 +33,7 @@ import torch
 from hnsw_tpu_torch.config import canonical_metric
 from hnsw_tpu_torch.ops.distance import (HIGHEST, INF_DIST, _epilogue,
                                          bf16_round, gathered_dist)
-from hnsw_tpu_torch.ops.topk import topk_smallest
+from hnsw_tpu_torch.ops.topk import exact_topk, topk_smallest
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "exact_screen.cu")
@@ -285,6 +285,39 @@ def rerank_pool(queries: torch.Tensor, vectors: torch.Tensor,
         ik = torch.nn.functional.pad(ik, (0, k - kk), value=-1)
     ik = torch.where(dk >= INF_DIST, -1, ik)
     return dk, ik
+
+
+#: fewest table rows, and largest k, at which an exact f32 scan takes K1
+FUSED_MIN_ROWS, FUSED_MAX_K = 32768, 120
+
+
+def fused_applies(n: int, k: int, metric: str, table: torch.Tensor) -> bool:
+    """Whether an exact scan of ``n`` table rows for the top ``k`` goes
+    through K1 (``exact_topk_fused``): at least 32,768 rows, k <= 120, a
+    built-in metric and a float32 CUDA ``table``. Elsewhere (fewer rows,
+    larger k, custom metrics, reduced tables, the CPU) the chunked plain
+    scan ``ops/topk.exact_topk`` runs. Both give f32-exact distances and
+    order, ties to the lower id. The exact tier, the streaming tier's
+    float32 chunks and facets' masked scan all decide here."""
+    return (n >= FUSED_MIN_ROWS and k <= FUSED_MAX_K
+            and canonical_metric(metric) in _METRIC_CODE
+            and table.is_cuda and table.dtype == torch.float32)
+
+
+def exact_scan(queries: torch.Tensor, vectors: torch.Tensor,
+               v_sq: torch.Tensor, valid: torch.Tensor, *, k: int,
+               metric: str = "cosine", fast_math: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN of a query batch over a whole table: K1 where
+    ``fused_applies``, else ``ops/topk.exact_topk``. Returns (dists [Q, k],
+    ids [Q, k] int64), misses (INF_DIST, -1)."""
+    if fused_applies(vectors.shape[0], k, metric, vectors):
+        # exact_topk_fused reranks its winner pool in f32, so its results
+        # are exact-ordered for both precisions
+        return exact_topk_fused(queries, vectors, v_sq, valid, k=k,
+                                metric=metric, fast_math=fast_math)
+    return exact_topk(queries, vectors, v_sq, valid, k=k, metric=metric,
+                      fast_math=fast_math)
 
 
 def exact_topk_fused(queries: torch.Tensor, vectors: torch.Tensor,

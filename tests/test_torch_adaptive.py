@@ -3,9 +3,10 @@
 The selector is host code: with the same seed, the same queries and the
 same recorded metrics it must decide exactly as hnsw_tpu's does, single
 queries and batches, thresholds and statistics included. The engine's
-specs of tests/test_hybrid.py run against the port (the stream-arm spec
-waits for the streaming tier). ``warm()`` and ``fallback_errors`` are the
-port's own: they are checked here.
+specs of tests/test_hybrid.py run against the port, the stream arm with a
+real StreamingExactIndex and the DiskGraph part of the batch_delete
+facade spec included. ``warm()`` and ``fallback_errors`` are the port's
+own: they are checked here.
 """
 
 import unittest.mock as mock
@@ -554,16 +555,16 @@ def test_every_arm_lives_on_the_engine_device_and_returns_numpy():
         assert all(isinstance(d, float) for _, d in a._run(arm, v[0], 4))
 
 
-def test_attach_stream_registers_the_arm_and_fans_out():
-    """The stream arm is an attribute and a fan-out here: any index with
-    the batch protocol serves it (the streaming tier itself is not part
-    of this package yet)."""
-    from hnsw_tpu_torch import ExactIndex
+def test_attach_stream_registers_the_arm_and_fans_out(tmp_path):
+    """The stream arm is an attribute and a fan-out: writes and deletes
+    reach the attached StreamingExactIndex, which serves the arm."""
+    from hnsw_tpu_torch.index.streaming import StreamingExactIndex
     v = make_vectors(300, 16, seed=113)
     a = _adaptive(adaptive=AdaptiveConfig(exploration_factor=1.0,
                                           recall_probe_interval=1,
                                           recall_target=0.9))
-    a.attach_stream(ExactIndex(device="cpu"))
+    a.attach_stream(StreamingExactIndex(str(tmp_path / "st"),
+                                        chunk_rows=128, device="cpu"))
     assert "stream" in a.selector.explore
     a.batch_add(list(range(300)), v)
     assert len(a.stream) == 300
@@ -574,3 +575,69 @@ def test_attach_stream_registers_the_arm_and_fans_out():
     assert a.selector.metrics.stats("stream").avg_recall() >= 0.9
     assert a.delete(0) and len(a.stream) == 299
     assert a.batch_delete([1, 2]) == [True, True] and len(a.stream) == 297
+
+
+def test_bandit_stream_arm_serves_and_is_probed(tmp_path):
+    """Port of tests/test_hybrid.py's stream-arm spec: the streaming
+    (disk) tier joins the bandit via attach_stream, writes fan out to it,
+    its arm serves real results and the oracle probe measures it."""
+    from hnsw_tpu_torch.index.streaming import StreamingExactIndex
+    n, d, k = 600, 16, 5
+    v = make_vectors(n, d, seed=77)
+    q = make_vectors(8, d, seed=78)
+    idx = _adaptive(adaptive=AdaptiveConfig(
+        recall_probe_interval=1, recall_target=0.9,
+        exploration_factor=1.0))
+    idx.attach_stream(StreamingExactIndex(str(tmp_path / "st"),
+                                          metric="cosine", device="cpu"))
+    assert "stream" in idx.selector.explore
+    idx.batch_add(list(range(n)), v)
+    assert len(idx.stream) == n
+
+    idx.selector.explore = ("stream",)
+    for _ in range(2):
+        out = idx.batch_search(q, k)
+    st = idx.selector.metrics.stats("stream")
+    assert st is not None and st.count > 0
+    # streaming exact is f32-faithful: measured at 1.0
+    assert st.avg_recall() is not None and st.avg_recall() >= 0.9
+    _, gt = np_exact_topk(q, v, k, "cosine")
+    assert _served_recall(out, gt, k) >= 0.9
+    assert idx.delete(0)
+    assert len(idx.stream) == n - 1
+    idx.close()
+
+
+def test_disk_graph_batch_delete_is_a_single_sweep(monkeypatch, tmp_path):
+    """Port of the DiskGraph part of tests/test_hybrid.py's batch_delete
+    facade spec: one Graph.batch_delete sweep, WAL records per successful
+    key, per-key flags."""
+    from hnsw_tpu_torch import DiskGraph
+    calls = {"batch": 0, "single": 0}
+    real_batch = hnsw_mod.Graph.batch_delete
+    real_single = hnsw_mod.Graph.delete
+
+    def spy_batch(self, keys, refine=False):
+        calls["batch"] += 1
+        return real_batch(self, keys, refine=refine)
+
+    def spy_single(self, key):
+        calls["single"] += 1
+        return real_single(self, key)
+
+    monkeypatch.setattr(hnsw_mod.Graph, "batch_delete", spy_batch)
+    monkeypatch.setattr(hnsw_mod.Graph, "delete", spy_single)
+    n, d = 300, 16
+    data = np.random.default_rng(3).standard_normal((n, d)).astype(
+        np.float32)
+    doomed = list(range(0, n, 3)) + ["never-added"]
+    dg = DiskGraph(str(tmp_path / "dg"), device="cpu")
+    dg.batch_add(list(range(n)), data)
+    calls.update(batch=0, single=0)
+    flags = dg.batch_delete(doomed)
+    assert calls["batch"] == 1 and calls["single"] == 0, calls
+    assert flags[:-1] == [True] * (len(doomed) - 1) and not flags[-1]
+    assert len(dg) == n - (len(doomed) - 1)
+    assert sum(c.type == "delete" for c in dg.wal.pending) \
+        == len(doomed) - 1
+    dg._stop_flusher.set()

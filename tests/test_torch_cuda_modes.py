@@ -159,3 +159,107 @@ def test_adaptive_exact_arm_launches_the_screen_kernel(cuda):
     assert [r[0] for r in probe] == list(range(32))
     assert es.launches_by_route["wgmma"] > before["wgmma"] + 1
     assert a.fallback_errors == 0
+
+
+def _equal_up_to_ties(a, b, tol=1e-5):
+    """Equal ids, except where two neighbours whose distances agree within
+    ``tol`` swapped places (f32 sums in another order); distances of
+    equal ids within 1e-5."""
+    (da, ia), (db, ib) = a, b
+    diff = ia != ib
+    assert np.all(np.abs(da[diff] - db[diff]) <= tol), int(diff.sum())
+    assert diff.mean() <= 0.001
+    np.testing.assert_allclose(da[~diff], db[~diff], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_streaming_scan_through_the_kernel_equals_plain(cuda, metric,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """float32 chunks of 40,000 rows take K1, the short last chunk the
+    plain scan; the same index with every chunk on the plain scan, and
+    the same index on the CPU, give the same results. The device chunk
+    cache serves the same ids from pinned chunks."""
+    from hnsw_tpu_torch.index import streaming as sm
+    from hnsw_tpu_torch.ops import exact_screen as es
+    from hnsw_tpu_torch.ops.topk import exact_topk
+    v = _data(21, 90_000, d=64)
+    q = _data(22, 300, d=64)
+    dead = np.arange(0, len(v), 7)
+
+    def index(dev, sub, **kw):
+        idx = sm.StreamingExactIndex(str(tmp_path / sub), metric=metric,
+                                     chunk_rows=40_000, device=dev, **kw)
+        idx.batch_add(list(range(len(v))), v)
+        idx.batch_delete(dead.tolist())
+        return idx
+
+    out = []
+    for j, dev in enumerate((cuda, torch.device("cpu"))):
+        idx = index(dev, f"d{j}", hbm_cache_bytes=1 << 30)
+        before = es.launches
+        out.append(idx.batch_search_slots(q, 10))
+        assert es.launches - before == (2 if dev.type == "cuda" else 0)
+        assert len(idx._cache) == 2
+        assert all(e[0].device.type == dev.type
+                   for e in idx._cache.values())
+        cached = idx.batch_search_slots(q, 10)
+        np.testing.assert_array_equal(cached[1], out[j][1])
+    assert not np.isin(out[0][1], dead).any()
+    monkeypatch.setattr(sm, "exact_scan",
+                        lambda qq, vv, ss, aa, **kw: exact_topk(
+                            qq, vv, ss, aa, **kw))
+    plain = index(cuda, "plain")
+    before = es.launches
+    _equal_up_to_ties(out[0], plain.batch_search_slots(q, 10))
+    assert es.launches == before
+    _equal_up_to_ties(*out)
+
+
+@pytest.mark.parametrize("dt", ["bf16", "fp16", "int8"])
+def test_streaming_reduced_rungs_on_card_match_cpu(cuda, dt, tmp_path):
+    from hnsw_tpu_torch.index.streaming import StreamingExactIndex
+    v = _data(23, 50_000)
+    q = _data(24, 200)
+    out = []
+    for j, dev in enumerate((cuda, "cpu")):
+        idx = StreamingExactIndex(
+            str(tmp_path / f"d{j}"), metric="l2", chunk_rows=20_000,
+            stream_dtype=dt, device=dev)
+        idx.batch_add(list(range(len(v))), v)
+        out.append(idx.batch_search_slots(q, 10))
+    _agree(*out)
+
+
+def test_batch_search_exact_through_the_kernel_equals_plain(cuda,
+                                                            monkeypatch):
+    """FacetedGraph's masked exact scan on a 40,000-row graph on the card
+    launches K1 once a batch and equals the plain exact_topk scan, f32,
+    under a 1% filter and without one."""
+    import hnsw_tpu_torch.facets as fm
+    from hnsw_tpu_torch.ops import exact_screen as es
+    from hnsw_tpu_torch.ops.topk import exact_topk
+    v = _data(25, 40_000, d=64)
+    q = _data(26, 100, d=64)
+    g = hnsw_tpu_torch.Graph(m=8, ef_construction=32, device=cuda)
+    g.build(list(range(len(v))), v, method="host")
+    g.fast_math = True                       # not inherited by the scan
+    fg = hnsw_tpu_torch.FacetedGraph(g)
+    for i in range(len(v)):
+        fg.store.add(i, [hnsw_tpu_torch.Facet("b", i % 100)])
+    flt = [hnsw_tpu_torch.EqualityFilter("b", 3)]
+
+    def run():
+        res = [fg.batch_search_exact(q, 10, f) for f in (flt, ())]
+        return [(np.array([[d for _, d in r] for r in rows], np.float32),
+                 np.array([[kk for kk, _ in r] for r in rows]))
+                for rows in res]
+
+    before = es.launches
+    kern = run()
+    assert es.launches - before == 2
+    assert all(int(kk) % 100 == 3 for kk in kern[0][1].ravel())
+    monkeypatch.setattr(fm, "exact_scan", lambda qq, vv, ss, aa, **kw:
+                        exact_topk(qq, vv, ss, aa, **kw))
+    for a, b in zip(kern, run()):
+        _equal_up_to_ties(a, b)

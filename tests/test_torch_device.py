@@ -95,13 +95,20 @@ def _call(name, tmp_path, device):
     if name in ("LSHIndex", "IVFIndex", "HybridIndex",
                 "AdaptiveHybridIndex"):
         return getattr(hnsw_tpu_torch, name)(**kw)
+    if name == "DiskGraph":
+        return hnsw_tpu_torch.DiskGraph(str(tmp_path / "dg"), fmt="npz",
+                                        **kw)
+    if name == "StreamingExactIndex":
+        from hnsw_tpu_torch.index.streaming import StreamingExactIndex
+        return StreamingExactIndex(str(tmp_path / "st"), **kw)
     raise AssertionError(name)
 
 
 ENTRY_POINTS = ["ExactIndex", "Graph", "bulk_insert", "bulk_insert_device",
                 "refine_device", "from_host", "load_graph",
                 "SavedGraph.load", "resume_build", "LSHIndex", "IVFIndex",
-                "Partitioner", "HybridIndex", "AdaptiveHybridIndex"]
+                "Partitioner", "HybridIndex", "AdaptiveHybridIndex",
+                "DiskGraph", "StreamingExactIndex"]
 
 
 def test_default_device_is_the_card_or_an_error(monkeypatch):
