@@ -83,6 +83,18 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    scan (K1) under a 1% equality and a 10% range filter at recall 1.0,
    the over-fetch search beside it, payloads attached, the analyzer's
    height, topography and connectivity.
+17. the parallel package on default_mesh(8), eight shards on the one card:
+   phase 6's 10M rows row-sharded (sharded_exact_topk: K1 on every
+   1.25M-row shard, ids equal to phase 6's float32 rung; int8 shards
+   with per-row scales + host rerank, recall@10 >= 0.99), phase 5's graph
+   query-sharded (f32 and fp16 stores, overlap >= 0.99 with one search of
+   the batch) and row-sharded (f32 and fp16 rows, overlap >= 0.9 with the
+   pivot-seeded single-device search), a PartitionedGraph of 8 partitions
+   over its rows (recall >= 0.9 x phase 5's), phase 11's block table
+   block-sharded (overlap >= 0.999 with IVFIndex at nprobe 16, the exact
+   tier's slots at 1,024), a 2-slice MultiHostIndex over TCP with 500,000
+   rows of phase 11 on the card a slice (K1 a slice, recall 1.0), and the
+   port's dryrun_multichip(8).
 
 The last two lines are the kernel table (one entry a K1 route, with its
 launches on the main path) and
@@ -631,7 +643,7 @@ def phase_graph_tier() -> dict:
         g.store.alive[:g.slots.capacity_used], *g.host.arrays(),
         device="cpu")
     cpu.native_serve_max_batch = 0
-    recall = {}
+    recall, qps_by_ef = {}, {}
     for ef in (64, 192):
         _, ids = g.batch_search_slots(queries, 10, ef=ef)
         hops = list(g.last_search_hops)
@@ -646,6 +658,7 @@ def phase_graph_tier() -> dict:
         check(hit >= 0.99, f"ef={ef}: self-retrieval {hit:.4f} >= 0.99")
         qps = _qps(lambda: g.batch_search_slots(queries, 10, ef=ef), 1024)
         recall[ef] = _recall(ids, gt, 10)
+        qps_by_ef[ef] = qps
         print(f"  graph tier ef={ef}: {qps:.1f} QPS (1024-query batch, "
               f"median of 3), recall@10 {recall[ef]:.4f} vs the "
               f"exact tier, hops per layer (top..0) {hops}", flush=True)
@@ -654,7 +667,8 @@ def phase_graph_tier() -> dict:
     del oracle
     torch.cuda.empty_cache()
     return {"g": g, "cpu": cpu, "base": base, "queries": queries, "gt": gt,
-            "dense_ids_ef64": dense_ids, "prefix_recall": prefix_recall}
+            "dense_ids_ef64": dense_ids, "prefix_recall": prefix_recall,
+            "recall": recall, "qps": qps_by_ef}
 
 
 def _np_scan_topk(queries, rows, sq, k: int, metric: str,
@@ -744,7 +758,8 @@ def phase_capacity_ladder() -> tuple:
     t_sync = time.perf_counter() - t0
     _check_table(idx, "float32", N_CAPACITY)
     truth, wall = timed(serve)
-    kept = {"rows": idx.store.vectors[:N_CAPACITY], "queries": batches[0],
+    kept = {"rows": idx.store.vectors[:N_CAPACITY],
+            "sq": idx.store.sq_norms[:N_CAPACITY], "queries": batches[0],
             "dists": truth[0][0], "ids": truth[0][1]}
     truth = np.concatenate([i for _, i in truth])
     launches = _launches()
@@ -760,6 +775,7 @@ def phase_capacity_ladder() -> tuple:
     check(rec == 1.0 and err <= 1e-4, f"float32 (kernel): recall@10 "
           f"{rec:.4f} == 1 against a chunked numpy scan of 20 queries "
           f"(ties within 1e-4), matched dists within 1e-4 ({err:.2e})")
+    kept["qps"] = n_q / wall
     print(f"  capacity float32 (kernel): {n_q / wall:.1f} QPS ({n_q} "
           f"queries, one pass), upload {t_sync:.1f} s", flush=True)
 
@@ -1342,15 +1358,19 @@ def _key_recall(rows, truth: np.ndarray, k: int) -> float:
     return hits / (k * len(truth))
 
 
-def _exact_truth(base: np.ndarray, batches, metric: str) -> tuple:
+def _exact_truth(base: np.ndarray, batches, metric: str,
+                 dists: bool = False) -> tuple:
     """Top-10 ids of each batch from the exact tier on the card (K1's
-    wgmma route, checked), and its launches by route."""
+    wgmma route, checked), and its launches by route; with ``dists`` the
+    (dists, ids) pairs in place of the ids."""
     from hnsw_tpu_torch import ExactIndex
     _reset_launches()
     oracle = ExactIndex(metric=metric, device=DEVICE)
     oracle.host_serve_max_batch = 0
     oracle.batch_add(list(range(len(base))), base)
-    gt = [oracle.batch_search_slots(b, 10)[1] for b in batches]
+    gt = [oracle.batch_search_slots(b, 10) for b in batches]
+    if not dists:
+        gt = [i for _, i in gt]
     by = _launches()
     if DEVICE == "cuda" and len(base) >= 32768:
         check(by == {"wgmma": len(gt), "fma": 0},
@@ -1361,9 +1381,11 @@ def _exact_truth(base: np.ndarray, batches, metric: str) -> tuple:
     return gt, by
 
 
-def phase_ivf_clustered() -> dict:
+def phase_ivf_clustered() -> tuple:
     """Phase 11: IVFIndex on a 1,024-centre Gaussian mixture; returns K1's
-    launches by route (the exact-tier oracle)."""
+    launches by route (the exact-tier oracle) and what phase 17 holds the
+    block-sharded IVF and the multihost slices to: the index, its rows,
+    the queries and the exact tier's (dists, ids) for them."""
     from hnsw_tpu_torch import IVFIndex
     from hnsw_tpu_torch.index import ivf as ivf_mod
     rng = np.random.default_rng(6)
@@ -1404,8 +1426,8 @@ def phase_ivf_clustered() -> dict:
           f"(_sync) {t_sync:.2f} s; partition sizes {st['sizes_min']}.."
           f"{st['sizes_max']}", flush=True)
 
-    gt, launches = _exact_truth(base, [queries], "cosine")
-    gt = gt[0]
+    truth, launches = _exact_truth(base, [queries], "cosine", dists=True)
+    gt = truth[0][1]
     recalls = {}
     for npb in IVF_NPROBES + ("auto",):
         idx.nprobe = npb
@@ -1449,11 +1471,9 @@ def phase_ivf_clustered() -> dict:
         idx.nprobe = 16
         _profile(f"one {BATCH}-query IVF batch at nprobe 16",
                  lambda: idx.batch_search(queries, 10), need="gemm")
-    idx.close()
-    del idx, blocks
-    if DEVICE == "cuda":
-        torch.cuda.empty_cache()
-    return launches
+    del blocks
+    return launches, {"ivf": idx, "base": base, "queries": queries,
+                      "truth": truth[0]}
 
 
 def _single_queries(eng, queries, gt, k: int) -> tuple:
@@ -2122,6 +2142,338 @@ def phase_facets(st: dict) -> dict:
     return launches
 
 
+def _timed(fn):
+    _sync_device()
+    t = time.perf_counter()
+    out = fn()
+    _sync_device()
+    return out, time.perf_counter() - t
+
+
+def _p17_exact(mesh, kept: dict) -> dict:
+    """Phase 17.1-2: phase 6's rows row-sharded; K1 on every shard, then
+    the int8 capacity candidates + host rerank. Returns K1's launches by
+    route."""
+    from types import SimpleNamespace
+
+    from hnsw_tpu_torch.parallel.sharded import (sharded_exact_topk,
+                                                 sharded_quantized_candidates)
+    from hnsw_tpu_torch.utils.rerank import host_rerank
+    rows, q_np = kept["rows"], kept["queries"]
+    want_d, want_i = kept["dists"], kept["ids"]
+    n, S = len(rows), mesh.shape["data"]
+    dev = mesh.devices[0]
+    t0 = time.perf_counter()
+    v = torch.empty((n, DIM), dtype=torch.float32, device=dev)
+    for c0 in range(0, n, 1 << 20):
+        v[c0:c0 + (1 << 20)].copy_(torch.from_numpy(rows[c0:c0 + (1 << 20)]))
+    sq = torch.from_numpy(kept["sq"]).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    q = torch.from_numpy(q_np).to(dev)
+    _sync_device()
+    print(f"# sharded-exact-bigann10m-shape: phase 6's {n} x {DIM} L2 rows "
+          f"over {S} row shards of {n // S} on {mesh.devices[0]}, k=10, "
+          f"{len(q_np)}-query batches; upload {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+
+    def exact():
+        return sharded_exact_topk(q, v, sq, valid, k=10, metric="l2",
+                                  mesh=mesh)
+
+    _reset_launches()
+    (d, i), t_first = _timed(exact)
+    by = _launches()
+    d, i = d.cpu().numpy(), i.cpu().numpy()
+    same = float(np.mean(i == want_i))
+    rec_t = _recall_ties(d, want_d, 1e-4)
+    check(np.isfinite(d).all() and (same == 1.0 or rec_t == 1.0),
+          f"row-sharded exact vs phase 6's float32 rung: ids equal at "
+          f"{same:.5f} of the positions, tie-aware recall@10 {rec_t:.4f} "
+          f"(ties within 1e-4)")
+    if DEVICE == "cuda":
+        check(by["wgmma"] == S and by["fma"] == 0,
+              f"one batch launched K1's wgmma route {by['wgmma']} times "
+              f"(once a shard), the FMA route {by['fma']}")
+    _reset_launches()
+    qps = _qps(exact, len(q_np))
+    launches = _add(by, _launches())
+    print(f"  row-sharded exact: {qps:.1f} QPS (median of 3; the first "
+          f"batch {t_first:.3f} s) beside phase 6's single table "
+          f"{kept['qps']:.1f} QPS; K1 launches by route in those 4 batches "
+          f"{launches}", flush=True)
+
+    # int8 capacity: per-row scales, quantised on the card a chunk at a time
+    t0 = time.perf_counter()
+    v8 = torch.empty((n, DIM), dtype=torch.int8, device=dev)
+    scales = torch.empty(n, dtype=torch.float32, device=dev)
+    for c0 in range(0, n, 1 << 20):
+        blk = v[c0:c0 + (1 << 20)]
+        amax = blk.abs().amax(dim=1)
+        sc = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        scales[c0:c0 + (1 << 20)] = sc
+        v8[c0:c0 + (1 << 20)] = torch.clamp(torch.round(blk / sc[:, None]),
+                                            -127, 127).to(torch.int8)
+    del v
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    _sync_device()
+    t_q = time.perf_counter() - t0
+    store = SimpleNamespace(capacity=n, sq_norms=kept["sq"],
+                            get_batch=lambda s: rows[s])
+
+    def capacity():
+        _, cand = sharded_quantized_candidates(q, v8, scales, sq, valid,
+                                               kk=10 + 16, metric="l2",
+                                               mesh=mesh)
+        return host_rerank(store, "l2", q_np, cand.cpu().numpy(), 10)
+
+    _reset_launches()
+    (_, i8), t_first = _timed(capacity)
+    check(_launches() == {"wgmma": 0, "fma": 0},
+          "int8 shards scan without the float32 kernel")
+    rec = _recall(i8, i, 10)
+    check(rec >= 0.99, f"row-sharded int8 + host rerank: recall@10 "
+          f"{rec:.4f} >= 0.99 against the row-sharded exact ids")
+    qps8 = _qps(capacity, len(q_np))
+    print(f"  row-sharded int8 (kk=26) + host rerank: {qps8:.1f} QPS (median "
+          f"of 3; the first batch {t_first:.3f} s), recall@10 {rec:.4f}; "
+          f"quantised on the card in {t_q:.1f} s, "
+          f"{v8.numel() / 1e9:.2f} GB", flush=True)
+    del v8, scales, sq, valid
+    return launches
+
+
+def _p17_graphs(mesh, graph: dict) -> None:
+    """Phase 17.3-5: the 100k graph query-sharded and row-sharded, and a
+    PartitionedGraph over the same rows."""
+    from hnsw_tpu_torch import GraphConfig
+    from hnsw_tpu_torch.core.search import pivot_seeds, search_graph
+    from hnsw_tpu_torch.parallel.partitioned import PartitionedGraph
+    from hnsw_tpu_torch.parallel.rowsharded import (make_row_shards,
+                                                    rowsharded_graph_search)
+    from hnsw_tpu_torch.parallel.sharded import sharded_graph_search
+    g, base, q_np, gt = (graph[k] for k in ("g", "base", "queries", "gt"))
+    dev = mesh.devices[0]
+    S = mesh.shape["data"]
+    q = torch.from_numpy(q_np).to(dev)
+    g.hbm_mode, g.fast_math, g.entry_mode = "full", False, "descent"
+    print(f"# sharded-graph-100k: phase 5's graph ({len(g)} x {DIM} cosine, "
+          f"split_layers={g.split_layers!r}), {len(q_np)} queries, k=10, "
+          f"{S} shards on {dev}", flush=True)
+    for store in ("full", "float16"):
+        g.hbm_mode = store
+        dg = g.device_graph()
+        for ef in (64, 192):
+            kw = dict(k=10, ef=ef, metric="cosine", max_hops=128)
+            _, i1 = search_graph(dg, q, **kw)
+            (_, i8), t8 = _timed(lambda: sharded_graph_search(
+                dg, q, mesh=mesh, **kw))
+            i1, i8 = i1.cpu().numpy(), i8.cpu().numpy()
+            ov = _overlap(i8, i1)
+            check(ov >= 0.99, f"query-sharded {store} ef={ef}: id overlap "
+                  f"{ov:.4f} >= 0.99 with one search of the whole batch")
+            qps = _qps(lambda: sharded_graph_search(dg, q, mesh=mesh, **kw),
+                       len(q_np), reps=1)
+            print(f"  query-sharded {store} store ef={ef}: {qps:.1f} QPS "
+                  f"({S} parts of {len(q_np) // S}; phase 5's batch_search "
+                  f"{graph['qps'].get(ef, float('nan')):.1f}), ids equal to "
+                  f"the whole batch's at {np.mean(i8 == i1):.5f} of the "
+                  f"positions, overlap {ov:.4f}, recall@10 "
+                  f"{_recall(i8, gt, 10):.4f}", flush=True)
+    g.hbm_mode = "full"
+
+    print(f"# rowsharded-graph-100k: make_row_shards(g, {S}), pivot entry "
+          f"(16 seeds), expand 2", flush=True)
+    g.entry_mode = "pivots"
+    dg = g.device_graph()
+    pids, pvecs, psq = g._pivot_arrays()
+    seeds = pivot_seeds(q, pvecs, psq, pids, s=16, metric="cosine")
+    for dtype in (None, "float16"):
+        shards = make_row_shards(g, S, dtype=dtype)
+        for ef in (64, 192):
+            _, i1 = search_graph(dg, q, k=10, ef=ef, metric="cosine",
+                                 expand=2, seed_ids=seeds, merge="bitonic")
+            stats: dict = {}
+
+            def rs(stats=None):
+                return rowsharded_graph_search(shards, q, k=10, ef=ef,
+                                               seeds=16, expand=2, mesh=mesh,
+                                               stats=stats)
+
+            _, ir = rs(stats)
+            i1, ir = i1.cpu().numpy(), ir.cpu().numpy()
+            ov = _overlap(ir, i1)
+            check(ov >= 0.9, f"row-sharded {dtype or 'float32'} ef={ef}: id "
+                  f"overlap {ov:.4f} >= 0.9 with the single-device "
+                  f"pivot-seeded search (F2)")
+            qps = _qps(rs, len(q_np))
+            print(f"  row-sharded {dtype or 'float32'} rows ef={ef}: "
+                  f"{qps:.1f} QPS (median of 3), recall@10 "
+                  f"{_recall(ir, gt, 10):.4f} vs the exact tier, overlap "
+                  f"{ov:.4f} with single-device (ids equal at "
+                  f"{np.mean(ir == i1):.5f}), hops {stats['hops']}",
+                  flush=True)
+        del shards
+    g.entry_mode = "descent"
+
+    cfg = GraphConfig(m=16, ef_construction=100, metric="cosine", seed=0)
+    pg = PartitionedGraph(mesh=mesh, config=cfg)
+    t0 = time.perf_counter()
+    pg.build(list(range(len(base))), base)
+    t_build = time.perf_counter() - t0
+    print(f"# partitioned-graph-100k: PartitionedGraph({S} partitions) over "
+          f"phase 5's {len(base)} rows: build {t_build:.1f} s (sub-graphs "
+          f"concurrently), sizes {pg.stats()['sizes']}", flush=True)
+    for ef in (64, 192):
+        (keys, d), t = _timed(lambda: pg.batch_search(q_np, 10, ef=ef))
+        rec = _key_recall(keys, gt, 10)
+        floor = 0.9 * graph["recall"][ef]
+        check(np.isfinite(d).all() and rec >= floor,
+              f"partitioned ef={ef}: recall@10 {rec:.4f} >= 0.9 x phase 5's "
+              f"{graph['recall'][ef]:.4f}")
+        print(f"  partitioned ef={ef}: recall@10 {rec:.4f} (phase 5's one "
+              f"graph {graph['recall'][ef]:.4f}), {len(q_np) / t:.1f} QPS "
+              f"(one batch)", flush=True)
+    del pg
+
+
+def _p17_ivf(mesh, ivf_st: dict) -> None:
+    """Phase 17.6: phase 11's block table sharded over the mesh."""
+    from hnsw_tpu_torch.parallel.sharded import sharded_ivf_candidates
+    idx, q_np = ivf_st["ivf"], ivf_st["queries"]
+    truth_d, truth_i = ivf_st["truth"]
+    S = mesh.shape["data"]
+    blocks, block_sq, block_valid, block_slot, cents, part_blocks = \
+        idx._sync()
+    NB = blocks.shape[0]
+    pad = -(-NB // S) * S - NB
+    bpart = np.full(NB + pad, -1, np.int32)
+    for p, bl in enumerate(part_blocks):
+        bpart[bl] = p
+    F = torch.nn.functional
+    args = (F.pad(blocks, (0, 0, 0, 0, 0, pad)),
+            F.pad(block_sq, (0, 0, 0, pad)), F.pad(block_valid, (0, 0, 0, pad)),
+            torch.from_numpy(bpart).to(blocks.device))
+    flat = np.pad(block_slot, ((0, pad), (0, 0)),
+                  constant_values=-1).reshape(-1)
+    q = torch.from_numpy(q_np).to(blocks.device)
+    print(f"# sharded-ivf-1m-clustered: phase 11's [{NB}, {blocks.shape[1]}, "
+          f"{DIM}] block table padded to {NB + pad} blocks over {S} shards, "
+          f"{len(q_np)} queries, k=10", flush=True)
+
+    def sharded(npb):
+        return sharded_ivf_candidates(q, cents, *args, nprobe=npb, k=10,
+                                      metric="cosine", mesh=mesh)
+
+    for npb in (16, idx.P):
+        (d, i), t = _timed(lambda: sharded(npb))
+        d, i = d.cpu().numpy(), i.cpu().numpy()
+        slots = np.where(i >= 0, flat[np.clip(i, 0, None)], -1)
+        if npb == 16:
+            idx.nprobe = 16
+            keys, _ = idx.batch_search(q_np, 10)
+            ref = np.array([[-1 if k_ is None else k_ for k_ in row]
+                            for row in keys])
+            ov = _overlap(slots, ref)
+            check(ov >= 0.999, f"nprobe=16: id overlap {ov:.5f} >= 0.999 "
+                  f"with IVFIndex.batch_search")
+            note = (f"overlap {ov:.5f} with IVFIndex.batch_search, ids equal "
+                    f"at {np.mean(slots == ref):.5f} of the positions")
+        else:
+            same = float(np.mean(slots == truth_i))
+            rec_t = _recall_ties(d, truth_d, 1e-5)
+            check(same == 1.0 or rec_t == 1.0,
+                  f"nprobe={npb}: slots equal the exact tier's at {same:.5f} "
+                  f"of the positions, tie-aware recall@10 {rec_t:.4f}")
+            note = (f"slots equal the exact tier's at {same:.5f} of the "
+                    f"positions (tie-aware recall@10 {rec_t:.4f})")
+        print(f"  block-sharded IVF nprobe={npb}: {len(q_np) / t:.1f} QPS "
+              f"(one batch), recall@10 {_recall(slots, truth_i, 10):.4f} vs "
+              f"the exact tier; {note}", flush=True)
+    del args
+
+
+def _p17_multihost(ivf_st: dict) -> dict:
+    """Phase 17.7: a 2-slice MultiHostIndex over TCP, each slice an
+    ExactIndex on the card with half of phase 11's rows (K1 a slice).
+    Returns K1's launches by route."""
+    from hnsw_tpu_torch import ExactIndex
+    from hnsw_tpu_torch.parallel.multihost import MultiHostIndex
+    from hnsw_tpu_torch.parallel.rpc import SliceServer, SocketTransport
+    base, q_np = ivf_st["base"], ivf_st["queries"]
+    truth_d, truth_i = ivf_st["truth"]
+    slices = [ExactIndex(metric="cosine", device=DEVICE) for _ in range(2)]
+    for s in slices:
+        s.host_serve_max_batch = 0
+    servers = [SliceServer(s) for s in slices]
+    tr = SocketTransport([s.start() for s in servers], request_timeout=300.0)
+    mh = MultiHostIndex(tr, replicas=1)
+    try:
+        t0 = time.perf_counter()
+        for c0 in range(0, len(base), 1 << 18):
+            mh.batch_add(list(range(c0, min(len(base), c0 + (1 << 18)))),
+                         base[c0:c0 + (1 << 18)])
+        t_add = time.perf_counter() - t0
+        sizes = mh.stats()["per_slice"]
+        print(f"# multihost-tcp-1m: 2 SliceServers on 127.0.0.1, each an "
+              f"ExactIndex on {DEVICE} with {sizes} of phase 11's {len(base)} "
+              f"cosine rows; batch_add over TCP {t_add:.1f} s", flush=True)
+        _reset_launches()
+        (keys, d), t_first = _timed(lambda: mh.batch_search(q_np, 10))
+        by = _launches()
+        ids = np.array([[-1 if k_ is None else k_ for k_ in row]
+                        for row in keys])
+        rec = _recall(ids, truth_i, 10)
+        rec_t = _recall_ties(d, truth_d, 1e-5)
+        check(rec == 1.0 or rec_t == 1.0,
+              f"multihost over TCP: recall@10 {rec:.4f} (tie-aware "
+              f"{rec_t:.4f}) == 1.0 against one ExactIndex over all rows")
+        if DEVICE == "cuda":
+            check(by == {"wgmma": 2, "fma": 0},
+                  f"one batch launched K1 once a slice: {by}")
+        _reset_launches()
+        qps = _qps(lambda: mh.batch_search(q_np, 10), len(q_np))
+        by = _add(by, _launches())
+        print(f"  multihost: {qps:.1f} QPS (median of 3; the first batch "
+              f"{t_first:.3f} s, the slices' device tables built in it), "
+              f"recall@10 {rec:.4f}, K1 launches {by}", flush=True)
+    finally:
+        mh.close()
+        tr.close()
+        for s in servers:
+            s.shutdown()
+        for s in slices:
+            s.close()
+    return by
+
+
+def phase_parallel(kept: dict, graph: dict, ivf_st: dict) -> dict:
+    """Phase 17: the parallel package on default_mesh(8), eight shards on
+    the one card. Returns K1's launches by route."""
+    from hnsw_tpu_torch.parallel.dryrun import dryrun_multichip
+    from hnsw_tpu_torch.parallel.sharded import default_mesh
+    mesh = (default_mesh(8) if DEVICE == "cuda"
+            else default_mesh(8, device=DEVICE))
+    check(mesh.shape["data"] == 8 and mesh.one_device
+          and mesh.devices[0].type == DEVICE,
+          f"default_mesh(8): 8 shards on {mesh.devices[0]}")
+    launches = _p17_exact(mesh, kept)
+    _p17_graphs(mesh, graph)
+    _p17_ivf(mesh, ivf_st)
+    launches = _add(launches, _p17_multihost(ivf_st))
+    print("# dryrun_multichip(8) of the port", flush=True)
+    _reset_launches()
+    t0 = time.perf_counter()
+    rec = dryrun_multichip(8, device=None if DEVICE == "cuda" else DEVICE)
+    launches = _add(launches, _launches())
+    check(min(rec.values()) >= 0.9 and rec["multihost"] == 1.0,
+          f"dryrun_multichip(8) passed its 8 checks in "
+          f"{time.perf_counter() - t0:.1f} s: {rec}")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -2142,16 +2494,20 @@ def main() -> int:
     launches = _add(launches, phase_sift_shape_build())
     print(f"# smoke: phases 1-10 took {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    launches = _add(launches, phase_ivf_clustered())
+    by, ivf_st = phase_ivf_clustered()
+    launches = _add(launches, by)
     launches = _add(launches, phase_adaptive(graph["base"]))
     phase_hybrid_bench()
     t_new = time.perf_counter()
     launches = _add(launches, phase_streaming(kept))
-    del kept
     launches = _add(launches, phase_disk_graph(graph))
     launches = _add(launches, phase_facets(graph))
-    del graph
     print(f"# smoke: phases 14-16 took {time.perf_counter() - t_new:.1f} s",
+          flush=True)
+    t_new = time.perf_counter()
+    launches = _add(launches, phase_parallel(kept, graph, ivf_st))
+    del kept, graph, ivf_st
+    print(f"# smoke: phase 17 took {time.perf_counter() - t_new:.1f} s",
           flush=True)
     check(all(launches[r] > 0 for r in timing),
           f"the main path launched every K1 route: {launches}")

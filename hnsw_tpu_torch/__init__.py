@@ -5,9 +5,10 @@ same module layout and public names. It imports neither JAX nor the JAX
 package. Ported: both index types with their serving and capacity modes,
 the device wave builder, checkpoints, the hybrid and adaptive engines
 with their LSH, IVF and partitioner tiers, disk storage (DiskGraph, WAL,
-mmap store), the streaming exact tier, facets, metadata and the analyzer;
-every public name of ``hnsw_tpu`` (its ``parallel`` package is not
-ported).
+mmap store), the streaming exact tier, facets, metadata, the analyzer and
+the multi-device package ``parallel`` (a mesh of shards driven by one
+process, several of which may share a card; slices over TCP); every
+public name of ``hnsw_tpu``.
 
   Graph              HNSW index: native C++ host build or the device wave
                      builder (core/build_device.py: build, refine, delete
@@ -43,6 +44,13 @@ ported).
                      on float32 chunks of 32768+ rows; bf16 / fp16 / int8
                      chunks with an f32 host rerank); an arm of the
                      adaptive engine (attach_stream)
+  parallel.sharded   Mesh / default_mesh and the sharded searches: row-
+                     sharded exact (K1 a shard), capacity, IVF, query- and
+                     partition-sharded graphs; parallel.rowsharded (one
+                     graph, rows over the mesh), parallel.partitioned
+                     (PartitionedGraph), parallel.multihost / rpc
+                     (MultiHostIndex over slices, in-process or TCP),
+                     parallel.dryrun.dryrun_multichip
   save_graph/load_graph/SavedGraph  checkpoints, in the JAX package's
                      file format (io/codec.py)
   register_distance  custom metrics

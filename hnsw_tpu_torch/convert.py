@@ -172,3 +172,42 @@ def partitioner_from_jax(p, device=None):
     out._vectors = {k: np.array(v, np.float32)
                     for k, v in p._vectors.items()}
     return out
+
+
+def row_shards_from_jax(shards, device=None):
+    """A ``RowShards`` of this package (parallel/rowsharded.py) holding
+    the tensors of a JAX ``RowShards`` (layer-0 rows, vectors in their
+    float32 or float16 dtype, norms, pivot table) on ``device``."""
+    from hnsw_tpu_torch.core.state import default_device
+    from hnsw_tpu_torch.parallel.rowsharded import RowShards
+    device = torch.device(device) if device is not None else default_device()
+    dtypes = {"nbr0": np.int32, "vectors": None, "sq_norms": np.float32,
+              "pivot_ids": np.int32, "pivot_vecs": np.float32,
+              "pivot_sq": np.float32}
+    return RowShards(**{f: _tensor(getattr(shards, f), dt, device)
+                        for f, dt in dtypes.items()})
+
+
+def partitioned_from_jax(pg, device=None):
+    """A ``PartitionedGraph`` of this package serving what a built
+    ``hnsw_tpu`` PartitionedGraph serves: its trained Partitioner (through
+    ``partitioner_from_jax``) and each sub-graph (through
+    ``graph_from_host_arrays``), every partition on ``device``."""
+    from hnsw_tpu_torch.core.state import default_device
+    from hnsw_tpu_torch.parallel.partitioned import PartitionedGraph
+    from hnsw_tpu_torch.parallel.sharded import Mesh
+    device = torch.device(device) if device is not None else default_device()
+    cfg = GraphConfig(**dataclasses.asdict(pg.cfg))
+    out = PartitionedGraph(Mesh([device] * pg.n_parts, pg.axis), cfg,
+                           axis=pg.axis)
+    out.partitioner = partitioner_from_jax(pg.partitioner, device)
+    for p, jg in enumerate(pg.graphs):
+        n = jg.slots.capacity_used
+        if n == 0:
+            continue                    # an empty partition stays empty
+        g = graph_from_host_arrays(jg.cfg, jg.slots.slot_to_key[:n],
+                                   jg.store.vectors[:n], jg.store.alive[:n],
+                                   *jg.host.arrays(), device=device)
+        g.split_layers = False
+        out.graphs[p] = g
+    return out

@@ -204,8 +204,9 @@ def _screen_cuda(queries, vectors, v_sq, valid, k_sel, metric, fast_math,
     if rc != 0:
         raise RuntimeError(f"exact_screen ({route}) launch failed: "
                            f"cudaError {rc}")
-    launches += 1
-    launches_by_route[route] += 1
+    with _lock:                  # slices on one card launch from threads
+        launches += 1
+        launches_by_route[route] += 1
     return _decode(keys)
 
 

@@ -22,7 +22,12 @@ MODULES = ["hnsw_tpu_torch", "hnsw_tpu_torch.analyzer",
            "hnsw_tpu_torch.facets", "hnsw_tpu_torch.meta",
            "hnsw_tpu_torch.index.streaming", "hnsw_tpu_torch.io.appender",
            "hnsw_tpu_torch.io.disk_graph", "hnsw_tpu_torch.io.mmap_store",
-           "hnsw_tpu_torch.io.wal"]
+           "hnsw_tpu_torch.io.wal", "hnsw_tpu_torch.parallel",
+           "hnsw_tpu_torch.parallel.sharded",
+           "hnsw_tpu_torch.parallel.rowsharded",
+           "hnsw_tpu_torch.parallel.partitioned",
+           "hnsw_tpu_torch.parallel.multihost",
+           "hnsw_tpu_torch.parallel.rpc", "hnsw_tpu_torch.parallel.dryrun"]
 
 
 def _public(mod):
