@@ -94,7 +94,16 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    block-sharded (overlap >= 0.999 with IVFIndex at nprobe 16, the exact
    tier's slots at 1,024), a 2-slice MultiHostIndex over TCP with 500,000
    rows of phase 11 on the card a slice (K1 a slice, recall 1.0), and the
-   port's dryrun_multichip(8).
+   port's dryrun_multichip(8);
+18. the drivers: python3 -m hnsw_tpu_torch.tools.bench's run at full size
+   (its JSON line; exact recall@10 1.0, fast_math >= 0.999), every
+   configuration of tools/sweep at full size with the --big ladder (K1 at
+   1,048,576 and 8,388,608 rows x 128, 8,192 queries; each row's mfu
+   <= 1 against utils/roofline's peak, all queries held to the plain
+   scan: f32 ids equal but for f32 ties at 1M and 8M, recall >= 0.999),
+   tools/entry.entry() against the same call on the CPU (overlap >=
+   0.99), and utils/profiling.device_trace around one bench exact batch
+   (CUDA kernel events and the annotated name).
 
 The last two lines are the kernel table (one entry a K1 route, with its
 launches on the main path) and
@@ -105,6 +114,7 @@ Needs one CUDA card and no network; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -221,33 +231,16 @@ def _add(a: dict, b: dict) -> dict:
     return {r: a.get(r, 0) + b.get(r, 0) for r in set(a) | set(b)}
 
 
-#: the fastest way the card has to do the screen's product, by mode
-#: (whatever instruction a route uses): (passes, TFLOP/s, name). An
-#: f32-accurate product takes at least 3 TF32 passes (3xTF32); fast_math's
-#: bf16 operands one pass at the bf16 dense rate. H100 SXM peaks.
-PRODUCT_BOUND = {False: (3, 495.0, "3xTF32"), True: (1, 989.0, "bf16")}
-
-
-def _screen_bound_ms(nq: int, n: int, d: int, k_sel: int,
-                     fast: bool) -> tuple:
-    """(ms, "bytes" | "operations"): the least time of one screen on an
-    H100 SXM: each input read once and the keys written once at 3.35
-    TB/s, against 2 Q N D flops per product pass (PRODUCT_BOUND)."""
-    passes, tflops, _ = PRODUCT_BOUND[fast]
-    moved = 4 * (nq * d + n * d + n) + n + 8 * nq * k_sel
-    t_bytes = moved / 3.35e12 * 1e3
-    t_ops = passes * 2.0 * nq * n * d / (tflops * 1e12) * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def _time_screen(label, q, v, sq, valid, k_sel, metric, routes) -> dict:
     """The screen alone at one shape: each (route, fast_math) kernel
     through the private launcher, the plain version and the library
     yardstick (torch.cdist + torch.topk, l2 only; the port never calls
-    it). Each time is printed beside its bound and share of the bound.
+    it). Each time is printed beside its bound (utils/roofline.
+    screen_bound_s) and share of the bound.
     Returns {"<route>[_fast]": (ms, bound_ms, bound_by, max_abs_err)}
     plus "plain" and "library" ms."""
     from hnsw_tpu_torch.ops import exact_screen as es
+    from hnsw_tpu_torch.utils import roofline
     nq, d = q.shape
     n = v.shape[0]
     plain_d, plain_i = es.exact_screen_reference(q, v, sq, valid,
@@ -276,13 +269,14 @@ def _time_screen(label, q, v, sq, valid, k_sel, metric, routes) -> dict:
                   f"plain version's (>= 0.99), matched dists within 1e-4 "
                   f"({err:.2e})")
         ms = cuda_ms(run)
-        bound, by = _screen_bound_ms(nq, n, d, k_sel, fast)
-        passes, peak, how = PRODUCT_BOUND[fast]
+        bound_s, by, peak = roofline.screen_bound_s(nq, n, d, k_sel, fast)
+        bound = bound_s * 1e3
+        passes, _, how = roofline.SCREEN_PRODUCT[fast]
         key = route + ("_fast" if fast else "")
         out[key] = (ms, bound, by, err)
         print(f"  {route} fast_math={fast}: {ms:.3f} ms, bound {bound:.3f} "
-              f"ms ({by}: {how}, {passes} pass(es) at {peak:g} TFLOP/s), "
-              f"{bound / ms:.3f} of the bound", flush=True)
+              f"ms ({by}: {how}, {passes} pass(es) at {peak / 1e12:g} "
+              f"TFLOP/s), {bound / ms:.3f} of the bound", flush=True)
     lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "n/a"
     print(f"  plain (exact_screen_reference) {plain_ms:.3f} ms; library "
           f"yardstick torch.topk(torch.cdist) {lib}", flush=True)
@@ -2474,6 +2468,123 @@ def phase_parallel(kept: dict, graph: dict, ivf_st: dict) -> dict:
     return launches
 
 
+def _trace_holds(log_dir: str, name: str) -> tuple:
+    """(kernel events, events named ``name``) in the Chrome trace(s)
+    device_trace wrote into ``log_dir``."""
+    import glob
+
+    from hnsw_tpu_torch.utils.profiling import kernel_events
+    kernels = named = 0
+    for path in glob.glob(os.path.join(log_dir, "*.json")):
+        kernels += kernel_events(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        named += sum(e.get("name") == name for e in events)
+    return kernels, named
+
+
+def phase_drivers(sweep_small: bool = False, **bench_sizes) -> dict:
+    """Phase 18: the drivers a benchmark wraps. tools/bench at full size
+    (its JSON line), every configuration of tools/sweep at full size with
+    the --big ladder (K1 at 1M and 8M rows x 128, 8,192 queries), entry()
+    against the same call on the CPU, and utils/profiling.device_trace
+    around bench's exact batch. ``sweep_small`` and ``bench_sizes``
+    (tools/bench.main's n_q, reps) shrink a rehearsal on the CPU.
+    Returns K1's launches by route."""
+    import tempfile
+
+    from hnsw_tpu_torch.tools import bench, sweep
+    from hnsw_tpu_torch.tools.entry import entry
+    from hnsw_tpu_torch.utils.profiling import annotate, device_trace
+    from hnsw_tpu_torch.utils.roofline import peak_flops
+    cuda = DEVICE == "cuda"
+    _reset_launches()
+    print(f"# tools/bench: {N_BENCH} x {DIM} cosine {bench_sizes}",
+          flush=True)
+    t0 = time.perf_counter()
+    rec = bench.main([] if cuda else ["--device", "cpu"], n=N_BENCH,
+                     **bench_sizes)
+    check(rec["recall"] == 1.0 and rec["exact_fast_recall"] >= 0.999,
+          f"bench ({time.perf_counter() - t0:.1f} s): exact recall@10 "
+          f"{rec['recall']} == 1.0, fast_math {rec['exact_fast_recall']} "
+          f">= 0.999")
+
+    print(f"# tools/sweep: configs 1-8 (--big){' --small' * sweep_small}",
+          flush=True)
+    t0 = time.perf_counter()
+    sw = sweep.Sweep(small=sweep_small, device=DEVICE, big=True)
+    rows = []
+    for r in sw.rows():
+        sweep.emit(r)
+        rows.append(r)
+    print(f"  {len(rows)} rows in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ladder = {(r["config"], r["strategy"]): r for r in rows
+              if r["config"].startswith("exact_roofline_")}
+    # the ladder's f32 rows are held to the plain scan with its ties
+    # (sweep.plain_agreement) instead: over 8,192 queries a 10th/11th
+    # rank within f32 rounding is expected, and either row is exact
+    exact = [r for r in rows if r.get("strategy") in ("exact", "exact_fast")
+             and (r["config"], r["strategy"]) not in ladder]
+    check(all(r["recall@10"] >= (0.999 if r["strategy"] == "exact_fast"
+                                 else 1.0) for r in exact),
+          f"{len(exact)} exact rows: recall@10 1.0 (fast_math >= 0.999)")
+    if not sweep_small:
+        want = {("exact_roofline_1m", "exact"),
+                ("exact_roofline_1m", "exact_fast"),
+                ("exact_roofline_8m", "exact_fast")}
+        check(set(ladder) == want and all(
+            "mfu" in r and "floor_frac" in r for r in ladder.values()),
+            f"the ladder's rows {sorted(ladder)} each carry mfu and "
+            f"floor_frac")
+        f32 = [(r["n"], r["ids_equal_plain"], r["ids_differ"])
+               for r in ladder.values() if r["strategy"] == "exact"] + [
+            (r["n"], r["f32_ids_equal_plain"], r["f32_ids_differ"])
+            for r in ladder.values() if "f32_ids_equal_plain" in r]
+        check(len(f32) == 2 and all(ok for _, ok, _ in f32),
+              f"K1's f32 scan at 1M and 8M rows, all 8,192 queries: ids "
+              f"equal to the plain scan's (ops/topk.exact_topk) but for "
+              f"f32 ties, (rows, ok, ids at a tie) {f32}")
+        check(all(r["recall@10"] >= 0.999 for r in ladder.values()),
+              "every ladder row, all 8,192 queries: recall@10 >= 0.999 "
+              "against the plain scan: "
+              + ", ".join(f"{c} {s} {r['recall@10']}"
+                          for (c, s), r in sorted(ladder.items())))
+    peak = peak_flops()
+    for r in rows:
+        if "achieved_tflops" in r:
+            check(r.get("mfu", 0.0) <= 1.0 and (
+                peak is None or r["achieved_tflops"] <= peak / 1e12),
+                f"{r['config']} {r['strategy']}: mfu {r.get('mfu')} <= 1, "
+                f"{r['achieved_tflops']} TFLOP/s <= the card's peak")
+
+    fn, args = entry(device=None if cuda else DEVICE)
+    _, ids = fn(*args)
+    fn_c, args_c = entry(device="cpu")
+    _, ids_c = fn_c(*args_c)
+    ov = _overlap(ids.cpu().numpy(), ids_c.numpy())
+    check(ov >= 0.99, f"entry() on {DEVICE}: ids overlap {ov:.4f} >= 0.99 "
+          f"with the CPU's")
+
+    # bench's exact batch (bench.exact_ids) on the sweep's 10k graph and
+    # queries, traced in this process
+    batch = annotate("bench_exact_batch")(bench.exact_ids)
+    dev = sw.graph().device_graph()
+    q = torch.from_numpy(sw.queries).to(dev.vectors.device)
+    with tempfile.TemporaryDirectory() as td:
+        with device_trace(td):
+            batch(dev, q)
+        kernels, named = _trace_holds(td, "bench_exact_batch")
+    check(named > 0 and (kernels > 0 or not cuda),
+          f"device_trace around one bench exact batch ({len(q)} queries "
+          f"over {dev.vectors.shape[0]} slots): {kernels} CUDA kernel "
+          f"events, {named} event(s) named bench_exact_batch")
+    by = _launches()
+    if cuda:
+        check(by["wgmma"] > 0, f"phase 18 launched K1: {by}")
+    return by
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -2508,6 +2619,11 @@ def main() -> int:
     launches = _add(launches, phase_parallel(kept, graph, ivf_st))
     del kept, graph, ivf_st
     print(f"# smoke: phase 17 took {time.perf_counter() - t_new:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    launches = _add(launches, phase_drivers())
+    print(f"# smoke: phase 18 took {time.perf_counter() - t_new:.1f} s",
           flush=True)
     check(all(launches[r] > 0 for r in timing),
           f"the main path launched every K1 route: {launches}")

@@ -17,9 +17,10 @@ fast_math:
   pass and the barriers alone).
 
 The differences split the time into staging, product, epilogue and
-selection. The variants' results are wrong by design; only their times
-mean anything. Needs nvcc and a CUDA card; the builds go to ``--out``
-(default build/screen_split).
+selection. Each mode's bound (``utils/roofline.screen_bound_s``, the
+smoke's) is printed beside the split. The variants' results are wrong
+by design; only their times mean anything. Needs nvcc and a CUDA card;
+the builds go to ``--out`` (default build/screen_split).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
 from hnsw_tpu_torch.ops import exact_screen as es  # noqa: E402
+from hnsw_tpu_torch.utils.roofline import screen_bound_s  # noqa: E402
 
 #: variant -> the parts of screen_wgmma_kernel compiled out
 VARIANTS = {"full": (), "no selection": ("SELECT",),
@@ -72,6 +74,10 @@ def main() -> int:
     valid = torch.ones(v.shape[0], dtype=torch.bool, device="cuda")
     print(f"# {torch.cuda.get_device_name(0)}; screen at Q=1024 N=1048576 "
           f"D=128 k_sel=18 l2, wgmma route, median of 5 reps")
+    for fast in (False, True):
+        bound_s, by, _ = screen_bound_s(1024, 1 << 20, 128, 18, fast)
+        print(f"  bound, {'fast_math' if fast else 'f32'}: "
+              f"{bound_s * 1e3:.3f} ms ({by})")
     for name, parts in VARIANTS.items():
         es.BUILD_DIR = os.path.join(
             args.out, name.replace(" ", "_").replace("+", ""))

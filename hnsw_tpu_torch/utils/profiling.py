@@ -1,0 +1,106 @@
+"""Profiling and tracing hooks (port of hnsw_tpu/utils/profiling.py).
+
+Device traces come from ``torch.profiler`` (Chrome trace files, viewable
+in Perfetto or chrome://tracing); host-side timed sections feed
+telemetry.MetricsWindow.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import json
+import os
+import time
+from typing import Dict, Iterator
+
+import torch
+
+
+#: idle seconds a CUDA trace keeps before and after its block. The
+#: profiler places the card's kernels on the host clock with a skew of
+#: milliseconds that changes over a process's life, and drops kernel
+#: events that land outside its window (``tools/trace_skew.py`` measures
+#: both on the card).
+PAD_S = 0.25
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[None]:
+    """Profile the block with ``torch.profiler`` (CPU activity, plus the
+    CUDA activity when a card is present) and write a Chrome trace,
+    ``trace_<pid>_<ns>.json``, into ``log_dir``. On the card the window
+    is padded by ``PAD_S`` on both sides. Raises RuntimeError when the
+    CUDA activity was asked for and the trace holds no kernel event: an
+    empty device trace would read as zero device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    cuda = torch.cuda.is_available()
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        if cuda:
+            time.sleep(PAD_S)
+        try:
+            yield
+        finally:
+            if cuda:
+                torch.cuda.synchronize()
+                time.sleep(PAD_S)
+    path = os.path.join(log_dir,
+                        f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    if cuda and not kernel_events(path):
+        raise RuntimeError(f"device_trace: {path} holds no CUDA kernel "
+                           f"event; the profiler recorded no device work")
+
+
+def kernel_events(path: str) -> int:
+    """The CUDA kernel events in a Chrome trace ``device_trace`` wrote."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sum(e.get("cat") == "kernel" for e in events)
+
+
+class Timer:
+    """Named wall-clock sections with simple aggregates."""
+
+    def __init__(self) -> None:
+        self.totals: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def section(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report(self) -> Dict[str, Dict[str, float]]:
+        return {
+            name: {
+                "total_s": round(self.totals[name], 4),
+                "count": self.counts[name],
+                "avg_ms": round(1000 * self.totals[name]
+                                / max(self.counts[name], 1), 3),
+            }
+            for name in sorted(self.totals)
+        }
+
+
+def annotate(name: str):
+    """Decorator that runs a function inside
+    ``torch.profiler.record_function(name)``: the name shows up as a
+    range in ``device_trace`` profiles."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return wrapper
+
+    return deco

@@ -1,0 +1,140 @@
+"""Roofline accounting for the exact-scan tiers (port of
+hnsw_tpu/utils/roofline.py).
+
+Two ratio fields for an exact-scan row:
+
+  * ``mfu``        achieved FLOP/s over the card's dense bf16 peak (the
+    absolute roofline), read from ``PEAKS`` by the card's name
+    (``torch.cuda.get_device_name()``) or from HNSW_TPU_PEAK_FLOPS.
+    Emitted only for ``platform == "gpu"`` on a card whose peak is known.
+    Every row, f32 included, is measured against the one bf16 peak
+    (equal footing: an f32 row's TF32 passes or full-f32 products are
+    work the configuration chose, not a different roofline).
+  * ``floor_frac`` the bare Gram product's time over the row's time, on
+    this run's card and shapes (the relative roofline: 1 - floor_frac is
+    what selection and rerank add). Not clipped: K1's 3xTF32 screen may
+    beat the bare full-f32 product, and a value above 1 is reported as
+    it is.
+
+``screen_bound_s`` is the least time of one exact screen (K1's work) on
+the card, the bound ``chip_smoke.py`` and ``tools/screen_split.py`` put
+beside K1's times.
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import time
+from typing import Optional, Tuple
+
+import torch
+
+# pins full-f32 GEMMs (TF32 off) for the floor's f32 product
+import hnsw_tpu_torch.ops.distance  # noqa: F401
+
+#: the card whose data-sheet peaks ``screen_bound_s`` uses
+H100_SXM = "NVIDIA H100 80GB HBM3"
+
+#: dense peaks by card name (NVIDIA's data sheet, no sparsity, at the
+#: full power limit): FLOP/s for bf16 and TF32 tensor-core products, and
+#: HBM bytes/s
+PEAKS = {H100_SXM: {"bf16": 989.4e12, "tf32": 494.7e12,
+                    "hbm_bytes_s": 3.35e12}}
+
+#: an exact screen's cheapest product on the card, by fast_math: (passes,
+#: peak key, name). An f32-accurate product takes at least three TF32
+#: passes (3xTF32); fast_math's bf16 operands one pass at the bf16 rate.
+SCREEN_PRODUCT = {False: (3, "tf32", "3xTF32"), True: (1, "bf16", "bf16")}
+
+
+def peak_flops(device_name: Optional[str] = None) -> Optional[float]:
+    """The dense bf16 peak the ``mfu`` field divides by: the
+    HNSW_TPU_PEAK_FLOPS override, else ``PEAKS`` for ``device_name`` (by
+    default the current CUDA card's); None for an unknown card or no
+    card."""
+    env = os.environ.get("HNSW_TPU_PEAK_FLOPS")
+    if env:
+        return float(env)
+    if device_name is None:
+        if not torch.cuda.is_available():
+            return None
+        device_name = torch.cuda.get_device_name()
+    peaks = PEAKS.get(device_name)
+    return peaks["bf16"] if peaks else None
+
+
+def scan_flops(n_q: int, n: int, d: int) -> float:
+    """FLOPs of one exact Gram scan: the [n_q, d] x [d, n] matmul."""
+    return 2.0 * n_q * n * d
+
+
+def screen_bound_s(nq: int, n: int, d: int, k_sel: int, fast_math: bool
+                   ) -> Tuple[float, str, float]:
+    """(seconds, "bytes" | "operations", peak FLOP/s): the least time on
+    the H100 SXM (``PEAKS[H100_SXM]``) of one exact screen of ``nq``
+    queries over an [n, d] f32 table for ``k_sel`` winners each: the
+    larger of the bytes it must move (queries, table, norms and validity
+    read once, int64 keys written once) over the HBM rate, and 2 nq n d
+    flops a product pass (``SCREEN_PRODUCT``) over the tensor cores' peak
+    for that pass's type, which is the third value."""
+    peaks = PEAKS[H100_SXM]
+    passes, kind, _ = SCREEN_PRODUCT[fast_math]
+    moved = 4 * (nq * d + n * d + n) + n + 8 * nq * k_sel
+    t_bytes = moved / peaks["hbm_bytes_s"]
+    t_ops = passes * scan_flops(nq, n, d) / peaks[kind]
+    if t_ops >= t_bytes:
+        return t_ops, "operations", peaks[kind]
+    return t_bytes, "bytes", peaks[kind]
+
+
+def matmul_floor_dt(queries: torch.Tensor, vectors: torch.Tensor, *,
+                    fast_math: bool, reps: int = 5,
+                    chunk: int = 65536) -> float:
+    """Median seconds of the BARE Gram product on the tensors' device:
+    the scan-only ceiling every epilogue and selection rides on. The
+    precision follows the measured configuration: fast_math = bf16
+    operands (the GEMM accumulates in f32), else full f32 (the port's
+    HIGHEST: TF32 off, ``ops/distance``).
+
+    Chunked over ``chunk`` rows with a [Q] max per chunk: the whole
+    [Q, N] Gram is 32 GB at Q=8192, N=1M, and the floor must be
+    measurable at the Ns where it matters. Synchronises a CUDA device
+    before each clock read."""
+    cuda = queries.is_cuda
+    if fast_math:   # cast once, outside the timed product
+        queries = queries.to(torch.bfloat16)
+        vectors = vectors.to(torch.bfloat16)
+    starts = range(0, vectors.shape[0], chunk)
+
+    def run():
+        for c in starts:
+            torch.matmul(queries, vectors[c:c + chunk].T).amax(dim=1)
+        if cuda:
+            torch.cuda.synchronize(queries.device)
+
+    run()  # warm: cuBLAS handles, both chunk shapes (full + ragged tail)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    return statistics.median_high(times)
+
+
+def roofline_fields(*, n_q: int, n: int, d: int, dt: float,
+                    floor_dt: Optional[float] = None,
+                    platform: str = "gpu",
+                    device_name: Optional[str] = None) -> dict:
+    """The ratio fields for a measured exact-scan row (``dt`` seconds for
+    one batch of ``n_q`` queries over ``n`` rows). ``mfu`` appears only
+    for ``platform == "gpu"`` when the card's peak is known
+    (``peak_flops(device_name)``)."""
+    fl = scan_flops(n_q, n, d)
+    out = {"achieved_tflops": round(fl / dt / 1e12, 2)}
+    peak = peak_flops(device_name) if platform == "gpu" else None
+    if peak:
+        out["mfu"] = round(fl / dt / peak, 4)
+    if floor_dt is not None and dt > 0:
+        out["floor_frac"] = round(floor_dt / dt, 3)
+    return out

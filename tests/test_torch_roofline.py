@@ -1,0 +1,108 @@
+"""utils/roofline of the port against hnsw_tpu/utils/roofline.py.
+
+``scan_flops`` and ``roofline_fields(platform="cpu")`` equal JAX's for
+the same arguments (exactly: both round the same float expressions);
+``platform="gpu"`` divides by the card's bf16 peak from ``PEAKS``;
+``screen_bound_s`` reproduces the bounds PERF.md section 6 records for
+K1 within 0.001 ms (those were printed to three decimals from peaks
+rounded to 495 and 989 TFLOP/s; the table holds the data sheet's 494.7
+and 989.4, 0.06% apart).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from hnsw_tpu.utils import roofline as jroof  # noqa: E402
+
+from hnsw_tpu_torch.utils import roofline  # noqa: E402
+
+H100 = "NVIDIA H100 80GB HBM3"
+SHAPES = [(1024, 1 << 20, 128), (8192, 8 << 20, 128), (256, 10_000, 512),
+          (64, 800, 32)]
+
+
+@pytest.fixture(autouse=True)
+def _no_override(monkeypatch):
+    monkeypatch.delenv("HNSW_TPU_PEAK_FLOPS", raising=False)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_scan_flops_equals_jax(shape):
+    assert roofline.scan_flops(*shape) == jroof.scan_flops(*shape)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("floor_dt", [None, 0.0031, 0.0])
+def test_roofline_fields_on_the_cpu_equal_jax(shape, floor_dt):
+    n_q, n, d = shape
+    for dt in (1e-3, 0.0417, 2.5):
+        kw = dict(n_q=n_q, n=n, d=d, dt=dt, floor_dt=floor_dt,
+                  platform="cpu")
+        assert roofline.roofline_fields(**kw) == jroof.roofline_fields(**kw)
+
+
+def test_gpu_mfu_is_against_the_cards_bf16_peak():
+    n_q, n, d, dt = 8192, 1 << 20, 128, 0.0123
+    fl = 2.0 * n_q * n * d
+    got = roofline.roofline_fields(n_q=n_q, n=n, d=d, dt=dt, floor_dt=0.01,
+                                   platform="gpu", device_name=H100)
+    assert got == {"achieved_tflops": round(fl / dt / 1e12, 2),
+                   "mfu": round(fl / dt / 989.4e12, 4),
+                   "floor_frac": round(0.01 / dt, 3)}
+    assert roofline.PEAKS[H100] == {"bf16": 989.4e12, "tf32": 494.7e12,
+                                    "hbm_bytes_s": 3.35e12}
+
+
+def test_unknown_card_and_no_card_give_no_mfu(monkeypatch):
+    kw = dict(n_q=64, n=4096, d=64, dt=1e-3, platform="gpu")
+    assert "mfu" not in roofline.roofline_fields(**kw, device_name="Tesla X")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert roofline.peak_flops() is None
+    assert "mfu" not in roofline.roofline_fields(**kw)
+
+
+def test_peak_override_from_the_environment(monkeypatch):
+    monkeypatch.setenv("HNSW_TPU_PEAK_FLOPS", "1e15")
+    got = roofline.roofline_fields(n_q=10, n=100, d=10, dt=1e-6,
+                                   platform="gpu", device_name="Tesla X")
+    assert got["mfu"] == round(2e4 / 1e-6 / 1e15, 4)
+
+
+def test_floor_frac_is_not_clipped():
+    got = roofline.roofline_fields(n_q=8, n=64, d=8, dt=1e-3, floor_dt=3e-3,
+                                   platform="cpu")
+    assert got["floor_frac"] == 3.0
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_matmul_floor_runs_in_both_precisions_on_the_cpu(fast):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((16, 32), generator=g)
+    v = torch.randn((1000, 32), generator=g)
+    q0, v0 = q.clone(), v.clone()
+    dt = roofline.matmul_floor_dt(q, v, fast_math=fast, reps=3, chunk=384)
+    assert np.isfinite(dt) and dt > 0
+    assert torch.equal(q, q0) and torch.equal(v, v0)
+
+
+@pytest.mark.parametrize("nq,n,d,fast,perf_ms", [
+    (1024, 1 << 20, 128, False, 1.666),    # PERF section 6, f32
+    (1024, 1 << 20, 128, True, 0.278),     # fast_math
+    (1024, 1_183_514, 50, False, 0.734),   # glove-50's shape, f32
+])
+def test_screen_bound_reproduces_the_recorded_bounds(nq, n, d, fast,
+                                                     perf_ms):
+    s, by, peak = roofline.screen_bound_s(nq, n, d, 18, fast)
+    assert by == "operations"
+    assert peak == roofline.PEAKS[H100]["bf16" if fast else "tf32"]
+    assert s * 1e3 == pytest.approx(perf_ms, abs=1e-3)
+
+
+def test_screen_bound_of_a_single_query_is_the_bytes():
+    n, d = 1 << 20, 128
+    s, by, _ = roofline.screen_bound_s(1, n, d, 18, False)
+    moved = 4 * (d + n * d + n) + n + 8 * 18
+    assert by == "bytes" and s == moved / 3.35e12
