@@ -8,21 +8,25 @@ call real, and fails (non-zero exit, no result line) on any failed check:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the CUDA kernels (csrc/exact_screen.cu: K1's TF32
-   wgmma route and its FMA route) and the native host engine from the
-   sources in the checkout;
+   wgmma screen, fed by TMA, route "wgmma", or by cp.async, route
+   "wgmma_cp") and the native host engine from the sources in the
+   checkout;
 3. kernel vs plain: exact_topk_fused through each K1 route against the
    same wrapper with the plain torch screen in its place, on the card;
    (the exact tier's shapes, and the adaptive engine's: a 131,072-row
-   table, batches of 1,024 and single queries padded to 8 rows);
-   then the screen alone timed per route and mode at the exact tier's
-   shape (Q=1024, N=1,048,576, D=128, k_sel=18, l2) and, for the FMA
-   route, at glove-50's, each beside its bound, with the plain version
-   and torch.topk(torch.cdist) as a yardstick the port never calls;
+   table, batches of 1,024 and single queries padded to 8 rows; the
+   widths TMA cannot take: glove-50's and glove-25's 1,183,514 rows,
+   lastfm-64's 292,385 x 65, a D=128 view off 16-byte alignment and a
+   D=7 table); then the screen alone timed per route and mode at the
+   exact tier's shape (Q=1024, N=1,048,576, D=128, k_sel=18, l2; both
+   producers) and, for the cp.async producer, at glove-50's, each beside
+   its bound, with the plain version and torch.topk(torch.cdist) as a
+   yardstick the port never calls;
 4. exact tier at SIFT1M's shape (1,000,000 x 128 f32, L2, k=10; synthetic
    data from a seed): recall@10 against the numpy oracle and QPS, with
    K1's launches by route from this phase; then the exact tier at
    glove-50-angular's shape (1,183,514 x 50, cosine), which D % 4 != 0
-   sends down the FMA route;
+   sends down the wgmma_cp route;
 5. graph tier: the default Graph (m=16, ef_construction=100, cosine,
    descent entry, bitonic merge, f32 store) built on 100,000 x 128 by the
    native builder and served on the card at ef 64 and 192;
@@ -124,7 +128,8 @@ import numpy as np
 import torch
 
 N_EXACT, N_GRAPH, DIM = 1_000_000, 100_000, 128
-#: ANN-benchmarks' glove-50-angular: the width that takes K1's FMA route
+#: ANN-benchmarks' glove-50-angular: a width that takes K1's cp.async
+#: producer
 N_GLOVE, D_GLOVE = 1_183_514, 50
 N_CAPACITY, N_CLUSTER = 10_000_000, 1_000_000
 BATCH, N_BATCHES = 1024, 8
@@ -218,7 +223,7 @@ def _matched_err(da, ia, db, ib) -> float:
 def _reset_launches() -> None:
     from hnsw_tpu_torch.ops import exact_screen
     exact_screen.launches = 0
-    exact_screen.launches_by_route.update(wgmma=0, fma=0)
+    exact_screen.launches_by_route.update(wgmma=0, wgmma_cp=0)
 
 
 def _launches() -> dict:
@@ -318,6 +323,25 @@ def phase_kernel_vs_plain() -> dict:
     cases += [(f"GloVe-50 shape N={N_GLOVE} D={D_GLOVE} Q=1000 cosine "
                f"fast={f}", q_glove, glove, 10, "cosine", f)
               for f in (False, True)]
+    # the other widths that TMA cannot take: glove-25-angular, lastfm-64-
+    # dot (65 columns, scored as cosine by ANN-benchmarks), a D=128 view 4
+    # bytes past 16-byte alignment (4-byte copies) and a small D=7 table
+    for label, n, d, metric in ((f"GloVe-25 shape N={N_GLOVE}", N_GLOVE,
+                                 25, "cosine"),
+                                ("lastfm-64 shape N=292385", 292_385, 65,
+                                 "cosine"),
+                                ("D=7 table N=40000", 40_000, 7, "l2")):
+        tab = table(n, n, d)
+        q_t = torch.randn((1000, d), generator=gen, device="cuda")
+        cases += [(f"{label} D={d} Q=1000 {metric} fast={f}", q_t, tab,
+                   10, metric, f) for f in (False, True)]
+    v_off = torch.randn(300_000 * DIM + 1, generator=gen,
+                        device="cuda")[1:].view(300_000, DIM)
+    cases += [(f"D=128 view 4 bytes past 16-byte alignment N=300000 "
+               f"Q=1000 l2 fast={f}", q_big,
+               (v_off, (v_off * v_off).sum(-1),
+                torch.ones(300_000, dtype=torch.bool, device="cuda")), 10,
+               "l2", f) for f in (False, True)]
     # the adaptive engine's exact arm and recall probes (phase 12):
     # N_GRAPH rows in a table padded to a power of two, cosine, batches
     # of BATCH and single queries (below)
@@ -328,7 +352,7 @@ def phase_kernel_vs_plain() -> dict:
                f"cosine fast={f}", q_adp, adp, 10, "cosine", f)
               for f in (False, True)]
 
-    max_err = {"wgmma": 0.0, "fma": 0.0}
+    max_err = {"wgmma": 0.0, "wgmma_cp": 0.0}
     print("# kernel vs plain (exact_topk_fused; median of 5 reps, ms)")
     for label, q, (v, sq, valid), k, metric, fast in cases:
         def kern():
@@ -342,7 +366,9 @@ def phase_kernel_vs_plain() -> dict:
             return rerank_pool(q, v, sq, ids, k=k, metric=metric)
 
         route = screen_route(q, v)
-        check(route == ("wgmma" if q.shape[1] % 4 == 0 else "fma"),
+        tma = (q.shape[1] % 4 == 0 and q.data_ptr() % 16 == 0
+               and v.data_ptr() % 16 == 0)
+        check(route == ("wgmma" if tma else "wgmma_cp"),
               f"{label}: D={q.shape[1]} takes the {route} route")
         _reset_launches()
         dk, ik = (t.cpu().numpy() for t in kern())
@@ -380,7 +406,7 @@ def phase_kernel_vs_plain() -> dict:
         _reset_launches()
         got = [exact_topk_fused(q, v, sq, valid, k=10, metric="cosine",
                                 fast_math=fast) for q in singles]
-        check(_launches() == {"wgmma": len(singles), "fma": 0},
+        check(_launches() == {"wgmma": len(singles), "wgmma_cp": 0},
               f"{label}: one launch of the wgmma kernel a query")
         dk, ik = (torch.cat([g[j][:1] for g in got]).cpu().numpy()
                   for j in (0, 1))
@@ -410,20 +436,21 @@ def phase_kernel_vs_plain() -> dict:
         print(f"  {label}: kernel (wgmma) {t_k:.3f} ms a query", flush=True)
     del adp, singles, got, want
 
+    del cases, tab, v_off
     # the screen alone at the exact tier's shapes (Q padded to 1024): the
-    # wgmma kernel, and the FMA kernel at the same shape as the "before"
+    # TMA producer, and the cp.async producer at the same shape
     q = torch.randn((1024, DIM), generator=gen, device="cuda")
     v, sq, valid = big
     sift = _time_screen("SIFT1M shape", q, v, sq, valid, 18, "l2",
-                        [("wgmma", False), ("wgmma", True), ("fma", False),
-                         ("fma", True)])
+                        [("wgmma", False), ("wgmma", True),
+                         ("wgmma_cp", False), ("wgmma_cp", True)])
     del big, v, sq, valid
     torch.cuda.empty_cache()
-    # the FMA kernel where the main path sends it: GloVe-50's D = 50
+    # the cp.async producer where the main path sends it: GloVe-50's D = 50
     v, sq, valid = glove
     q = torch.randn((1024, D_GLOVE), generator=gen, device="cuda")
     glv = _time_screen("GloVe-50 shape", q, v, sq, valid, 18, "l2",
-                       [("fma", False), ("fma", True)])
+                       [("wgmma_cp", False), ("wgmma_cp", True)])
     del glove, v, sq, valid
     torch.cuda.empty_cache()
 
@@ -438,8 +465,10 @@ def phase_kernel_vs_plain() -> dict:
     return {"wgmma": dict(entry("exact_screen", sift, "wgmma",
                                 max_err["wgmma"]),
                           fast_math_ms=sift["wgmma_fast"][0],
-                          fma_same_shape_ms=sift["fma"][0]),
-            "fma": entry("exact_screen_fma", glv, "fma", max_err["fma"])}
+                          cp_same_shape_ms=sift["wgmma_cp"][0]),
+            "wgmma_cp": dict(entry("exact_screen_wgmma_cp", glv, "wgmma_cp",
+                                   max_err["wgmma_cp"]),
+                             fast_math_ms=glv["wgmma_cp_fast"][0])}
 
 
 def _recall(found: np.ndarray, truth: np.ndarray, k: int) -> float:
@@ -539,9 +568,9 @@ def phase_exact_tier() -> dict:
         out = serve()
         by = _launches()
         launches = _add(launches, by)
-        check(by == {"wgmma": 10, "fma": 0},
+        check(by == {"wgmma": 10, "wgmma_cp": 0},
               f"fast_math={fast}: 10 batches launched the wgmma kernel "
-              f"{by['wgmma']} times, the FMA kernel {by['fma']} times")
+              f"{by['wgmma']} times, the wgmma_cp route {by['wgmma_cp']} times")
         d0, i0 = out[0]
         check(np.isfinite(d0).all() and i0.shape == (1000, 10),
               f"fast_math={fast}: finite [1000, 10] results")
@@ -562,7 +591,7 @@ def phase_exact_tier() -> dict:
 def phase_exact_tier_glove50() -> dict:
     """The exact tier at ANN-benchmarks' glove-50-angular shape
     (1,183,514 x 50, cosine, k=10; synthetic rows from a seed): D % 4 != 0
-    sends K1 down its FMA route. Returns K1's launches by route."""
+    sends K1 down its cp.async producer. Returns K1's launches by route."""
     from hnsw_tpu_torch import ExactIndex
     from hnsw_tpu_torch.ops.topk import np_exact_topk
     rng = np.random.default_rng(5)
@@ -582,9 +611,9 @@ def phase_exact_tier_glove50() -> dict:
     _reset_launches()
     out = serve()
     by = _launches()
-    check(by == {"wgmma": 0, "fma": 10}, f"glove-50 shape: 10 batches "
-          f"launched the FMA kernel {by['fma']} times, the wgmma kernel "
-          f"{by['wgmma']} times")
+    check(by == {"wgmma": 0, "wgmma_cp": 10}, f"glove-50 shape: 10 "
+          f"batches launched the wgmma_cp route {by['wgmma_cp']} times, the "
+          f"wgmma route {by['wgmma']} times")
     d0, i0 = out[0]
     rec = _recall(i0, gt, 10)
     check(np.isfinite(d0).all() and i0.shape == (1000, 10) and rec == 1.0,
@@ -592,7 +621,8 @@ def phase_exact_tier_glove50() -> dict:
           f"{rec:.4f} == 1 against the numpy oracle (1000 queries)")
     qps = _qps(serve, len(queries))
     print(f"  exact tier at glove-50's shape ({N_GLOVE} x {D_GLOVE} cosine, "
-          f"FMA route): {qps:.1f} QPS (10,000 queries in batches of 1000, "
+          f"wgmma_cp route): {qps:.1f} QPS (10,000 queries in batches of "
+          f"1000, "
           f"median of 3)", flush=True)
     del idx
     torch.cuda.empty_cache()
@@ -757,9 +787,9 @@ def phase_capacity_ladder() -> tuple:
             "dists": truth[0][0], "ids": truth[0][1]}
     truth = np.concatenate([i for _, i in truth])
     launches = _launches()
-    check(launches == {"wgmma": N_BATCHES, "fma": 0},
+    check(launches == {"wgmma": N_BATCHES, "wgmma_cp": 0},
           f"float32: {N_BATCHES} batches launched the wgmma kernel "
-          f"{launches['wgmma']} times, the FMA kernel {launches['fma']}")
+          f"{launches['wgmma']} times, the wgmma_cp route {launches['wgmma_cp']}")
     d_np, i_np = _np_scan_topk(batches[0][:20],
                                idx.store.vectors[:N_CAPACITY],
                                idx.store.sq_norms[:N_CAPACITY], 10, "l2")
@@ -848,11 +878,11 @@ def phase_auto_ladder() -> dict:
             check(rung == want, f"auto, clusters of width {noise}: "
                   f"resolves to {rung} (expected {want})")
         if rung == "float32":
-            check(n_k == {"wgmma": 1, "fma": 0}, f"auto -> float32: one "
+            check(n_k == {"wgmma": 1, "wgmma_cp": 0}, f"auto -> float32: one "
                   f"batch launched the wgmma kernel {n_k['wgmma']} times, "
-                  f"the FMA kernel {n_k['fma']}")
+                  f"the wgmma_cp route {n_k['wgmma_cp']}")
         else:
-            check(n_k == {"wgmma": 0, "fma": 0},
+            check(n_k == {"wgmma": 0, "wgmma_cp": 0},
                   f"auto -> {rung}: the kernel was not launched")
         launches = _add(launches, _launches())
         print(f"  auto, {N_CLUSTER} x {DIM} cosine in 40 clusters of width "
@@ -1163,7 +1193,7 @@ def phase_device_builds(st: dict) -> int:
     del gr
     torch.cuda.empty_cache()
     launches = _launches()
-    check(launches["wgmma"] >= 2 and launches["fma"] == 0,
+    check(launches["wgmma"] >= 2 and launches["wgmma_cp"] == 0,
           f"the exact-tier oracle launched the wgmma kernel "
           f"{launches['wgmma']} times")
     return launches
@@ -1289,7 +1319,7 @@ def phase_sift_shape_build() -> int:
     oracle.batch_add(keys, base)
     _, gt = oracle.batch_search_slots(queries, 10)
     launches = _launches()
-    check(launches["wgmma"] >= 1 and launches["fma"] == 0,
+    check(launches["wgmma"] >= 1 and launches["wgmma_cp"] == 0,
           f"the exact-tier oracle launched the wgmma kernel "
           f"{launches['wgmma']} times")
     del oracle
@@ -1367,10 +1397,10 @@ def _exact_truth(base: np.ndarray, batches, metric: str,
         gt = [i for _, i in gt]
     by = _launches()
     if DEVICE == "cuda" and len(base) >= 32768:
-        check(by == {"wgmma": len(gt), "fma": 0},
+        check(by == {"wgmma": len(gt), "wgmma_cp": 0},
               f"the exact-tier oracle over {len(base)} rows launched the "
               f"wgmma kernel {by['wgmma']} times for {len(gt)} batches, the "
-              f"FMA kernel {by['fma']}")
+              f"wgmma_cp route {by['wgmma_cp']}")
     oracle.close()
     return gt, by
 
@@ -1582,7 +1612,7 @@ def phase_adaptive(base: np.ndarray) -> dict:
     check(rec_np >= 0.95, f"the first served batch: recall@10 {rec_np:.4f} "
           f">= 0.95 against the numpy oracle")
     if DEVICE == "cuda":
-        check(by_batches["wgmma"] >= 1 and by_batches["fma"] == 0,
+        check(by_batches["wgmma"] >= 1 and by_batches["wgmma_cp"] == 0,
               f"the engine's exact arm and recall probes launched the wgmma "
               f"kernel {by_batches['wgmma']} times over the batches")
     print(f"  {N_ADAPT_BATCHES} batches of {BATCH}: "
@@ -1612,7 +1642,7 @@ def phase_adaptive(base: np.ndarray) -> dict:
     probe = eng._probe_oracle(batches[0][:32], 10)
     by_direct = _launches()
     if DEVICE == "cuda":
-        check(by_direct == {"wgmma": 2, "fma": 0},
+        check(by_direct == {"wgmma": 2, "wgmma_cp": 0},
               f"the exact arm's table ({eng.exact._dev[0].shape[0]} padded "
               f"rows) and the recall probe each launched the wgmma kernel "
               f"once: {by_direct}")
@@ -1646,8 +1676,8 @@ def phase_adaptive(base: np.ndarray) -> dict:
     eng._run_batch("stream", batches[0], 10)
     by_arm = _launches()
     if DEVICE == "cuda":
-        check(by_stream["wgmma"] >= 2 and by_stream["fma"] == 0
-              and by_arm == {"wgmma": 1, "fma": 0},
+        check(by_stream["wgmma"] >= 2 and by_stream["wgmma_cp"] == 0
+              and by_arm == {"wgmma": 1, "wgmma_cp": 0},
               f"stream arm: the 2 batches and their probes launched the "
               f"wgmma kernel {by_stream['wgmma']} times; one batch of the "
               f"arm alone (one {n}-row chunk) once: {by_arm}")
@@ -1850,10 +1880,10 @@ def phase_streaming(kept: dict) -> dict:
         by = _launches()
         launches = _add(launches, by)
         if DEVICE == "cuda":
-            check(by == {"wgmma": n_chunks, "fma": 0},
+            check(by == {"wgmma": n_chunks, "wgmma_cp": 0},
                   f"one cold batch launched the wgmma kernel {by['wgmma']} "
-                  f"times ({n_chunks} chunks of >= 32768 rows), the FMA "
-                  f"kernel {by['fma']}")
+                  f"times ({n_chunks} chunks of >= 32768 rows), the wgmma_cp "
+                  f"route {by['wgmma_cp']}")
         same = float(np.mean(ic == want_i))
         rec_t = _recall_ties(dc, want_d, 1e-4)
         check(np.isfinite(dc).all() and (same == 1.0 or rec_t == 1.0),
@@ -1897,7 +1927,7 @@ def phase_streaming(kept: dict) -> dict:
             sm.exact_scan = real
         diff = ip != iw
         err = float(np.abs(dp - dw).max())
-        check(plain_launches == {"wgmma": 0, "fma": 0}
+        check(plain_launches == {"wgmma": 0, "wgmma_cp": 0}
               and np.all(np.abs(dp[diff] - dw[diff]) <= 1e-4)
               and diff.mean() <= 1e-3 and err <= 1e-3,
               f"warm batch, plain exact_topk per chunk: ids equal at "
@@ -1928,7 +1958,7 @@ def phase_streaming(kept: dict) -> dict:
             idx.stream_dtype = rd
             _reset_launches()
             (dr, ir), t_r = timed_batch()
-            check(_launches() == {"wgmma": 0, "fma": 0},
+            check(_launches() == {"wgmma": 0, "wgmma_cp": 0},
                   f"{rd}: the reduced scan runs without K1")
             rec = _recall(ir, ic, 10)
             check(np.isfinite(dr).all() and rec >= 0.99,
@@ -2102,7 +2132,7 @@ def phase_facets(st: dict) -> dict:
               f"1e-5: {rec_t:.4f} == 1) against numpy over the {len(rows)} "
               f"allowed rows, every result allowed")
         if DEVICE == "cuda":
-            check(by == {"wgmma": 1, "fma": 0},
+            check(by == {"wgmma": 1, "wgmma_cp": 0},
                   f"{label}: the masked scan of {g.device_graph().cap} slots "
                   f"launched the wgmma kernel once: {by}")
         t0 = time.perf_counter()
@@ -2185,9 +2215,9 @@ def _p17_exact(mesh, kept: dict) -> dict:
           f"{same:.5f} of the positions, tie-aware recall@10 {rec_t:.4f} "
           f"(ties within 1e-4)")
     if DEVICE == "cuda":
-        check(by["wgmma"] == S and by["fma"] == 0,
+        check(by["wgmma"] == S and by["wgmma_cp"] == 0,
               f"one batch launched K1's wgmma route {by['wgmma']} times "
-              f"(once a shard), the FMA route {by['fma']}")
+              f"(once a shard), the wgmma_cp route {by['wgmma_cp']}")
     _reset_launches()
     qps = _qps(exact, len(q_np))
     launches = _add(by, _launches())
@@ -2223,7 +2253,7 @@ def _p17_exact(mesh, kept: dict) -> dict:
 
     _reset_launches()
     (_, i8), t_first = _timed(capacity)
-    check(_launches() == {"wgmma": 0, "fma": 0},
+    check(_launches() == {"wgmma": 0, "wgmma_cp": 0},
           "int8 shards scan without the float32 kernel")
     rec = _recall(i8, i, 10)
     check(rec >= 0.99, f"row-sharded int8 + host rerank: recall@10 "
@@ -2423,7 +2453,7 @@ def _p17_multihost(ivf_st: dict) -> dict:
               f"multihost over TCP: recall@10 {rec:.4f} (tie-aware "
               f"{rec_t:.4f}) == 1.0 against one ExactIndex over all rows")
         if DEVICE == "cuda":
-            check(by == {"wgmma": 2, "fma": 0},
+            check(by == {"wgmma": 2, "wgmma_cp": 0},
                   f"one batch launched K1 once a slice: {by}")
         _reset_launches()
         qps = _qps(lambda: mh.batch_search(q_np, 10), len(q_np))
@@ -2631,7 +2661,7 @@ def main() -> int:
           f"build included", flush=True)
     print(smi)
     print(json.dumps({"kernels": [dict(timing[r], launches=launches[r])
-                                  for r in ("wgmma", "fma")]}))
+                                  for r in ("wgmma", "wgmma_cp")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

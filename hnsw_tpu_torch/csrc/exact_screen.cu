@@ -6,43 +6,59 @@
 // validity mask applied, and never writes the [Q, N] score matrix to
 // device memory.
 //
-// Two routes compute that contract, chosen by shape in ops/exact_screen.py:
+// One kernel, screen_wgmma_kernel, computes that contract with the Gram
+// product on the tensor cores. Its ring of shared-memory stages holds
+// [rows x 32] f32 boxes (128 bytes a row, in the 128-byte swizzle) of the
+// queries and the table, one mbarrier a stage. Two producers fill it,
+// chosen by shape in ops/exact_screen.py (screen_route):
 //
-// * wgmma (screen_wgmma_kernel): the Gram product on the tensor cores. TMA
-//   copies [rows x 32] f32 boxes (128 bytes a row, 128-byte swizzle) of
-//   the queries and the table into a ring of shared-memory stages, one
-//   mbarrier a stage, issued by one thread. One elementwise pass over each
-//   landed stage rounds it in place: f32 mode splits x into
-//   hi = tf32_rna(x) (in place) and lo = tf32_rna(x - hi) (a second buffer
-//   of the same swizzled layout), and the product is 3xTF32,
-//   hi*lo + lo*hi + hi*hi with the small terms first (the dropped lo*lo
-//   term is ~2^-22 of sum |q_i v_i|); fast_math rounds x to bf16 in place,
-//   which is exact in TF32 (8 significand bits of TF32's 11), so one TF32
-//   pass gives exactly the bf16 x bf16 -> f32 products fast_math means.
-//   Both operands are row-major [rows, D], i.e. K-major, the only layout
-//   TF32 wgmma takes: nothing is transposed. Needs D % 4 == 0 (TMA row
-//   pitch a multiple of 16 bytes) and 16-byte aligned base pointers.
-// * fma (screen_kernel): the f32 FMA pipe, for every other shape.
+// * wgmma (TMA = true): one thread asks TMA for both boxes. TMA needs a
+//   row pitch that is a multiple of 16 bytes (D % 4 == 0) and 16-byte
+//   aligned base pointers.
+// * wgmma_cp (TMA = false): every float32 table else (D % 4 != 0, such
+//   as GloVe's D = 25 / 50 or lastfm's 65, and row views at any 4-byte
+//   offset). All 256 threads copy the boxes with cp.async, 8 bytes a copy
+//   where D is even and both base pointers are 8-byte aligned, else 4.
+//   Each value lands at the byte TMA's swizzle would give it, columns
+//   past D and rows past the matrix are zero-filled through the copy's
+//   src-size operand (as TMA's out-of-bounds fill), and each thread's
+//   copies arrive on the stage's mbarrier (cp.async.mbarrier.arrive.noinc,
+//   the barrier counting all 256). From the landed stage on, the two
+//   producers share every instruction.
+//
+// One elementwise pass over each landed stage rounds it in place: f32
+// mode splits x into hi = tf32_rna(x) (in place) and lo = tf32_rna(x - hi)
+// (a second buffer of the same swizzled layout), and the product is
+// 3xTF32, hi*lo + lo*hi + hi*hi with the small terms first (the dropped
+// lo*lo term is ~2^-22 of sum |q_i v_i|); fast_math rounds x to bf16 in
+// place, which is exact in TF32 (8 significand bits of TF32's 11), so one
+// TF32 pass gives exactly the bf16 x bf16 -> f32 products fast_math means.
+// Both operands are row-major [rows, D], i.e. K-major, the only layout
+// TF32 wgmma takes: nothing is transposed.
 //
 // What bounds it on this card (H100 SXM). At Q=1024, N=2^20, D=128 the
 // Gram is 275 GFLOP. Done f32-accurate it takes at least 1.67 ms, as
 // 3xTF32 (3 passes at 495 TFLOP/s; the FMA pipe's 67 TFLOP/s would take
 // 4.10 ms). fast_math's bf16 operands could run at the bf16 rate (989
 // TFLOP/s): 0.28 ms. The table read once from HBM is 0.16 ms. So both
-// modes are bound by operations, not bytes.
+// modes are bound by operations, not bytes, and both producers put the
+// product on the tensor cores.
 // The query tile is blockIdx.x, the fastest-varying grid index, so the
 // query tiles of one segment run together and meet its table boxes in L2.
-// Measured on the wgmma route, the product itself hides behind the rest:
-// the staging (TMA from L2 and the conversion pass), the epilogue and the
+// Measured, the product itself hides behind the rest: the staging (the
+// copies from L2 and the conversion pass), the epilogue and the
 // selection each take a share of the time, and they overlap only across
-// blocks. So the design aims at two resident blocks an SM. (That split
-// comes from tools/screen_split.py, which times builds with
-// -DSPLIT_NO_SELECT, -DSPLIT_NO_EPILOGUE and -DSPLIT_NO_PRODUCT: each
-// compiles that part of screen_wgmma_kernel out, so their results are
-// wrong by design. The library the port loads defines none of them.)
+// blocks. So the design aims at two resident blocks an SM. The cp.async
+// producer spends its threads' issue slots on the copies that TMA makes
+// for free; its copies of the next stage are in flight while the warps
+// convert, multiply and select the current one. (That split comes from
+// tools/screen_split.py, which times builds with -DSPLIT_NO_SELECT,
+// -DSPLIT_NO_EPILOGUE and -DSPLIT_NO_PRODUCT: each compiles that part of
+// screen_wgmma_kernel out, so their results are wrong by design. The
+// library the port loads defines none of them.)
 //
-// Shared memory of the wgmma route (dynamic; 227 KB a block, 228 KB an SM
-// on this card), for TQ = 64 queries by TC = 128 columns a tile:
+// Shared memory (dynamic; 227 KB a block, 228 KB an SM on this card), for
+// TQ = 64 queries by TC = 128 columns a tile:
 //   ring   2 stages x (8 KiB query box + 16 KiB table box), twice that in
 //          f32 mode for the lo buffers: 96 KiB f32, 48 KiB fast_math
 //   lists  TQ x k_sel int64 keys: 9 KiB at k_sel = 18, 64 KiB at 128
@@ -65,13 +81,13 @@
 // the square root of the surviving keys); it flags the rows with a
 // distance below their current worst, and the selection visits only
 // those. While the warps run the epilogue and the selection of one column
-// tile, TMA loads for the next tile are in flight.
+// tile, the loads for the next tile are in flight.
 //
-// Selection (both routes): each query's running best k_sel sit in shared
-// memory as int64 keys (order-preserving int32 of the distance in the
-// high half, global column id in the low half). A candidate costs one
-// compare against the current worst distance; only winners take the
-// warp-wide sorted insert. Keys are unique, so ties go to the lower id.
+// Selection: each query's running best k_sel sit in shared memory as
+// int64 keys (order-preserving int32 of the distance in the high half,
+// global column id in the low half). A candidate costs one compare
+// against the current worst distance; only winners take the warp-wide
+// sorted insert. Keys are unique, so ties go to the lower id.
 // grid = (query tiles, N segments); a loop inside the block walks the
 // segment's column tiles (the TPU's sequential grid axis); a second small
 // kernel merges each query's per-segment lists.
@@ -85,18 +101,25 @@
 
 namespace {
 
-// ---- shared by both routes -------------------------------------------------
-
 constexpr int TQ = 64;   // queries per block
 constexpr int TC = 128;  // table columns per tile
-constexpr int CS = TC + 1;  // padded distance-tile stride
 constexpr int NT = 256;  // threads per block
 constexpr int MERGE_THREADS = 256;
 constexpr float INF_DIST = 3.0e38f;  // ops/distance.py INF_DIST
 constexpr long long EMPTY = LLONG_MAX;
 
 enum Metric { COSINE = 0, L2 = 1, SQEUCLIDEAN = 2, DOT = 3 };
-enum Route { FMA = 0, WGMMA = 1 };
+// The producer of the ring (ops/exact_screen.py ROUTES).
+enum Route { WGMMA = 1, WGMMA_CP = 2 };
+
+constexpr int WK = 32;                     // f32 per 128-byte swizzle row
+constexpr int STAGES = 2;                  // ring depth
+constexpr int Q_BOX = TQ * WK * 4;         // 8 KiB query box
+constexpr int V_BOX = TC * WK * 4;         // 16 KiB table box
+constexpr int X_BYTES = Q_BOX + V_BOX;     // what a producer lands a stage
+constexpr int V_HALF = V_BOX / 2;          // one warpgroup's 64 table rows
+constexpr int WCS = TC + 8;  // distance-tile stride: the epilogue's float2
+                             // stores of a half-warp hit 32 distinct banks
 
 // fast_math rounds both Gram operands to bf16; products and sums stay f32,
 // which is bf16 x bf16 with f32 output.
@@ -111,15 +134,6 @@ __device__ __forceinline__ long long pack_key(float d, int col) {
   int m = u >= 0 ? u : INT_MIN - u;
   return (long long)(((unsigned long long)(unsigned)m << 32) |
                      (unsigned)col);
-}
-
-// Metric epilogue (ops/distance.py _epilogue) of one Gram value.
-__device__ __forceinline__ float metric_dist(int metric, float g, float qq,
-                                             float vq) {
-  if (metric == DOT) return -g;
-  if (metric == COSINE) return 1.f - g * rsqrtf(qq * vq + 1e-30f);
-  float dist = fmaxf(qq + vq - 2.f * g, 0.f);
-  return metric == L2 ? sqrtf(dist) : dist;
 }
 
 // Insert c into the ascending list L[0, k) in shared memory, dropping the
@@ -167,27 +181,24 @@ __device__ __forceinline__ float key_dist(long long key) {
   return __int_as_float(m >= 0 ? m : INT_MIN - m);
 }
 
-// Selection of one [TQ, TC] distance tile (row stride cs): one warp per
+// Selection of one [TQ, TC] distance tile (row stride WCS): one warp per
 // query row, a candidate is inserted only if it beats the row's current
 // worst key. A row's list only holds columns left of the candidate's
 // (tiles, chunks and lanes go left to right), so a candidate at the worst
 // distance never beats the worst key: comparing distances is exact, and
-// only winners are packed. With hit/thr (the wgmma route), a row is
-// visited only if the epilogue flagged a distance below thr[row], its
-// worst distance when the tile began; the warp then clears the flag and
-// lowers thr.
+// only winners are packed. A row is visited only if the epilogue flagged
+// a distance below thr[row], its worst distance when the tile began; the
+// warp then clears the flag and lowers thr.
 __device__ __forceinline__ void select_tile(long long* lists, const float* dt,
-                                            int cs, int k_sel, int c0,
-                                            int warp, int lane,
-                                            int* hit = nullptr,
-                                            float* thr = nullptr) {
+                                            int k_sel, int c0, int warp,
+                                            int lane, int* hit, float* thr) {
   for (int row = warp; row < TQ; row += NT / 32) {
-    if (hit != nullptr && !hit[row]) continue;
+    if (!hit[row]) continue;
     long long* L = lists + row * k_sel;
     float worst = key_dist(L[k_sel - 1]);
 #pragma unroll
     for (int r = 0; r < TC / 32; ++r) {
-      const float dist = dt[row * cs + lane + 32 * r];
+      const float dist = dt[row * WCS + lane + 32 * r];
       unsigned b = __ballot_sync(0xffffffffu, dist < worst);
       while (b) {
         const int src = __ffs(b) - 1;
@@ -197,7 +208,7 @@ __device__ __forceinline__ void select_tile(long long* lists, const float* dt,
         b = __ballot_sync(0xffffffffu, dist < worst) & ~((2u << src) - 1u);
       }
     }
-    if (hit != nullptr && lane == 0) {
+    if (lane == 0) {
       hit[row] = 0;
       thr[row] = worst;
     }
@@ -214,123 +225,6 @@ __device__ __forceinline__ void write_partial(const long long* lists,
       partial[((size_t)(q0 + row) * n_seg + seg) * k_sel + e] = lists[i];
   }
 }
-
-// ---- fma route: the f32 FMA pipe -------------------------------------------
-
-constexpr int DK = 32;       // dimensions per shared-memory stage
-constexpr int RQ = TQ / 16;  // query rows per thread (16 x 16 thread grid)
-constexpr int RC = TC / 16;  // columns per thread
-constexpr int QS = TQ + 1;   // padded stride: transposed stores hit
-                             // distinct banks
-
-__device__ __forceinline__ float stage_value(float x, int fast) {
-  return fast ? bf16_value(x) : x;
-}
-
-// partial[q, seg, :] = ascending k_sel smallest keys of query q over
-// columns [seg * seg_len, min(n, (seg + 1) * seg_len)); EMPTY pads.
-// A register tile of 4 queries x 8 columns per thread, fed from
-// shared-memory stages of 32 dimensions.
-__global__ void __launch_bounds__(NT)
-    screen_kernel(const float* __restrict__ queries,
-                  const float* __restrict__ vectors,
-                  const float* __restrict__ v_sq,
-                  const unsigned char* __restrict__ valid, int nq, int n,
-                  int d, int k_sel, int seg_len, int metric, int fast,
-                  long long* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  long long* lists = reinterpret_cast<long long*>(smem);      // [TQ][k_sel]
-  float* qs = reinterpret_cast<float*>(lists + TQ * k_sel);    // [DK][QS]
-  float* vs = qs + DK * QS;                                    // [DK][CS]
-  float* dt = vs + DK * CS;                                    // [TQ][CS]
-  float* qsq = dt + TQ * CS;                                   // [TQ]
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int lane = tid % 32, warp = tid / 32;
-  const int q0 = blockIdx.x * TQ;
-  const int seg = blockIdx.y, n_seg = gridDim.y;
-  const int c_begin = seg * seg_len;
-  const int c_end = min(n, c_begin + seg_len);
-
-  init_block(lists, qsq, queries, q0, nq, d, k_sel, tid);
-  __syncthreads();
-
-  for (int c0 = c_begin; c0 < c_end; c0 += TC) {
-    float acc[RQ][RC];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < RC; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < d; d0 += DK) {
-      // stage [TQ x DK] queries and [TC x DK] table rows, transposed;
-      // consecutive threads read consecutive dimensions of one row
-#pragma unroll
-      for (int r = 0; r < TQ * DK / NT; ++r) {
-        int idx = tid + r * NT, row = idx / DK, kk = idx % DK;
-        int gq = q0 + row, gd = d0 + kk;
-        float x = (gq < nq && gd < d) ? queries[(size_t)gq * d + gd] : 0.f;
-        qs[kk * QS + row] = stage_value(x, fast);
-      }
-#pragma unroll
-      for (int r = 0; r < TC * DK / NT; ++r) {
-        int idx = tid + r * NT, row = idx / DK, kk = idx % DK;
-        int gc = c0 + row, gd = d0 + kk;
-        float x = (gc < c_end && gd < d) ? vectors[(size_t)gc * d + gd] : 0.f;
-        vs[kk * CS + row] = stage_value(x, fast);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < DK; ++kk) {
-        float a[RQ], b[RC];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) a[i] = qs[kk * QS + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < RC; ++j) b[j] = vs[kk * CS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i)
-#pragma unroll
-          for (int j = 0; j < RC; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-    // metric epilogue + validity mask; rows past the segment end (the
-    // ragged edge of N included) are masked too
-#pragma unroll
-    for (int j = 0; j < RC; ++j) {
-      int cc = tx + 16 * j, gc = c0 + cc;
-      bool ok = gc < c_end && valid[gc];
-      float vq = ok ? v_sq[gc] : 0.f;
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        int row = ty + 16 * i;
-        dt[row * CS + cc] =
-            ok ? metric_dist(metric, acc[i][j], qsq[row], vq) : INF_DIST;
-      }
-    }
-    __syncthreads();
-    select_tile(lists, dt, CS, k_sel, c0, warp, lane);
-    __syncthreads();
-  }
-  write_partial(lists, partial, q0, nq, seg, n_seg, k_sel, tid);
-}
-
-size_t fma_smem_bytes(int k_sel) {
-  return (size_t)TQ * k_sel * sizeof(long long) +
-         (size_t)(DK * QS + DK * CS + TQ * CS + TQ) * sizeof(float);
-}
-
-// ---- wgmma route: TMA-fed TF32 tensor cores --------------------------------
-
-constexpr int WK = 32;                     // f32 per 128-byte swizzle row
-constexpr int STAGES = 2;                  // ring depth
-constexpr int Q_BOX = TQ * WK * 4;         // 8 KiB query box
-constexpr int V_BOX = TC * WK * 4;         // 16 KiB table box
-constexpr int X_BYTES = Q_BOX + V_BOX;     // what TMA lands in a stage
-constexpr int V_HALF = V_BOX / 2;          // one warpgroup's 64 table rows
-constexpr int WCS = TC + 8;  // distance-tile stride: the epilogue's float2
-                             // stores of a half-warp hit 32 distinct banks
 
 __host__ __device__ constexpr int stage_bytes(bool fast) {
   return fast ? X_BYTES : 2 * X_BYTES;     // f32: + the lo buffers
@@ -420,7 +314,8 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// One thread: arm the stage's barrier for X_BYTES and start both boxes.
+// TMA producer, one thread: arm the stage's barrier for X_BYTES and start
+// both boxes.
 __device__ __forceinline__ void issue_stage(unsigned char* st, uint64_t* bar,
                                             const CUtensorMap* tq,
                                             const CUtensorMap* tv, int k0,
@@ -430,9 +325,62 @@ __device__ __forceinline__ void issue_stage(unsigned char* st, uint64_t* bar,
   tma_load_2d(st + Q_BOX, tv, k0, c0, bar);
 }
 
+// One cp.async of E f32 (4 or 8 bytes) into shared memory at dst; ok =
+// false copies no byte (src-size 0) and zero-fills the piece.
+template <int E>
+__device__ __forceinline__ void cp_piece(uint32_t dst, const float* src,
+                                         bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst),
+               "l"(src), "n"(4 * E), "r"(ok ? 4 * E : 0)
+               : "memory");
+}
+
+// cp.async producer, every thread: its share of the [ROWS x WK] box at
+// rows r0.., columns k0.. of the row-major [rows, d] matrix src, into dst
+// in TMA's 128-byte swizzle (in each 8-row x 128-byte atom, the 16-byte
+// chunk c of row r lands at chunk c ^ (r % 8)). A thread keeps one
+// column (pair) and walks rows 8E apart, so its row % 8, and with it its
+// swizzled byte in the row, never changes; a warp reads 128 contiguous
+// bytes of the matrix (one row, or two for E = 2). Pieces past d or past
+// `rows` are zero-filled, so the k tail and the ragged rows add nothing.
+template <int ROWS, int E>
+__device__ __forceinline__ void cp_box(unsigned char* dst, const float* src,
+                                       int rows, int d, int r0, int k0,
+                                       int tid) {
+  constexpr int LANES = WK / E;     // threads a row
+  constexpr int STEP = NT / LANES;  // rows a pass: 8E
+  const int kk = (tid % LANES) * E;
+  const int r = tid / LANES;
+  const uint32_t s =
+      smem_u32(dst) + r * 128 + (((kk / 4) ^ (r % 8)) * 16) + (kk % 4) * 4;
+  const bool col_ok = k0 + kk < d;
+  const float* g = src + (size_t)(r0 + r) * d + k0 + kk;
+#pragma unroll
+  for (int i = 0; i < ROWS / STEP; ++i) {
+    const bool ok = col_ok && r0 + r + i * STEP < rows;
+    cp_piece<E>(s + i * STEP * 128, ok ? g + (size_t)i * STEP * d : src, ok);
+  }
+}
+
+// cp.async producer, every thread: both boxes of a stage, then an arrive
+// on its barrier (initialised with NT) once this thread's copies landed.
+template <int E>
+__device__ __forceinline__ void cp_stage(unsigned char* st, uint64_t* bar,
+                                         const float* queries,
+                                         const float* vectors, int nq, int n,
+                                         int d, int k0, int q0, int c0,
+                                         int tid) {
+  cp_box<TQ, E>(st, queries, nq, d, q0, k0, tid);
+  cp_box<TC, E>(st + Q_BOX, vectors, n, d, c0, k0, tid);
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
 // The landed stage's conversion pass, then its product into acc (this
 // warpgroup's 64 x 64 half). Every thread of the block calls it. The pass
-// rewrites each value at its own byte offset, so the TMA swizzle stands;
+// rewrites each value at its own byte offset, so the swizzle stands;
 // first = overwrite acc instead of adding.
 template <bool FAST>
 __device__ __forceinline__ void stage_product(float (&acc)[32],
@@ -485,8 +433,8 @@ __device__ __forceinline__ void stage_product(float (&acc)[32],
   fence_acc(acc);
 }
 
-// A distance in the wgmma route's selection domain: l2 is kept squared
-// (the square root is monotone; the merge kernel takes it at the end).
+// A distance in the selection domain: l2 is kept squared (the square root
+// is monotone; the merge kernel takes it at the end).
 template <int M>
 __device__ __forceinline__ float select_dist(float g, float qq, float vq) {
   if (M == DOT) return -g;
@@ -532,18 +480,23 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-// Same contract as screen_kernel. tm_q / tm_v: TMA maps of the queries
-// [nq, d] (box 32 x TQ) and the table [n, d] (box 32 x TC), 128B swizzle,
-// zero fill past the edges (the ragged end of N, D past a multiple of 32).
-template <bool FAST>
+// partial[q, seg, :] = ascending k_sel smallest keys of query q over
+// columns [seg * seg_len, min(n, (seg + 1) * seg_len)); EMPTY pads.
+// TMA: tm_q / tm_v are TMA maps of the queries [nq, d] (box 32 x TQ) and
+// the table [n, d] (box 32 x TC), 128B swizzle, zero fill past the edges
+// (the ragged end of N, D past a multiple of 32). cp.async (TMA = false):
+// the maps are unused and the threads copy from queries / vectors, two f32
+// a copy when pair is set.
+template <bool FAST, bool TMA>
 __global__ void __launch_bounds__(NT, 2)
     screen_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_v,
                         const float* __restrict__ queries,
+                        const float* __restrict__ vectors,
                         const float* __restrict__ v_sq,
                         const unsigned char* __restrict__ valid, int nq,
                         int n, int d, int k_sel, int seg_len, int metric,
-                        long long* __restrict__ partial) {
+                        int pair, long long* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int SB = stage_bytes(FAST);
   // f32: the distance tile lives in the stage the tile's last k block
@@ -570,6 +523,8 @@ __global__ void __launch_bounds__(NT, 2)
   const int n_kb = (d + WK - 1) / WK;
   const int n_tiles = (c_end - c_begin + TC - 1) / TC;
   const int total = n_tiles * n_kb;  // stage loads, in (tile, k block) order
+  // who issues a stage's loads: one thread asks TMA, all threads cp.async
+  const bool issuer = !TMA || tid == 0;
 
   init_block(lists, qsq, queries, q0, nq, d, k_sel, tid);
   if (tid < TQ) {
@@ -577,19 +532,27 @@ __global__ void __launch_bounds__(NT, 2)
     hit[tid] = 0;
   }
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) mbar_init(&bars[s], 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(&bars[s], TMA ? 1 : NT);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  // one thread: start stage load l (in (tile, k block) order)
+  // the issuers: start stage load l (in (tile, k block) order)
   const CUtensorMap* pq = &tm_q;
   const CUtensorMap* pv = &tm_v;
   auto load = [&](int l) {
-    if (l < total)
-      issue_stage(ring + l % STAGES * SB, &bars[l % STAGES], pq, pv,
-                  (l % n_kb) * WK, q0, c_begin + (l / n_kb) * TC);
+    if (l >= total) return;
+    unsigned char* st = ring + l % STAGES * SB;
+    uint64_t* bar = &bars[l % STAGES];
+    const int k0 = (l % n_kb) * WK, c0 = c_begin + (l / n_kb) * TC;
+    if constexpr (TMA) {
+      issue_stage(st, bar, pq, pv, k0, q0, c0);
+    } else if (pair) {
+      cp_stage<2>(st, bar, queries, vectors, nq, n, d, k0, q0, c0, tid);
+    } else {
+      cp_stage<1>(st, bar, queries, vectors, nq, n, d, k0, q0, c0, tid);
+    }
   };
-  if (tid == 0)
+  if (issuer)
     for (int l = 0; l < STAGES; ++l) load(l);
 
   float acc[32] = {};
@@ -608,7 +571,7 @@ __global__ void __launch_bounds__(NT, 2)
       mbar_wait(&bars[s], (l / STAGES) & 1);
       stage_product<FAST>(acc, ring + s * SB, tid, wg, kb == 0);
       __syncthreads();  // every warpgroup's wgmma has read stage s
-      if (tid == 0 && !(DT_IN_RING && kb == n_kb - 1)) load(l + STAGES);
+      if (issuer && !(DT_IN_RING && kb == n_kb - 1)) load(l + STAGES);
     }
     float* dt = DT_IN_RING
                     ? reinterpret_cast<float*>(ring + (l - 1) % STAGES * SB)
@@ -635,12 +598,12 @@ __global__ void __launch_bounds__(NT, 2)
 #endif  // SPLIT_NO_EPILOGUE
     __syncthreads();
 #ifndef SPLIT_NO_SELECT
-    select_tile(lists, dt, WCS, k_sel, c0, warp, lane, hit, thr);
+    select_tile(lists, dt, k_sel, c0, warp, lane, hit, thr);
 #endif  // SPLIT_NO_SELECT
-    if (DT_IN_RING)  // generic-proxy use of dt before TMA rewrites it
+    if (DT_IN_RING)  // generic-proxy use of dt before the refill rewrites it
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     __syncthreads();
-    if (DT_IN_RING && tid == 0) load(l - 1 + STAGES);
+    if (DT_IN_RING && issuer) load(l - 1 + STAGES);
   }
   write_partial(lists, partial, q0, nq, seg, n_seg, k_sel, tid);
 }
@@ -741,23 +704,26 @@ __global__ void __launch_bounds__(MERGE_THREADS)
     out[q * k_sel + i] = buf[i];
 }
 
-// The screen kernel of a route and mode, and its dynamic shared memory.
+// The screen kernel of a route and mode; nullptr for an unknown route.
 const void* screen_fn(int route, int fast) {
-  if (route == FMA) return reinterpret_cast<const void*>(screen_kernel);
-  return fast ? reinterpret_cast<const void*>(screen_wgmma_kernel<true>)
-              : reinterpret_cast<const void*>(screen_wgmma_kernel<false>);
-}
-
-size_t screen_smem(int route, int k_sel, int fast) {
-  return route == FMA ? fma_smem_bytes(k_sel) : wgmma_smem_bytes(k_sel, fast);
+  if (route == WGMMA)
+    return fast ? reinterpret_cast<const void*>(screen_wgmma_kernel<true, true>)
+                : reinterpret_cast<const void*>(
+                      screen_wgmma_kernel<false, true>);
+  if (route == WGMMA_CP)
+    return fast ? reinterpret_cast<const void*>(
+                      screen_wgmma_kernel<true, false>)
+                : reinterpret_cast<const void*>(
+                      screen_wgmma_kernel<false, false>);
+  return nullptr;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The tile sizes (both routes use TQ x TC), so the Python wrapper can plan
-// segments without copying them.
+// The tile sizes, so the Python wrapper can plan segments without copying
+// them.
 int exact_screen_tile_queries() { return TQ; }
 int exact_screen_tile_columns() { return TC; }
 
@@ -765,7 +731,8 @@ int exact_screen_tile_columns() { return TC; }
 // cudaError_t on failure.
 int exact_screen_blocks_per_sm(int route, int k_sel, int fast) {
   const void* fn = screen_fn(route, fast);
-  size_t smem = screen_smem(route, k_sel, fast);
+  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
+  size_t smem = wgmma_smem_bytes(k_sel, fast);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -(int)e;
@@ -774,19 +741,20 @@ int exact_screen_blocks_per_sm(int route, int k_sel, int fast) {
   return e != cudaSuccess ? -(int)e : blocks;
 }
 
-// Screen (route: 0 fma, 1 wgmma) + merge on `stream`. partial:
-// [nq, n_seg, k_sel] int64 scratch; out: [nq, k_sel] int64 keys. Returns
-// the cudaError_t of the launches, or ERR_TMA + CUresult when a TMA map
-// fails.
+// Screen (route: 1 wgmma = TMA producer, 2 wgmma_cp = cp.async producer)
+// + merge on `stream`. partial: [nq, n_seg, k_sel] int64 scratch; out:
+// [nq, k_sel] int64 keys. Returns the cudaError_t of the launches, or
+// ERR_TMA + CUresult when a TMA map fails.
 int exact_screen_launch(int route, const void* queries, const void* vectors,
                         const void* v_sq, const void* valid, int nq, int n,
                         int d, int k_sel, int n_seg, int seg_len, int metric,
                         int fast, void* partial, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  size_t smem = screen_smem(route, k_sel, fast);
+  const void* fn = screen_fn(route, fast);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  size_t smem = wgmma_smem_bytes(k_sel, fast);
   cudaError_t e = cudaFuncSetAttribute(
-      screen_fn(route, fast), cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((nq + TQ - 1) / TQ, n_seg);
   const float* qp = static_cast<const float*>(queries);
@@ -794,28 +762,37 @@ int exact_screen_launch(int route, const void* queries, const void* vectors,
   const float* sqp = static_cast<const float*>(v_sq);
   const unsigned char* okp = static_cast<const unsigned char*>(valid);
   long long* pp = static_cast<long long*>(partial);
-  if (route == FMA) {
-    screen_kernel<<<grid, NT, smem, st>>>(qp, vp, sqp, okp, nq, n, d, k_sel,
-                                          seg_len, metric, fast, pp);
-  } else {
-    CUtensorMap tq, tv;
+  CUtensorMap tq = {}, tv = {};
+  if (route == WGMMA) {
     int rc = encode_rows(&tq, queries, nq, d, TQ);
     if (rc == 0) rc = encode_rows(&tv, vectors, n, d, TC);
     if (rc != 0) return rc;
-    if (fast)
-      screen_wgmma_kernel<true><<<grid, NT, smem, st>>>(
-          tq, tv, qp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pp);
-    else
-      screen_wgmma_kernel<false><<<grid, NT, smem, st>>>(
-          tq, tv, qp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pp);
   }
+  // cp.async: 8-byte copies where a row is a whole number of them and
+  // both base pointers are 8-byte aligned; 4-byte copies take any f32
+  const int pair =
+      d % 2 == 0 &&
+      ((reinterpret_cast<uintptr_t>(queries) |
+        reinterpret_cast<uintptr_t>(vectors)) % 8) == 0;
+  if (route == WGMMA && fast)
+    screen_wgmma_kernel<true, true><<<grid, NT, smem, st>>>(
+        tq, tv, qp, vp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pair, pp);
+  else if (route == WGMMA)
+    screen_wgmma_kernel<false, true><<<grid, NT, smem, st>>>(
+        tq, tv, qp, vp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pair, pp);
+  else if (fast)
+    screen_wgmma_kernel<true, false><<<grid, NT, smem, st>>>(
+        tq, tv, qp, vp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pair, pp);
+  else
+    screen_wgmma_kernel<false, false><<<grid, NT, smem, st>>>(
+        tq, tv, qp, vp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pair, pp);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   int width = n_seg * k_sel, p2 = 1;
   while (p2 < width) p2 <<= 1;
+  // both producers select l2 on the squared distance
   merge_kernel<<<nq, MERGE_THREADS, p2 * sizeof(long long), st>>>(
-      pp, width, p2, k_sel, route == WGMMA && metric == L2,
-      static_cast<long long*>(out));
+      pp, width, p2, k_sel, metric == L2, static_cast<long long*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -6,13 +6,16 @@ and keeps each query's k_sel best (distance, id) pairs on chip; the
 [Q, N] score matrix never reaches device memory. ``exact_topk_fused``
 then reranks that pool in f32, as the JAX wrapper does.
 
-Dispatch: a CUDA tensor launches a kernel (or raises); a CPU tensor
+Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes ``exact_screen_reference``, the plain torch version of the same
-contract. On CUDA the shape picks the route (``screen_route``): the
-TMA-fed TF32 ``wgmma`` kernel when TMA can take both operands, else the
-f32 FMA kernel. The kernel's keys are int64 (distance bits high, column id
-low), so unlike the TPU's packed int32 keys they lose no distance bits
-and cannot collide; ties go to the lower id in both versions.
+contract. On CUDA every float32 table runs the Gram product on the
+tensor cores (TF32 ``wgmma``); the shape picks only who fills the
+kernel's shared-memory ring (``screen_route``): TMA (``"wgmma"``) where
+it can take both operands, else the threads' own ``cp.async`` copies
+(``"wgmma_cp"``: D % 4 != 0, or a row view off 16-byte alignment). The
+kernel's keys are int64 (distance bits high, column id low), so unlike
+the TPU's packed int32 keys they lose no distance bits and cannot
+collide; ties go to the lower id in both versions.
 
 The library is compiled with nvcc at first use into ``build/hnsw_tpu_torch``
 beside the package (rebuilt when the source is newer) and bound with
@@ -48,12 +51,12 @@ K_SEL_MAX = 128
 #: table rows per matmul + sort step of the plain version
 _REF_CHUNK = 65536
 
-#: the kernels of the library, by its route code
-ROUTES = {"fma": 0, "wgmma": 1}
+#: the producers of the library's one screen kernel, by route code
+ROUTES = {"wgmma": 1, "wgmma_cp": 2}
 #: kernel launches so far (one per screen call on a CUDA tensor), in all
 #: and by route
 launches = 0
-launches_by_route = {"wgmma": 0, "fma": 0}
+launches_by_route = {"wgmma": 0, "wgmma_cp": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -141,13 +144,15 @@ def _decode(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def screen_route(queries: torch.Tensor, vectors: torch.Tensor) -> str:
-    """The CUDA kernel a screen of these tensors takes: "wgmma" when TMA
-    can copy both matrices (D % 4 == 0, so a row is a multiple of 16
-    bytes, and 16-byte aligned base pointers), else "fma"."""
+    """The producer a screen of these float32 tensors takes: "wgmma"
+    (TMA) when TMA can copy both matrices (D % 4 == 0, so a row is a
+    multiple of 16 bytes, and 16-byte aligned base pointers), else
+    "wgmma_cp" (cp.async, which takes any D and any 4-byte aligned
+    pointer). Both run the same tensor-core screen."""
     if (queries.shape[-1] % 4 == 0 and queries.data_ptr() % 16 == 0
             and vectors.data_ptr() % 16 == 0):
         return "wgmma"
-    return "fma"
+    return "wgmma_cp"
 
 
 def _screen_cuda(queries, vectors, v_sq, valid, k_sel, metric, fast_math,
@@ -267,7 +272,7 @@ def rerank_pool(queries: torch.Tensor, vectors: torch.Tensor,
     """f32 rerank of a screened pool (ids [Q, k_sel], -1 = none) ->
     (dists [Q, k], ids [Q, k]) exact-ordered, -1/INF for misses. Equal
     f32 distances go to the lower id, whatever order the screen left the
-    pool in (the screens of the two kernels and the plain version round
+    pool in (the kernel's 3xTF32 screen and the plain version round
     differently)."""
     q = queries.to(torch.float32)
     n = vectors.shape[0]
@@ -299,7 +304,8 @@ def fused_applies(n: int, k: int, metric: str, table: torch.Tensor) -> bool:
     larger k, custom metrics, reduced tables, the CPU) the chunked plain
     scan ``ops/topk.exact_topk`` runs. Both give f32-exact distances and
     order, ties to the lower id. The exact tier, the streaming tier's
-    float32 chunks and facets' masked scan all decide here."""
+    float32 chunks and facets' masked scan all decide here; any D and any
+    row view of a float32 table takes the tensor-core kernel."""
     return (n >= FUSED_MIN_ROWS and k <= FUSED_MAX_K
             and canonical_metric(metric) in _METRIC_CODE
             and table.is_cuda and table.dtype == torch.float32)

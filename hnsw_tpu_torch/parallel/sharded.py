@@ -150,8 +150,6 @@ def sharded_exact_topk(queries, vectors, v_sq, valid, *, k: int,
     queries are replicated. Returned indices are GLOBAL row ids (int64),
     -1 for a miss; ties go to the lower id, as in one scan of the whole
     table. N must divide by the mesh size (pad with valid=False rows).
-    Keep D % 4 == 0 so that every shard view is 16-byte aligned and
-    takes K1's wgmma route.
     """
     metric = canonical_metric(metric)
     S = mesh.shape[axis]

@@ -6,15 +6,17 @@
 Builds csrc/exact_screen.cu three more times with parts of
 ``screen_wgmma_kernel`` compiled out (``-DSPLIT_NO_SELECT``,
 ``-DSPLIT_NO_EPILOGUE``, ``-DSPLIT_NO_PRODUCT``: guards in the source),
-and times each build's screen at the exact tier's shape (Q=1024,
-N=1,048,576, D=128, k_sel=18, l2; median of 5 CUDA-event reps), f32 and
-fast_math:
+and times each build's screen (Q=1024, k_sel=18, l2; median of 5
+CUDA-event reps), f32 and fast_math, at two shapes (``SHAPES``): the
+exact tier's (N=1,048,576, D=128) through the TMA producer (route
+"wgmma"), and glove-50's (N=1,183,514, D=50) through the cp.async
+producer (route "wgmma_cp"):
 
 * full: the kernel as shipped;
 * no selection: the epilogue still writes the distance tile;
 * staging + product: no epilogue and no selection;
-* staging: no epilogue, no selection and no wgmma (TMA, the conversion
-  pass and the barriers alone).
+* staging: no epilogue, no selection and no wgmma (the copies, the
+  conversion pass and the barriers alone).
 
 The differences split the time into staging, product, epilogue and
 selection. Each mode's bound (``utils/roofline.screen_bound_s``, the
@@ -42,6 +44,9 @@ from hnsw_tpu_torch.utils.roofline import screen_bound_s  # noqa: E402
 VARIANTS = {"full": (), "no selection": ("SELECT",),
             "staging + product": ("SELECT", "EPILOGUE"),
             "staging": ("SELECT", "EPILOGUE", "PRODUCT")}
+#: (label, N, D, route) of the timed screens, Q=1024 each
+SHAPES = (("SIFT1M shape", 1 << 20, 128, "wgmma"),
+          ("GloVe-50 shape", 1_183_514, 50, "wgmma_cp"))
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -68,30 +73,36 @@ def main() -> int:
         print("screen_split: needs a CUDA card", file=sys.stderr)
         return 2
     g = torch.Generator(device="cuda").manual_seed(0)
-    v = torch.randn((1 << 20, 128), generator=g, device="cuda")
-    q = torch.randn((1024, 128), generator=g, device="cuda")
-    sq = (v * v).sum(-1)
-    valid = torch.ones(v.shape[0], dtype=torch.bool, device="cuda")
-    print(f"# {torch.cuda.get_device_name(0)}; screen at Q=1024 N=1048576 "
-          f"D=128 k_sel=18 l2, wgmma route, median of 5 reps")
-    for fast in (False, True):
-        bound_s, by, _ = screen_bound_s(1024, 1 << 20, 128, 18, fast)
-        print(f"  bound, {'fast_math' if fast else 'f32'}: "
-              f"{bound_s * 1e3:.3f} ms ({by})")
+    data = []
+    print(f"# {torch.cuda.get_device_name(0)}; screen at Q=1024 k_sel=18 "
+          f"l2, median of 5 reps")
+    for label, n, d, route in SHAPES:
+        v = torch.randn((n, d), generator=g, device="cuda")
+        q = torch.randn((1024, d), generator=g, device="cuda")
+        valid = torch.ones(n, dtype=torch.bool, device="cuda")
+        data.append((label, route, q, v, (v * v).sum(-1), valid))
+        for fast in (False, True):
+            bound_s, by, _ = screen_bound_s(1024, n, d, 18, fast)
+            print(f"  bound, {label} N={n} D={d} ({route}), "
+                  f"{'fast_math' if fast else 'f32'}: "
+                  f"{bound_s * 1e3:.3f} ms ({by})")
     for name, parts in VARIANTS.items():
         es.BUILD_DIR = os.path.join(
             args.out, name.replace(" ", "_").replace("+", ""))
         es._lib = None
         es.build(tuple(f"SPLIT_NO_{p}" for p in parts))
         lib = es._load()
-        row = []
-        for fast in (False, True):
-            ms = cuda_ms(lambda: es._screen_cuda(q, v, sq, valid, 18, "l2",
-                                                 fast, "wgmma"))
-            per_sm = lib.exact_screen_blocks_per_sm(1, 18, int(fast))
-            row.append(f"{'fast_math' if fast else 'f32'} {ms:.3f} ms "
-                       f"({per_sm} blocks/SM)")
-        print(f"  {name}: " + ", ".join(row), flush=True)
+        for label, route, q, v, sq, valid in data:
+            row = []
+            for fast in (False, True):
+                ms = cuda_ms(lambda: es._screen_cuda(
+                    q, v, sq, valid, 18, "l2", fast, route))
+                per_sm = lib.exact_screen_blocks_per_sm(es.ROUTES[route],
+                                                        18, int(fast))
+                row.append(f"{'fast_math' if fast else 'f32'} {ms:.3f} ms "
+                           f"({per_sm} blocks/SM)")
+            print(f"  {name}, {label} ({route}): " + ", ".join(row),
+                  flush=True)
     return 0
 
 

@@ -1,16 +1,20 @@
 """How far torch.profiler misplaces the card's kernels, and what a trace
-loses to it (the reason for ``utils/profiling.PAD_S``).
+loses (the reason for ``utils/profiling.PAD_S``).
 
     python3 -m hnsw_tpu_torch.tools.trace_skew [--seconds 60]
 
 Rounds until ``--seconds`` have passed: one K1 exact scan (1,000
 queries over 1,048,576 x 128 rows) to keep the card busy, then two
 traces of one 512 x 512 product: a bare ``torch.profiler`` session that
-starts the product at once, and ``utils/profiling.device_trace`` (padded
-by ``PAD_S``). Prints, for each, the share of traces that kept the
-product's kernel, and the kernel's start minus its ``aten::mm`` op's start
-(min / median / max microseconds): a launch on an idle card starts within
-tens of microseconds, so the rest is the skew. Needs the CUDA card.
+starts the product at once, and, right after an empty session (no device
+work: the kind after which a short session loses its kernel records),
+``utils/profiling.device_trace`` (padded by ``PAD_S``). Prints, for
+each, the share of traces that kept the product's kernel, and the
+kernel's start minus its ``aten::mm`` op's start (min / median / max
+microseconds): a launch on an idle card starts within
+tens of microseconds, so the rest is the skew. Then the same, a line for
+each minute of the run, to show how the skew moves as the process ages.
+Needs the CUDA card.
 """
 
 from __future__ import annotations
@@ -52,8 +56,8 @@ def main(argv=None) -> int:
     x = torch.randn((512, 512), generator=gen, device="cuda")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    kept = {"bare": 0, "device_trace": 0}
-    skews = {"bare": [], "device_trace": []}
+    # (minute of the run, trace kind, kept the kernel, skew us or None)
+    seen = []
     rounds = 0
     with tempfile.TemporaryDirectory() as td:
         t0 = time.perf_counter()
@@ -65,32 +69,43 @@ def main(argv=None) -> int:
                 x @ x
                 torch.cuda.synchronize()
             prof.export_chrome_trace(bare)
+            with torch.profiler.profile(activities=acts):
+                pass
             padded = os.path.join(td, "padded")
             try:
                 with device_trace(padded):
                     x @ x
             except RuntimeError:
                 pass                      # no kernel event: counted lost
+            minute = int((time.perf_counter() - t0) // 60)
             for name, path in (("bare", bare), ("device_trace", padded)):
                 paths = ([path] if path.endswith(".json") else
                          [os.path.join(path, p) for p in os.listdir(path)])
                 for p in paths:
                     n, skew = _skew_us(p)
-                    kept[name] += n > 0
-                    if skew is not None:
-                        skews[name].append(skew)
+                    seen.append((minute, name, n > 0, skew))
                     os.remove(p)
             rounds += 1
     print(f"# {torch.cuda.get_device_name(0)}; {rounds} rounds in "
           f"{args.seconds:g} s; PAD_S {PAD_S}")
-    for name in kept:
-        s = skews[name]
+    _report(seen, "all")
+    for m in sorted({m for m, _, _, _ in seen}):
+        _report([x for x in seen if x[0] == m], f"minute {m}")
+    return 0
+
+
+def _report(seen, label: str) -> None:
+    """One line a trace kind: traces that kept the kernel, and the skew
+    (min / median / max us) of those that did."""
+    for name in ("bare", "device_trace"):
+        mine = [(k, s) for _, n, k, s in seen if n == name]
+        s = [x for _, x in mine if x is not None]
         spread = (f"{min(s):.1f} / {statistics.median(s):.1f} / "
                   f"{max(s):.1f}" if s else "n/a")
-        print(f"  {name}: kept the kernel in {kept[name]} of {rounds} "
-              f"traces; kernel start - op start, us (min / median / max): "
-              f"{spread}", flush=True)
-    return 0
+        print(f"  {label}, {name}: kept the kernel in "
+              f"{sum(k for k, _ in mine)} of {len(mine)} traces; kernel "
+              f"start - op start, us (min / median / max): {spread}",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -17,12 +17,15 @@ from typing import Dict, Iterator
 import torch
 
 
-#: idle seconds a CUDA trace keeps before and after its block. The
-#: profiler places the card's kernels on the host clock with a skew of
-#: milliseconds that changes over a process's life, and drops kernel
-#: events that land outside its window (``tools/trace_skew.py`` measures
-#: both on the card).
-PAD_S = 0.25
+#: idle seconds a CUDA trace keeps before and after its block. After a
+#: short profiler session (one with no device work above all), the next
+#: short session's kernel records reach the trace late or not at all,
+#: and that lasts until a session runs for a few seconds; a session of
+#: about four seconds or more kept them (``tools/trace_skew.py`` opens
+#: such an empty session before each padded trace and counts what the
+#: trace kept). The profiler also places kernels on the host clock with
+#: a skew of milliseconds, which the pad covers too.
+PAD_S = 2.5
 
 
 @contextlib.contextmanager

@@ -8,9 +8,10 @@ Both versions screen the same tensors; the pools are then reranked in f32
 by the same code. f32: ids equal, distances within 1e-5 (both are
 reranked in f32). fast_math: id overlap >= 0.999 (the bf16 screens may
 cut their pools at different places), matched distances within 1e-5.
-Each case also checks which kernel ran (``launches_by_route``): the TF32
-``wgmma`` kernel where D % 4 == 0 and the rows are 16-byte aligned, the
-f32 FMA kernel elsewhere.
+Each case also checks which producer fed the TF32 ``wgmma`` screen
+(``launches_by_route``): TMA (``"wgmma"``) where D % 4 == 0 and the rows
+are 16-byte aligned, the threads' cp.async copies (``"wgmma_cp"``)
+elsewhere.
 """
 
 import numpy as np
@@ -41,12 +42,12 @@ def _case(device, n, n_valid, nq, d=64, seed=0):
 
 
 def _route(d):
-    return "wgmma" if d % 4 == 0 else "fma"
+    return "wgmma" if d % 4 == 0 else "wgmma_cp"
 
 
 def _reset():
     es.launches = 0
-    es.launches_by_route.update(wgmma=0, fma=0)
+    es.launches_by_route.update(wgmma=0, wgmma_cp=0)
 
 
 def _both(q, v, sq, valid, k, metric, fast, route=None):
@@ -63,11 +64,9 @@ def _both(q, v, sq, valid, k, metric, fast, route=None):
         ip.cpu().numpy()
 
 
-@pytest.mark.parametrize("fast", [False, True])
-@pytest.mark.parametrize("metric", ["cosine", "l2", "sqeuclidean", "dot"])
-def test_kernel_matches_plain(cuda, metric, fast):
-    dk, ik, dp, ip = _both(*_case(cuda, 70_000, 65_000, 300), 10, metric,
-                           fast)
+def _hold(dk, ik, dp, ip, fast):
+    """f32: ids equal; fast_math: id overlap >= 0.999; matched distances
+    within 1e-5 either way."""
     if fast:
         hits = sum(len(set(a) & set(b)) for a, b in zip(ik, ip))
         assert hits / ip.size >= 0.999
@@ -75,6 +74,36 @@ def test_kernel_matches_plain(cuda, metric, fast):
         np.testing.assert_array_equal(ik, ip)
     same = ik == ip
     np.testing.assert_allclose(dk[same], dp[same], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sqeuclidean", "dot"])
+@pytest.mark.parametrize("n,n_valid,nq,d,seed", [(70_000, 65_000, 300, 64, 0),
+                                                 (50_000, 47_000, 128, 128, 7)])
+def test_kernel_matches_plain(cuda, metric, fast, n, n_valid, nq, d, seed):
+    _hold(*_both(*_case(cuda, n, n_valid, nq, d=d, seed=seed), 10, metric,
+                 fast, "wgmma"), fast)
+
+
+#: (D, metric) of the cp.async producer's cases; at D = 1 the cosine
+#: distance of every row is 0 or 2, ties that rounding alone orders, so
+#: D = 1 runs the three metrics that order the rows
+CP_CASES = [(d, m) for d in (25, 50, 65, 100)
+            for m in ("cosine", "l2", "sqeuclidean", "dot")] + [
+    (1, m) for m in ("l2", "sqeuclidean", "dot")]
+
+
+@pytest.mark.parametrize("k", [10, 120])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("d,metric", CP_CASES)
+def test_cp_route_matches_plain(cuda, monkeypatch, d, metric, fast, k):
+    """The cp.async producer against the plain version: ragged N and Q,
+    masked rows, k_sel 18 and 128, odd and even D (4- and 8-byte copies),
+    and D = 100, which TMA would take, sent down it on purpose."""
+    monkeypatch.setattr(es, "screen_route", lambda q, v: "wgmma_cp")
+    q, v, sq, valid = _case(cuda, 33_001, 33_001, 77, d=d, seed=d)
+    valid[::5] = False
+    _hold(*_both(q, v, sq, valid, k, metric, fast, "wgmma_cp"), fast)
 
 
 @pytest.mark.parametrize("k,d", [(64, 100), (120, 960), (1, 7)])
@@ -135,20 +164,23 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("fast", [False, True])
-@pytest.mark.parametrize("d", [4, 32, 36, 128])
-def test_wgmma_tile_product_matches_matmul(cuda, d, fast):
-    """One 64 x 128 tile through the TMA-fed TF32 wgmma kernel: with the
-    dot metric and k_sel = N = 128 the screen returns every column, so
-    -dist is the kernel's Gram. Held against a float64 product of the
-    same operands (bf16-rounded for fast_math) within 1e-5 of
-    sum |q_i v_i|: 3xTF32 drops ~2^-22 of it and f32 sums add ~D 2^-24,
+@pytest.mark.parametrize("d,route", [(d, "wgmma") for d in (4, 32, 36, 128)]
+                         + [(d, "wgmma_cp") for d in (4, 7, 36, 50, 128)])
+def test_wgmma_tile_product_matches_matmul(cuda, monkeypatch, d, route,
+                                           fast):
+    """One 64 x 128 tile through the TF32 wgmma kernel, fed by TMA or by
+    cp.async: with the dot metric and k_sel = N = 128 the screen returns
+    every column, so -dist is the kernel's Gram. Held against a float64
+    product of the same operands (bf16-rounded for fast_math) within 1e-5
+    of sum |q_i v_i|: 3xTF32 drops ~2^-22 of it and f32 sums add ~D 2^-24,
     while one TF32 pass on f32 operands would be off by ~1e-4 and a
-    wrong descriptor or swizzle by O(1)."""
+    wrong descriptor, swizzle or zero fill by O(1)."""
     q, v, sq, valid = _case(cuda, 128, 128, 64, d=d, seed=d)
+    monkeypatch.setattr(es, "screen_route", lambda q, v: route)
     _reset()
     dist, ids = es.exact_screen(q, v, sq, valid, k_sel=128, metric="dot",
                                 fast_math=fast)
-    assert es.launches_by_route["wgmma"] == 1
+    assert es.launches_by_route[route] == 1
     assert (torch.sort(ids, dim=1).values
             == torch.arange(128, device=cuda)).all()
     gram = torch.empty_like(dist).scatter_(1, ids, -dist)
@@ -159,20 +191,6 @@ def test_wgmma_tile_product_matches_matmul(cuda, d, fast):
     scale = qq.abs() @ vv.abs().T
     err = ((gram.double() - want).abs() / scale).max().item()
     assert err <= 1e-5, err
-
-
-@pytest.mark.parametrize("fast", [False, True])
-@pytest.mark.parametrize("metric", ["cosine", "l2", "sqeuclidean", "dot"])
-def test_wgmma_route_at_d128_matches_plain(cuda, metric, fast):
-    dk, ik, dp, ip = _both(*_case(cuda, 50_000, 47_000, 128, d=128,
-                                  seed=7), 10, metric, fast, "wgmma")
-    if fast:
-        hits = sum(len(set(a) & set(b)) for a, b in zip(ik, ip))
-        assert hits / ip.size >= 0.999
-    else:
-        np.testing.assert_array_equal(ik, ip)
-    same = ik == ip
-    np.testing.assert_allclose(dk[same], dp[same], atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("nq", [1, 37])
@@ -213,19 +231,20 @@ def test_segment_boundary_inside_a_tile(cuda, monkeypatch, seg_len):
         np.testing.assert_allclose(dk[same], dp[same], atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("d", [7, 128])
-def test_misaligned_or_odd_rows_take_the_fma_route(cuda, d):
-    """A table whose base pointer is 4 bytes past 16-byte alignment, and
-    D = 7 (a row of 28 bytes), cannot be TMA-copied: the FMA kernel runs
-    and gives the plain version's ids."""
+@pytest.mark.parametrize("d", [7, 50, 128])
+def test_misaligned_or_odd_rows_take_the_cp_route(cuda, d):
+    """A table whose base pointer is 4 bytes past 16-byte alignment (4-byte
+    copies even at an even D), and D = 7 (a row of 28 bytes), cannot be
+    TMA-copied: the cp.async producer runs and gives the plain version's
+    ids."""
     n = 30_000
     g = torch.Generator(device=cuda).manual_seed(d)
     v = torch.randn(n * d + 1, generator=g, device=cuda)[1:].view(n, d)
     q = torch.randn((50, d), generator=g, device=cuda)
-    assert es.screen_route(q, v) == "fma"
+    assert es.screen_route(q, v) == "wgmma_cp"
     valid = torch.ones(n, dtype=torch.bool, device=cuda)
     dk, ik, dp, ip = _both(q, v, (v * v).sum(-1), valid, 10, "l2", False,
-                           "fma")
+                           "wgmma_cp")
     np.testing.assert_array_equal(ik, ip)
 
 

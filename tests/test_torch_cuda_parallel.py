@@ -7,8 +7,8 @@ machine without it run them with
 
 * ``sharded_exact_topk`` over 8 shards of one card: ids equal to one
   ``exact_scan`` of the whole table, distances within 1e-5, and K1
-  launched once a shard on its wgmma route (every shard view is 16-byte
-  aligned).
+  launched once a shard: fed by TMA at D = 128 (every shard view is
+  16-byte aligned), by cp.async at D = 50.
 * The row-sharded graph's two exchanges, stacked and shard loop: equal
   ids and distances.
 * Batch composition (twin of tests/test_determinism.py's first test):
@@ -36,18 +36,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def test_sharded_exact_runs_k1_on_every_shard(cuda):
+@pytest.mark.parametrize("d,route", [(128, "wgmma"), (50, "wgmma_cp")])
+def test_sharded_exact_runs_k1_on_every_shard(cuda, d, route):
     g = torch.Generator(device=cuda).manual_seed(0)
-    n, d, k = 8 * 32768, 128, 10
+    n, k = 8 * 32768, 10
     v = torch.randn((n, d), generator=g, device=cuda)
     q = torch.randn((256, d), generator=g, device=cuda)
     sq = (v * v).sum(-1)
     valid = torch.ones(n, dtype=torch.bool, device=cuda)
     d1, i1 = es.exact_scan(q, v, sq, valid, k=k, metric="l2")
-    es.launches_by_route.update(wgmma=0, fma=0)
+    es.launches_by_route.update(wgmma=0, wgmma_cp=0)
     d8, i8 = tsh.sharded_exact_topk(q, v, sq, valid, k=k, metric="l2",
                                     mesh=tsh.default_mesh(8))
-    assert es.launches_by_route == {"wgmma": 8, "fma": 0}
+    assert es.launches_by_route == {"wgmma": 0, "wgmma_cp": 0, route: 8}
     assert torch.equal(i8, i1)
     assert float((d8 - d1).abs().max()) <= 1e-5
 

@@ -9,7 +9,7 @@ order). With fast_math both round the Gram operands to bf16, but at other
 places in the two frameworks, so the pools may be cut at different
 places: id overlap >= 0.999, matched distances within 1e-5.
 
-The CUDA screen's tensor-core route cannot run here, so its arithmetic is
+The CUDA screen (both producers) cannot run here, so its arithmetic is
 emulated below (``cvt.rna.tf32.f32`` in torch) and held to the same
 contract: 3xTF32 Gram products within 1e-6 of the f32 Gram relative to
 sum |q_i v_i| and the same reranked ids as JAX, and a bf16-rounded value
@@ -105,6 +105,17 @@ def test_fused_ragged_q_and_n_matches_jax():
     _check(*_both(q, v, np.ones(1111, bool), 10, "dot", False), False)
 
 
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("d", [7, 25, 50, 65])
+def test_fused_odd_widths_match_jax(d, fast):
+    """The widths that take the CUDA screen's cp.async producer (D % 4 !=
+    0: GloVe's 25 and 50, lastfm's 65), through the same contract."""
+    v, q = _data(20 + d, 2000, d), _data(21 + d, 33, d)
+    valid = np.ones(2000, bool)
+    valid[::9] = False
+    _check(*_both(q, v, valid, 10, "cosine", fast), fast)
+
+
 def _pack(d: np.ndarray, ids: np.ndarray) -> np.ndarray:
     """The kernel's key (csrc/exact_screen.cu pack_key), in numpy."""
     u = d.astype(np.float32).view(np.int32).astype(np.int64)
@@ -155,6 +166,31 @@ def test_screen_dispatch_and_limits():
     with pytest.raises(ValueError):
         es.exact_topk_fused(torch.from_numpy(q), torch.from_numpy(v), sq,
                             valid, k=121)
+
+
+def _view_off_16(n: int, d: int, off: int) -> torch.Tensor:
+    """An [n, d] float32 view whose base pointer is ``off`` bytes past
+    16-byte alignment."""
+    buf = torch.zeros(n * d + 8)
+    skip = (-buf.data_ptr() % 16 + off) // 4
+    return buf[skip:skip + n * d].view(n, d)
+
+
+@pytest.mark.parametrize("d,off,want", [
+    (1, 0, "wgmma_cp"), (7, 0, "wgmma_cp"), (25, 0, "wgmma_cp"),
+    (50, 0, "wgmma_cp"), (65, 0, "wgmma_cp"), (128, 4, "wgmma_cp"),
+    (128, 0, "wgmma")])
+def test_screen_route_takes_the_tensor_cores_for_every_table(d, off, want):
+    """TMA takes D % 4 == 0 at 16-byte aligned pointers; every other f32
+    table (any D, any 4-byte offset) takes the cp.async producer, and
+    both feed the tensor-core kernel: there is no third route."""
+    v = _view_off_16(300, d, off)
+    q = _view_off_16(5, d, 0)
+    assert v.data_ptr() % 16 == off and q.data_ptr() % 16 == 0
+    assert es.screen_route(q, v) == want
+    assert es.screen_route(v[:5], q) == want
+    assert set(es.ROUTES) == set(es.launches_by_route) == {"wgmma",
+                                                           "wgmma_cp"}
 
 
 def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
