@@ -7,10 +7,11 @@ Drives the port's serving path once at a size users of an ANN library
 call real, and fails (non-zero exit, no result line) on any failed check:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compiles the CUDA kernels (csrc/exact_screen.cu: K1's TF32
+2. build: compiles the CUDA kernels from the sources in the checkout,
+   one nvcc each, started together (csrc/exact_screen.cu: K1's TF32
    wgmma screen, fed by TMA, route "wgmma", or by cp.async, route
-   "wgmma_cp") and the native host engine from the sources in the
-   checkout;
+   "wgmma_cp"; csrc/beam_search.cu: K2, one graph layer's beam search a
+   launch), and the native host engine;
 3. kernel vs plain: exact_topk_fused through each K1 route against the
    same wrapper with the plain torch screen in its place, on the card;
    (the exact tier's shapes, and the adaptive engine's: a 131,072-row
@@ -29,7 +30,18 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    sends down the wgmma_cp route;
 5. graph tier: the default Graph (m=16, ef_construction=100, cosine,
    descent entry, bitonic merge, f32 store) built on 100,000 x 128 by the
-   native builder and served on the card at ef 64 and 192;
+   native builder and served on the card at ef 64 and 192, each layer one
+   K2 launch; the same batches through the plain twin
+   (core/search.beam_search_layer_reference; recall within 0.005 of the
+   kernel's), and one traced batch each way (launches, idle share);
+5b. K2 against its twin on that graph: one layer-0 launch beside the twin
+   on the inputs the entry points give it (Graph at ef 64 and 192 on f32
+   rows, bench.py's mode at ef 192 on int8 and on fp16 neighbour blocks,
+   the wave builder's DEFAULT/sort descent at ef 100, and the local-repair
+   refine that batch_delete(refine=True) runs, on a copy of the graph):
+   id overlap, error, hop counts, the kernel's ms beside its bound
+   (utils/roofline.hop_bound_s over the distinct nodes and rows the batch
+   reads, and without reuse across queries) and the twin's ms;
 6. exact capacity ladder at BIGANN-10M's shape (10,000,000 x 128, L2,
    k=10; synthetic rows from a seed): the float32 rung through the kernel,
    checked against a chunked numpy scan, then hbm_dtype int8, bf16 and
@@ -39,12 +51,15 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    rung it resolves to, and the kernel's launches when that is float32;
 8. the graph tier's serving modes on the same 100k graph: bench.py's
    configuration (fast_math, block_layout, entry_mode="pivots") at ef 192
-   and 384, hbm_mode float16 and quantized at ef 192, and compact upper
+   and 384 (and at ef 192 through the plain twin: QPS, recall within
+   0.005), hbm_mode float16 and quantized at ef 192, and compact upper
    layers at ef 64 (ids equal to the dense layout's);
 9. the device wave builder on the first 50,000 of the same vectors (wave
    2048): a build held to the recall of the native build of the same
    50,000 (phase 5's graph, measured when it held only them) and
-   served on the card and the CPU, the int8-block fp16
+   served on the card and the CPU, the same build through the plain twin
+   (nodes/s, recall within 0.005) and one more wave traced each way
+   (launches, device ms, idle share), the int8-block fp16
    descent, batch_delete of every 10th key with refine=True, and a build
    aborted at its deadline, served as its inserted prefix and finished by
    Graph.resume_build; the recall oracle is the exact tier (the kernel)
@@ -54,7 +69,7 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    the wave builder: build time, peak memory, levels, recall@10 against
    the exact tier at ef 64 and 192, and a profile of one mid-build wave
    split into descent, row assembly (diversity selection) and reverse
-   update;
+   update (its padding is taken out of the build time);
 11. IVFIndex on 1,000,000 x 128 cosine rows of a 1,024-centre Gaussian
    mixture, 1,024 partitions: training, assignment, commit and block
    table times, then nprobe 1, 4, 16, 64 and "auto": recall@10 against
@@ -109,14 +124,19 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    0.99), and utils/profiling.device_trace around one bench exact batch
    (CUDA kernel events and the annotated name).
 
-The last two lines are the kernel table (one entry a K1 route, with its
-launches on the main path) and
+Phases 5, 8, 9, 10 and 18 each check that K2 launched while they ran and
+that no layer of a mode K2 covers went to the twin for its size
+(ops/beam_search.twin_layers_on_cuda); phases 5 and 10 drive only covered
+modes and check that no layer went to the twin at all.
+The last two lines are the kernel table (one entry a K1 route and one for
+K2, each with its launches on the main path) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card and no network; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -153,6 +173,14 @@ DEVICE = "cuda"
 KERNEL = {"route": "cuda",
           "source": "hnsw_tpu_torch/csrc/exact_screen.cu",
           "replaces": "hnsw_tpu/ops/pallas_exact.py:175"}
+#: K2, the beam-search kernel: one launch a graph layer searched
+BEAM_KERNEL = {"route": "cuda",
+               "source": "hnsw_tpu_torch/csrc/beam_search.cu",
+               "replaces": "hnsw_tpu/core/search.py:240"}
+#: K2's launches on the main path, by scoring mode, summed over the phases
+#: that drive a graph path (each resets the counts before it and reads
+#: them after)
+BEAM_LAUNCHES = {"rows": 0, "blocks": 0}
 
 
 def check(ok: bool, what: str) -> None:
@@ -192,15 +220,37 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Builds the two CUDA libraries (one nvcc each, started together) and
+    the native host engine."""
+    import threading
+
     from hnsw_tpu_torch import native
-    from hnsw_tpu_torch.ops import exact_screen
+    from hnsw_tpu_torch.ops import beam_search, exact_screen
+    took, errors = {}, []
+
+    def load(name, mod):
+        t = time.perf_counter()
+        try:
+            mod._load()
+        except Exception as e:       # reported by the check below
+            errors.append(f"{name}: {e}")
+        took[name] = time.perf_counter() - t
+
     t0 = time.perf_counter()
-    exact_screen._load()
+    threads = [threading.Thread(target=load, args=a) for a in
+               (("exact_screen.cu", exact_screen),
+                ("beam_search.cu", beam_search))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     t1 = time.perf_counter()
+    check(not errors, f"both CUDA libraries build and load {errors}")
     check(native.available(), "native host engine builds and loads")
     t2 = time.perf_counter()
-    print(f"# build: exact_screen.cu {t1 - t0:.1f} s, native engine "
-          f"{t2 - t1:.1f} s", flush=True)
+    print(f"# build: exact_screen.cu {took['exact_screen.cu']:.1f} s, "
+          f"beam_search.cu {took['beam_search.cu']:.1f} s (together "
+          f"{t1 - t0:.1f} s), native engine {t2 - t1:.1f} s", flush=True)
 
 
 def _overlap(a: np.ndarray, b: np.ndarray) -> float:
@@ -230,6 +280,52 @@ def _launches() -> dict:
     """K1's launches by route since the last _reset_launches()."""
     from hnsw_tpu_torch.ops import exact_screen
     return dict(exact_screen.launches_by_route)
+
+
+def _beam_reset() -> None:
+    from hnsw_tpu_torch.ops import beam_search
+    beam_search.launches = 0
+    beam_search.launches_by_mode.update(rows=0, blocks=0)
+    beam_search.twin_layers_on_cuda.update(mode=0, size=0)
+
+
+def _beam_read(label: str, need=("rows",), covered_only=False) -> dict:
+    """K2's launches by mode since the last _beam_reset(), added to
+    BEAM_LAUNCHES. On the card, a failed check unless every mode in
+    ``need`` launched and no layer of a mode K2 covers went to the twin
+    for its size (ops/beam_search.twin_layers_on_cuda["size"]); with
+    ``covered_only`` (a phase that drives only modes K2 covers), no layer
+    went to the twin at all."""
+    from hnsw_tpu_torch.ops import beam_search
+    by = dict(beam_search.launches_by_mode)
+    twin = dict(beam_search.twin_layers_on_cuda)
+    for m, n in by.items():
+        BEAM_LAUNCHES[m] += n
+    if DEVICE == "cuda":
+        check(all(by[m] > 0 for m in need) and twin["size"] == 0
+              and (twin["mode"] == 0 or not covered_only),
+              f"{label} launched the beam-search kernel: {by}; layers the "
+              f"twin ran on the card {twin} (none for their size"
+              + (", none at all)" if covered_only else
+                 "; by mode, those K2 lacks)"))
+    return by
+
+
+@contextlib.contextmanager
+def _twin():
+    """Inside the block every graph layer runs the plain twin
+    (core/search.beam_search_layer_reference): ops/beam_search's predicate
+    is patched to say no, and the layers it so sends to the twin are left
+    out of twin_layers_on_cuda."""
+    from hnsw_tpu_torch.ops import beam_search
+    real = beam_search.hop_kernel_applies
+    counts = dict(beam_search.twin_layers_on_cuda)
+    beam_search.hop_kernel_applies = lambda *a, **kw: False
+    try:
+        yield
+    finally:
+        beam_search.hop_kernel_applies = real
+        beam_search.twin_layers_on_cuda.update(counts)
 
 
 def _add(a: dict, b: dict) -> dict:
@@ -491,53 +587,41 @@ def _qps(fn, n_queries: int, reps: int = 3) -> float:
     return n_queries / statistics.median(times)
 
 
-def _profile(label: str, fn, need: str = "screen_wgmma_kernel") -> None:
-    """One call of ``fn`` (after a warm-up) under torch.profiler: its wall
-    time, the device time of its kernels, the three largest by name, and
-    the device's idle share of the wall; nothing but a note when the
-    trace holds no event whose name contains ``need`` (K1's by default:
-    a trace that lost events would give a false split)."""
+def _profile(label: str, fn, need: str = "screen_wgmma_kernel"):
+    """One call of ``fn`` (after a warm-up) in a padded device trace
+    (utils/profiling.trace_summary): its wall time, the device time of its
+    kernels and copies, its kernel launches, the three largest by name,
+    and the device's idle share of the wall. Returns that as a dict, or
+    None (with a note) when the trace holds no event whose name contains
+    ``need`` (K1's kernel by default): a trace that lost events would give
+    a false split."""
+    from hnsw_tpu_torch.utils.profiling import trace_summary
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}   # every device activity, K1's ctypes launches included
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us())
-    if not any(need in n for n in by_name):
+    out = trace_summary(fn)
+    if out is None or not any(need in n for n in out["by_name"]):
         print(f"  profile, {label}: the trace holds no {need} event; "
               f"device split not measured", flush=True)
-        return
-    dev_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    print(f"  profile, {label}: wall {wall_us / 1e3:.3f} ms, device "
-          f"{dev_us / 1e3:.3f} ms, idle share "
-          f"{max(0.0, 1 - dev_us / wall_us):.3f}; "
-          + "; ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in top),
+        return None
+    top = sorted(out["by_name"].items(), key=lambda kv: -kv[1])[:3]
+    print(f"  profile, {label}: wall {out['wall_ms']:.3f} ms, device "
+          f"{out['device_ms']:.3f} ms, {out['launches']} kernel launches, "
+          f"idle share {out['idle_share']:.3f}; "
+          + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top),
           flush=True)
+    return out
 
 
 def _device_work(fn) -> tuple:
-    """(device events, their summed ms) of one call of ``fn`` under
-    torch.profiler; (None, 0.0) off CUDA."""
+    """(kernel launches, device ms) of one call of ``fn`` in a padded
+    device trace (utils/profiling.trace_summary; (0, 0.0) when it held no
+    kernel); (None, 0.0) off CUDA."""
+    from hnsw_tpu_torch.utils.profiling import trace_summary
     if DEVICE != "cuda":
         fn()
         return None, 0.0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    out = trace_summary(fn)
+    return (0, 0.0) if out is None else (out["launches"], out["device_ms"])
 
 
 def phase_exact_tier() -> dict:
@@ -668,6 +752,7 @@ def phase_graph_tier() -> dict:
         device="cpu")
     cpu.native_serve_max_batch = 0
     recall, qps_by_ef = {}, {}
+    _beam_reset()
     for ef in (64, 192):
         _, ids = g.batch_search_slots(queries, 10, ef=ef)
         hops = list(g.last_search_hops)
@@ -688,11 +773,202 @@ def phase_graph_tier() -> dict:
               f"exact tier, hops per layer (top..0) {hops}", flush=True)
         if ef == 64:
             dense_ids = ids
+    _beam_read("phase 5 (the graph tier)", covered_only=True)
+    # the same graph and batch through the plain twin, and one traced
+    # batch each way: K2's launches and the device's idle share
+    twin = {}
+    for ef in (64, 192):
+        with _twin():
+            _, ids_t = g.batch_search_slots(queries, 10, ef=ef)
+            hops_t = list(g.last_search_hops)
+            qps_t = _qps(lambda: g.batch_search_slots(queries, 10, ef=ef),
+                         1024)
+        rec_t = _recall(ids_t, gt, 10)
+        twin[ef] = {"recall": rec_t, "qps": qps_t}
+        check(abs(recall[ef] - rec_t) <= 0.005,
+              f"ef={ef}: recall@10 through the kernel {recall[ef]:.4f} "
+              f"within 0.005 of the twin's {rec_t:.4f} on the same graph")
+        print(f"  graph tier ef={ef}, the plain twin "
+              f"(beam_search_layer_reference): {qps_t:.1f} QPS, recall@10 "
+              f"{rec_t:.4f}, hops per layer {hops_t}", flush=True)
+    if DEVICE == "cuda":
+        for ef in (64, 192):
+            _profile(f"one 1024-query graph batch at ef={ef}, kernel",
+                     lambda: g.batch_search_slots(queries, 10, ef=ef),
+                     need="beam_search_kernel")
+            with _twin():
+                _profile(f"one 1024-query graph batch at ef={ef}, twin",
+                         lambda: g.batch_search_slots(queries, 10, ef=ef),
+                         need="")
     del oracle
     torch.cuda.empty_cache()
     return {"g": g, "cpu": cpu, "base": base, "queries": queries, "gt": gt,
             "dense_ids_ef64": dense_ids, "prefix_recall": prefix_recall,
-            "recall": recall, "qps": qps_by_ef}
+            "recall": recall, "qps": qps_by_ef, "twin": twin}
+
+
+def _layer0_call(run, module) -> dict:
+    """The arguments of the first layer-0 beam_search_layer call that
+    ``run()`` makes through ``module`` (core/search for Graph,
+    core/build_device for the builder's descent and refine)."""
+    seen = {}
+    real = module.beam_search_layer
+
+    def spy(g, layer, *args, **kw):
+        if layer == 0 and not seen:
+            seen.update(g=g, args=args, kw=kw)
+        return real(g, layer, *args, **kw)
+
+    module.beam_search_layer = spy
+    try:
+        run()
+    finally:
+        module.beam_search_layer = real
+    return seen
+
+
+def _beam_case(label: str, c: dict) -> dict:
+    """One captured layer-0 call (_layer0_call) through K2
+    (ops/beam_search.beam_search_cuda) and through its twin
+    (core/search.beam_search_layer_reference) on the same inputs: a failed
+    check unless the ids overlap >= 0.99 and the distances of shared ids
+    agree within 1e-5 (f32 products) or 1e-3 (bf16-rounded operands, int8
+    blocks). Times both (median of 5 CUDA-event reps) and puts the kernel
+    beside two bounds (utils/roofline.hop_bound_s): the distinct nodes and
+    rows the batch reads (from the twin's ``touched`` ids), and the same
+    work without reuse across queries (the kernel's own counts of nodes
+    expanded and rows scored)."""
+    from hnsw_tpu_torch.core import search
+    from hnsw_tpu_torch.ops import beam_search
+    from hnsw_tpu_torch.utils import roofline
+    cg, args = c["g"], c["args"]
+    # the builder leaves beam_search_layer's defaults in place
+    kw = dict(dict(expand=1, merge="sort", store_normalized=False),
+              **{k: v for k, v in c["kw"].items() if k != "stats"})
+    E = max(1, min(kw["expand"], kw["pool_size"]))
+    mode = beam_search.layer_mode(cg, 0, kw["metric"], kw["pool_size"], E,
+                                  kw["merge"])
+    check(mode is not None, f"{label}: the kernel takes layer 0 ({mode})")
+
+    def kern():
+        return beam_search.beam_search_cuda(cg, 0, *args, **kw)
+
+    def twin():
+        return search.beam_search_layer_reference(cg, 0, *args, **kw)
+
+    kd, ki, khops, work = kern()
+    ts, touched = {}, {}
+    td, ti = search.beam_search_layer_reference(cg, 0, *args, stats=ts,
+                                                touched=touched, **kw)
+    kd, ki, td, ti = (t.cpu().numpy() for t in (kd, ki, td, ti))
+    ov = _overlap(ki, ti)
+    err = _matched_err(kd, ki, td, ti)
+    exact = (mode == "rows" and kw["precision"] != "default") or (
+        mode == "blocks" and cg.nbr_blocks.dtype == torch.float16)
+    tol = 1e-5 if exact else 1e-3
+    start_ids = args[2]
+    S = start_ids.shape[1] if start_ids.ndim == 2 else 1
+    check(np.isfinite(kd).all() and ov >= 0.99 and err <= tol,
+          f"{label} ({mode}, {kw['merge']}, P={kw['pool_size']}, E={E}, "
+          f"S={S}, {kw['precision']}): id overlap {ov:.5f} >= 0.99, "
+          f"matched dists within {tol:g} ({err:.2e})")
+    ms, twin_ms = cuda_ms(kern), cuda_ms(twin)
+    w = work.sum(0).tolist()
+    nodes = torch.cat(touched.get("nodes", [torch.empty(0)]))
+    rows = torch.cat(touched.get("rows", [torch.empty(0)]))
+    n_nodes, n_rows = (int(torch.unique(t).numel()) for t in (nodes, rows))
+    D = cg.dim
+    if mode == "rows":
+        row_bytes = 4 * D + 4              # the row and its norm
+        kind = "bf16" if kw["precision"] == "default" else "fp32"
+        M = cg.layer_width(0)
+    else:
+        row_bytes = D * cg.nbr_blocks.element_size()
+        kind = "int8" if cg.nbr_blocks.dtype == torch.int8 else "fp32"
+        M = min(cg.layer_width(0), cg.nbr_blocks.shape[1])
+    B, P = len(args[0]), kw["pool_size"]
+    bound_s, by = roofline.hop_bound_s(B, D, P, S, M, n_nodes, n_rows, w[1],
+                                       row_bytes, kind)
+    flat_s, _ = roofline.hop_bound_s(B, D, P, S, M, w[0], w[1], w[1],
+                                     row_bytes, kind)
+    bound, flat = bound_s * 1e3, flat_s * 1e3
+    print(f"  {label}: overlap {ov:.5f}, max |d| err {err:.2e}; hops "
+          f"kernel {int(khops.max())} (mean {khops.float().mean():.1f}) "
+          f"twin {ts['hops'][0]}; kernel counts {w[0]} nodes expanded, "
+          f"{w[1]} rows scored (twin {nodes.numel()}, {rows.numel()}), of "
+          f"them distinct {n_nodes} nodes, {n_rows} rows; kernel {ms:.3f} "
+          f"ms, bound {bound:.4f} ms ({by}), {bound / ms:.4f} of the bound "
+          f"(without reuse across queries {flat:.4f} ms, {flat / ms:.4f}); "
+          f"twin {twin_ms:.3f} ms", flush=True)
+    return {"ms": ms, "plain_ms": twin_ms, "bound_ms": bound,
+            "bound_by": by, "no_reuse_bound_ms": flat, "max_abs_err": err,
+            "hops": int(khops.max()), "twin_hops": ts["hops"][0],
+            "expanded": w[0], "scored": w[1], "distinct_nodes": n_nodes,
+            "distinct_rows": n_rows}
+
+
+def phase_beam_kernel(st: dict, smi: str) -> dict:
+    """K2 against its twin on the card at the graph tier's shape (phase
+    5's 100,000 x 128 cosine graph, its 1,024 queries): one layer-0
+    launch of ops/beam_search.beam_search_cuda beside
+    core/search.beam_search_layer_reference on the same inputs (_beam_case),
+    captured from the entry points: Graph at ef 64 and 192 (f32 rows),
+    bench.py's mode at ef 192 with int8 and with fp16 neighbour blocks, the
+    wave builder's construction descent (DEFAULT precision, sort merge, ef
+    100) with 1,024 stored rows as its queries, and the local-repair
+    refine's first wave as batch_delete(refine=True) runs it on a copy of
+    the graph (DEFAULT, sort, S = M0 + 1 seeds with the node itself at INF,
+    E = 4). Returns the kernels-line entry (the rows case at ef 64 is the
+    headline)."""
+    from hnsw_tpu_torch.convert import graph_from_host_arrays
+    from hnsw_tpu_torch.core import build, build_device, search
+    g, queries, base = st["g"], st["queries"], st["base"]
+    print(f"# K2 beam search vs its twin, one layer-0 launch, {N_GRAPH} x "
+          f"{DIM} cosine (median of 5 CUDA-event reps; {smi})", flush=True)
+
+    def graph_case(ef, **modes):
+        for name, value in modes.items():
+            setattr(g, name, value)
+        return _layer0_call(lambda: g.batch_search_slots(queries, 10, ef=ef),
+                            search)
+
+    cases = [("rows ef=64", graph_case(64)),
+             ("rows ef=192", graph_case(192))]
+    for dt in ("int8", "float16"):
+        cases.append((f"{dt} blocks ef=192 (bench mode)",
+                      graph_case(192, fast_math=True, block_layout=True,
+                                 block_dtype=dt, entry_mode="pivots")))
+    graph_case(64, fast_math=False, block_layout=False, block_dtype="auto",
+               entry_mode="descent")
+    dg = g.device_graph()
+    wq = torch.from_numpy(base[:1024]).to(dg.vectors.device)
+    cases.append(("builder descent DEFAULT/sort ef=100",
+                  _layer0_call(lambda: build.construction_descent(
+                      dg, wq, ef=100, m_out=32, metric="cosine",
+                      max_hops=128), build)))
+    n_used = g.slots.capacity_used
+    gc = graph_from_host_arrays(
+        g.cfg, g.slots.slot_to_key, g.store.vectors[:n_used],
+        g.store.alive[:n_used], *g.host.arrays(), device=DEVICE)
+    gc.native_serve_max_batch = 0
+    refine = _layer0_call(lambda: gc.batch_delete(
+        list(range(0, N_GRAPH, 100)), refine=True), build_device)
+    check(bool(refine), "batch_delete(refine=True) made a layer-0 call")
+    cases.append((f"refine (batch_delete) DEFAULT/sort "
+                  f"ef={refine['kw']['pool_size']}, "
+                  f"{len(refine['args'][0])} nodes", refine))
+    out = {label: _beam_case(label, c) for label, c in cases}
+    del gc, refine, cases
+    torch.cuda.empty_cache()
+    head = out["rows ef=64"]
+    return dict(BEAM_KERNEL, name="beam_search",
+                max_abs_err=max(v["max_abs_err"] for v in out.values()),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                no_reuse_bound_ms=head["no_reuse_bound_ms"], library_ms=None,
+                cases={k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms",
+                                                "no_reuse_bound_ms")}
+                       for k, v in out.items()})
 
 
 def _np_scan_topk(queries, rows, sq, k: int, metric: str,
@@ -928,8 +1204,19 @@ def phase_graph_modes(st: dict) -> None:
         x.entry_mode = "pivots"
 
     print("# graph tier serving modes (the 100k graph above)", flush=True)
-    for ef in (192, 384):
-        serve("fast_math + block_layout + pivots", ef, bench_config)
+    _beam_reset()
+    bench_ids = {ef: serve("fast_math + block_layout + pivots", ef,
+                           bench_config) for ef in (192, 384)}
+    # bench.py's graph row through the plain twin, on the same batch
+    with _twin():
+        _, ids_t = g.batch_search_slots(queries, 10, ef=192)
+        qps_t = _qps(lambda: g.batch_search_slots(queries, 10, ef=192), 1024)
+    rec_k, rec_t = _recall(bench_ids[192], gt, 10), _recall(ids_t, gt, 10)
+    check(abs(rec_k - rec_t) <= 0.005,
+          f"bench mode ef=192: recall@10 through the kernel {rec_k:.4f} "
+          f"within 0.005 of the twin's {rec_t:.4f}")
+    print(f"  fast_math + block_layout + pivots ef=192, the plain twin "
+          f"(beam_search_layer_reference): {qps_t:.1f} QPS", flush=True)
     dev = g.device_graph()
     blocks = dev.nbr_blocks
     check(blocks is not None and blocks.device.type == DEVICE,
@@ -965,6 +1252,8 @@ def phase_graph_modes(st: dict) -> None:
           "compact upper layers on the card")
     check(np.array_equal(ids, st["dense_ids_ef64"]),
           "compact uppers: ids equal the dense layout's at ef=64")
+    _beam_read("phase 8 (bench.py's blocks, compact uppers)",
+               need=("rows", "blocks"))
 
 
 class _NativeInserts:
@@ -1083,6 +1372,7 @@ def phase_device_builds(st: dict) -> int:
           f" wave={WAVE}", flush=True)
     host_rec = st["prefix_recall"]
 
+    _beam_reset()
     with _NativeInserts() as nat:
         gd, t_build = _device_build(keys, base, "cosine", method="device")
     check(nat.calls == 0 and _all_inserted(gd, n),
@@ -1109,6 +1399,21 @@ def phase_device_builds(st: dict) -> int:
           f"layer-0 in-edge, recall@10 {rec[64]:.4f} / "
           f"{rec[192]:.4f} at ef 64 / 192 (native build of the same rows "
           f"{host_rec[64]:.4f} / {host_rec[192]:.4f})", flush=True)
+
+    # the same build through the plain twin: nodes/s and recall beside the
+    # kernel's, and one more wave of WAVE rows traced (the kernel's is
+    # traced on the resumed build below)
+    with _twin():
+        gt_, t_twin = _device_build(keys, base, "cosine", method="device")
+        rec_t = _graph_recalls(gt_, queries, gt, "twin device build")
+        wave_t = _wave_trace(gt_, st["base"], n, "the twin's build")
+    del gt_
+    check(all(abs(rec[ef] - rec_t[ef]) <= 0.005 for ef in rec),
+          f"device build: recall@10 through the kernel {rec} within 0.005 "
+          f"of the twin's build {rec_t}")
+    print(f"  the same build through the twin: {t_twin:.1f} s "
+          f"({n / t_twin:.1f} nodes/s; the kernel's {n / t_build:.1f}, "
+          f"{t_twin / t_build:.2f}x)", flush=True)
 
     gq, t_q = _device_build(keys, base, "cosine", method="device",
                             quant_descent=True, descent_dtype="float16")
@@ -1190,13 +1495,39 @@ def phase_device_builds(st: dict) -> int:
     print(f"  deadline abort after {len(inserted)} nodes, resume_build "
           f"{t_res:.1f} s, recall@10 {rec_r[64]:.4f} / {rec_r[192]:.4f}",
           flush=True)
+    wave_k = _wave_trace(gr, st["base"], n, "the resumed build")
+    if wave_k and wave_t:
+        print(f"  one more wave, kernel / twin: {wave_k['launches']} / "
+              f"{wave_t['launches']} launches, device "
+              f"{wave_k['device_ms']:.3f} / {wave_t['device_ms']:.3f} ms, "
+              f"idle share {wave_k['idle_share']:.3f} / "
+              f"{wave_t['idle_share']:.3f}", flush=True)
     del gr
     torch.cuda.empty_cache()
+    _beam_read("phase 9 (wave builds, refine, serving)",
+               need=("rows", "blocks"))
     launches = _launches()
     check(launches["wgmma"] >= 2 and launches["wgmma_cp"] == 0,
           f"the exact-tier oracle launched the wgmma kernel "
           f"{launches['wgmma']} times")
     return launches
+
+
+def _wave_trace(g, rows: np.ndarray, n: int, label: str):
+    """One more wave of the device builder on ``g`` (keys and rows n to
+    n + WAVE of ``rows``) in a padded device trace
+    (utils/profiling.trace_summary); prints and returns its split, or None
+    when the trace lost its kernel events."""
+    from hnsw_tpu_torch.utils.profiling import trace_summary
+    out = trace_summary(lambda: g.build(
+        list(range(n, n + WAVE)), rows[n:n + WAVE], method="device",
+        wave=WAVE))
+    print(f"  one more wave of {WAVE} rows on {label}: " + (
+        "the trace lost its kernel events" if out is None else
+        f"wall {out['wall_ms']:.1f} ms, device {out['device_ms']:.3f} ms, "
+        f"{out['launches']} launches, idle share {out['idle_share']:.3f}"),
+        flush=True)
+    return out
 
 
 class _WaveProbe:
@@ -1215,6 +1546,8 @@ class _WaveProbe:
         self.mod, self.profile_wave = build_device, profile_wave
         self.orig = {k: getattr(build_device, k) for k in self.LABELS}
         self.waves, self.prof, self.summary = 0, None, None
+        #: seconds the padding slept (inside the build's wall time)
+        self.paused_s = 0.0
 
     def __enter__(self):
         for name, label in self.LABELS.items():
@@ -1244,16 +1577,24 @@ class _WaveProbe:
             self._stop()
         self.waves += 1
         if self.waves == self.profile_wave:
+            from hnsw_tpu_torch.utils.profiling import PAD_S
             torch.cuda.synchronize()
             acts = [torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.start()
+            # padded as utils/profiling.device_trace pads its window: a
+            # short session loses its kernel records
+            time.sleep(PAD_S)
+            self.paused_s += PAD_S
             self.t0 = time.perf_counter()
 
     def _stop(self):
+        from hnsw_tpu_torch.utils.profiling import PAD_S
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - self.t0) * 1e6
+        time.sleep(PAD_S)
+        self.paused_s += PAD_S
         self.prof.stop()
         events = [e for e in self.prof.events()
                   if e.device_type == torch.autograd.DeviceType.CPU]
@@ -1294,14 +1635,18 @@ def phase_sift_shape_build() -> int:
           f'"auto" routes {N_AUTO_DEVICE} rows to the wave builder and '
           f"{N_SIFT} to the native one")
     torch.cuda.reset_peak_memory_stats()
+    _beam_reset()
     with _NativeInserts() as nat, _WaveProbe(PROFILE_WAVE) as probe:
         g, t_build = _device_build(keys, base, "l2", method="device")
+    # the probe's padding sleeps inside the build: not build time
+    t_build -= probe.paused_s
     check(nat.calls == 0, "the native builder saw 0 calls")
     check(_all_inserted(g, N_SIFT), "every key inserted")
     peak = torch.cuda.max_memory_allocated() / 1e9
     hist = np.bincount(g.host.levels[:N_SIFT]).tolist()
-    print(f"  build {t_build:.1f} s, {N_SIFT / t_build:.1f} nodes/s, "
-          f"{probe.waves} waves, peak device memory {peak:.2f} GB, nodes "
+    print(f"  build {t_build:.1f} s (less the profiled wave's "
+          f"{probe.paused_s:.1f} s of padding), {N_SIFT / t_build:.1f} "
+          f"nodes/s, {probe.waves} waves, peak device memory {peak:.2f} GB, nodes "
           f"per level {hist}", flush=True)
     # No self-retrieval bound here: on isotropic Gaussian L2 rows no
     # builder of either package reaches one (distance concentration, and
@@ -1331,6 +1676,8 @@ def phase_sift_shape_build() -> int:
         print(f"  ef={ef}: recall@10 {_recall(ids, gt, 10):.4f} vs the exact "
               f"tier, hops per layer (top..0) {g.last_search_hops}",
               flush=True)
+    _beam_read("phase 10 (the 262,144-row wave build and its serving)",
+               covered_only=True)
     s = probe.summary
     check(s is not None and s["launches"] > 0,
           f"wave {PROFILE_WAVE} profiled")
@@ -1815,7 +2162,7 @@ def phase_hybrid_bench() -> None:
     where = ("device work not traced off CUDA" if n_ev is None else
              "no device work: these latencies are the host latency "
              "tiers', not the card's" if n_ev == 0 else
-             f"{n_ev} device kernels and copies, {dev_ms:.3f} ms")
+             f"{n_ev} kernel launches, {dev_ms:.3f} ms of device work")
     print(f"  64 more single queries under torch.profiler: arm calls "
           f"{arms}; {where}", flush=True)
     eng.close()
@@ -2532,8 +2879,10 @@ def phase_drivers(sweep_small: bool = False, **bench_sizes) -> dict:
     print(f"# tools/bench: {N_BENCH} x {DIM} cosine {bench_sizes}",
           flush=True)
     t0 = time.perf_counter()
+    _beam_reset()
     rec = bench.main([] if cuda else ["--device", "cpu"], n=N_BENCH,
                      **bench_sizes)
+    _beam_read("phase 18, tools/bench (its graph rows)", need=("blocks",))
     check(rec["recall"] == 1.0 and rec["exact_fast_recall"] >= 0.999,
           f"bench ({time.perf_counter() - t0:.1f} s): exact recall@10 "
           f"{rec['recall']} == 1.0, fast_math {rec['exact_fast_recall']} "
@@ -2627,6 +2976,7 @@ def main() -> int:
     launches = phase_exact_tier()
     launches = _add(launches, phase_exact_tier_glove50())
     graph = phase_graph_tier()
+    beam = phase_beam_kernel(graph, smi)
     by, kept = phase_capacity_ladder()
     launches = _add(launches, by)
     launches = _add(launches, phase_auto_ladder())
@@ -2655,13 +3005,17 @@ def main() -> int:
     launches = _add(launches, phase_drivers())
     print(f"# smoke: phase 18 took {time.perf_counter() - t_new:.1f} s",
           flush=True)
-    check(all(launches[r] > 0 for r in timing),
-          f"the main path launched every K1 route: {launches}")
+    check(all(launches[r] > 0 for r in timing)
+          and all(n > 0 for n in BEAM_LAUNCHES.values()),
+          f"the main path launched every K1 route: {launches}, and K2 in "
+          f"both modes: {BEAM_LAUNCHES}")
     print(f"# smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included", flush=True)
     print(smi)
     print(json.dumps({"kernels": [dict(timing[r], launches=launches[r])
-                                  for r in ("wgmma", "wgmma_cp")]}))
+                                  for r in ("wgmma", "wgmma_cp")] + [
+        dict(beam, launches=sum(BEAM_LAUNCHES.values()),
+             launches_by_mode=dict(BEAM_LAUNCHES))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

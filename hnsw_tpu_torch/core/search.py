@@ -15,11 +15,16 @@ fixed-width pool of size P = max(ef, k) with per-entry "expanded" flags.
 A query goes inactive when its best unexpanded candidate is no better
 than its worst pool entry (reference graph.go:164-166).
 
-The JAX ``lax.while_loop`` is a host loop here: it reads ``take.any()``
-once per hop and counts the hops (``stats["hops"]``, one entry per
-layer searched, top layer first). Multi-operand ``lax.sort`` is a stable
-``torch.sort`` plus ``gather``. This is plain PyTorch; the fused hop is
-ROADMAP Queue 2 K2.
+On CUDA a layer is one launch of the hand-written kernel K2
+(``ops/beam_search``, ``csrc/beam_search.cu``): one block a query, the
+pool in shared memory, every hop inside the kernel, no host sync until
+the layer is done. ``ops/beam_search.hop_kernel_applies`` decides which
+calls take it. Every other call (CPU tensors, registered metrics, the
+fp16 / bf16 stores and the int8 capacity mode) runs the plain twin,
+``beam_search_layer_reference``: there the JAX ``lax.while_loop`` is a
+host loop that reads ``take.any()`` once per hop. Both count the hops
+(``stats["hops"]``, one entry per layer searched, top layer first).
+Multi-operand ``lax.sort`` is a stable ``torch.sort`` plus ``gather``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from hnsw_tpu_torch.config import canonical_metric
 from hnsw_tpu_torch.core.state import DeviceGraph
+from hnsw_tpu_torch.ops import beam_search as _kernel
 from hnsw_tpu_torch.ops.distance import (DEFAULT, HIGHEST, INF_DIST,
                                          bf16_round, gathered_dist,
                                          gathered_epilogue, pairwise_dist,
@@ -166,7 +172,44 @@ def beam_search_layer(g: DeviceGraph, layer: int, queries: torch.Tensor,
                       merge: str = "sort", store_normalized: bool = False,
                       stats: Optional[dict] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Beam search one layer for a batch of queries.
+    """Beam search one layer for a batch of queries: one launch of the
+    CUDA kernel where ``ops/beam_search.hop_kernel_applies``, else
+    ``beam_search_layer_reference`` (same arguments, same results; see
+    there). With the kernel, ``stats["hops"]`` gets the largest hop count
+    of any query, which is the twin's lockstep count: a query that stops
+    keeps its pool from then on. A layer on CUDA tensors that the twin
+    runs is counted in ``ops/beam_search.twin_layers_on_cuda``."""
+    E = max(1, min(expand, pool_size))
+    if not _kernel.hop_kernel_applies(g, layer, metric, queries, pool_size,
+                                      E, merge):
+        if queries.is_cuda:
+            _kernel.count_twin_layer(g, layer, metric, pool_size, E, merge)
+        return beam_search_layer_reference(
+            g, layer, queries, q_sq, start_ids, start_d, pool_size,
+            max_hops, metric, precision, expand=expand, merge=merge,
+            store_normalized=store_normalized, stats=stats)
+    pd, pi, hops, _ = _kernel.beam_search_cuda(
+        g, layer, queries, q_sq, start_ids, start_d, pool_size=pool_size,
+        max_hops=max_hops, metric=metric, precision=precision, expand=E,
+        merge=merge, store_normalized=store_normalized)
+    if stats is not None:
+        stats.setdefault("hops", []).append(
+            int(hops.max()) if hops.numel() else 0)
+    return pd, pi
+
+
+def beam_search_layer_reference(g: DeviceGraph, layer: int,
+                                queries: torch.Tensor, q_sq: torch.Tensor,
+                                start_ids: torch.Tensor,
+                                start_d: torch.Tensor, pool_size: int,
+                                max_hops: int, metric: str, precision: str,
+                                expand: int = 1, merge: str = "sort",
+                                store_normalized: bool = False,
+                                stats: Optional[dict] = None,
+                                touched: Optional[dict] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search one layer for a batch of queries, in plain PyTorch (the
+    twin of the CUDA kernel, and the version every call runs off it).
 
     ``expand`` > 1 opens the top-E unexpanded pool entries per hop.
     ``stats`` (a dict), when given, gets this layer's hop count appended
@@ -174,6 +217,10 @@ def beam_search_layer(g: DeviceGraph, layer: int, queries: torch.Tensor,
     one neighbor block per expanded node (_score_blocks); blocks
     narrower than M0 (block_m) expand only their first block_m edges.
     ``store_normalized`` says the cosine store holds unit rows.
+    ``touched`` (a dict), when given, gets the ids of the nodes each hop
+    expands in ``touched["nodes"]`` and the rows it scores in
+    ``touched["rows"]`` (vector slots, or ``node * block_m + j`` for the
+    block rows), as tensors: what a roofline bound reads once.
 
     Returns (pool_dists [B, P], pool_ids [B, P] int32) sorted ascending;
     empty slots are (INF_DIST, -1).
@@ -245,6 +292,13 @@ def beam_search_layer(g: DeviceGraph, layer: int, queries: torch.Tensor,
             d = _score_hop(g, queries, q_sq, nb_safe, metric, precision)
         d = torch.where(nb_ok, d, _INF)
         new_i = torch.where(nb_ok, nbrs, -1)
+        if touched is not None:
+            touched.setdefault("nodes", []).append(cur[take])
+            rows = (cur_safe.repeat_interleave(M, dim=1)
+                    * g.nbr_blocks.shape[1]
+                    + torch.arange(M, device=dev).repeat(E)
+                    if use_blocks else nbrs)
+            touched.setdefault("rows", []).append(rows[nb_ok])
 
         # the expanded flag rides in bit 30 of the id operand
         ei = torch.where(expanded & (pool_i >= 0), pool_i | _EXP_BIT,

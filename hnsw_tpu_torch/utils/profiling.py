@@ -9,10 +9,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import glob
 import json
 import os
+import tempfile
 import time
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -58,11 +60,54 @@ def device_trace(log_dir: str) -> Iterator[None]:
                            f"event; the profiler recorded no device work")
 
 
-def kernel_events(path: str) -> int:
-    """The CUDA kernel events in a Chrome trace ``device_trace`` wrote."""
+#: the Chrome trace categories of device work: kernels, copies, sets
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_events(path: str) -> list:
+    """The device work in a Chrome trace ``device_trace`` wrote, as
+    (category, name, microseconds) in trace order."""
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
-    return sum(e.get("cat") == "kernel" for e in events)
+    return [(e["cat"], e.get("name", ""), float(e.get("dur", 0)))
+            for e in events if e.get("cat") in DEVICE_CATEGORIES]
+
+
+def kernel_events(path: str) -> int:
+    """The CUDA kernel events in a Chrome trace ``device_trace`` wrote."""
+    return sum(cat == "kernel" for cat, _, _ in device_events(path))
+
+
+def trace_summary(fn) -> Optional[dict]:
+    """One call of ``fn`` inside ``device_trace`` (a temporary directory):
+    its wall ms on the host clock (to the card's sync), the device ms of
+    its kernels, copies and sets, its kernel launches, the device's idle
+    share of the wall, and the device ms by event name (``by_name``).
+    None when the card recorded no kernel event (``device_trace`` raised):
+    a trace that lost its events would give a false split."""
+    cuda = torch.cuda.is_available()
+    with tempfile.TemporaryDirectory() as td:
+        try:
+            with device_trace(td):
+                t0 = time.perf_counter()
+                fn()
+                if cuda:
+                    torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        except RuntimeError as e:
+            if "no CUDA kernel event" not in str(e):
+                raise
+            return None
+        events = [e for path in sorted(glob.glob(os.path.join(td, "*.json")))
+                  for e in device_events(path)]
+    by_name: Dict[str, float] = {}
+    for _, name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3
+    device_ms = sum(by_name.values())
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "launches": sum(cat == "kernel" for cat, _, _ in events),
+            "idle_share": max(0.0, 1.0 - device_ms / wall_ms) if wall_ms
+            else 0.0, "by_name": by_name}
 
 
 class Timer:

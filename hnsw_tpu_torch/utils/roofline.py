@@ -37,10 +37,11 @@ import hnsw_tpu_torch.ops.distance  # noqa: F401
 H100_SXM = "NVIDIA H100 80GB HBM3"
 
 #: dense peaks by card name (NVIDIA's data sheet, no sparsity, at the
-#: full power limit): FLOP/s for bf16 and TF32 tensor-core products, and
-#: HBM bytes/s
-PEAKS = {H100_SXM: {"bf16": 989.4e12, "tf32": 494.7e12,
-                    "hbm_bytes_s": 3.35e12}}
+#: full power limit): FLOP/s for bf16 and TF32 tensor-core products, int8
+#: tensor-core OP/s, float32 FLOP/s outside the tensor cores, and HBM
+#: bytes/s
+PEAKS = {H100_SXM: {"bf16": 989.4e12, "tf32": 494.7e12, "int8": 1979e12,
+                    "fp32": 66.9e12, "hbm_bytes_s": 3.35e12}}
 
 #: an exact screen's cheapest product on the card, by fast_math: (passes,
 #: peak key, name). An f32-accurate product takes at least three TF32
@@ -86,6 +87,32 @@ def screen_bound_s(nq: int, n: int, d: int, k_sel: int, fast_math: bool
     if t_ops >= t_bytes:
         return t_ops, "operations", peaks[kind]
     return t_bytes, "bytes", peaks[kind]
+
+
+def hop_bound_s(n_queries: int, d: int, pool: int, starts: int, width: int,
+                nodes: int, rows: int, scored: int, row_bytes: int,
+                kind: str) -> Tuple[float, str]:
+    """(seconds, "bytes" | "operations"): the least time on the H100 SXM of
+    one layer of graph beam search (the K2 kernel, ops/beam_search) for
+    ``n_queries`` queries that read the ``width`` neighbour ids of
+    ``nodes`` distinct nodes, ``row_bytes`` of each of ``rows`` distinct
+    rows, and scored ``scored`` candidates in all. It is the larger of the
+    bytes it must move over the HBM rate (each query row, its squared norm
+    and its ``starts`` start ids and distances read once, each distinct
+    node's ids and each distinct row once, the [n_queries, pool] distances
+    and ids written once) and 2 d operations a scored candidate over the
+    peak for ``kind``, the operands' type ("fp32", "bf16" or "int8").
+    With ``nodes`` and ``rows`` the totals over the queries (a row read
+    again for every query that scores it) it is the bound without reuse
+    across queries."""
+    peaks = PEAKS[H100_SXM]
+    moved = (n_queries * (4 * d + 4 + 8 * starts + 8 * pool + 12)
+             + 4 * width * nodes + row_bytes * rows)
+    t_bytes = moved / peaks["hbm_bytes_s"]
+    t_ops = 2.0 * d * scored / peaks[kind]
+    if t_ops >= t_bytes:
+        return t_ops, "operations"
+    return t_bytes, "bytes"
 
 
 def matmul_floor_dt(queries: torch.Tensor, vectors: torch.Tensor, *,

@@ -1,0 +1,554 @@
+"""The graph tier's beam-search kernel (K2) and its plain twin.
+
+``core/search.beam_search_layer`` runs one layer through the CUDA kernel
+(``ops/beam_search``, one block a query) where
+``ops/beam_search.hop_kernel_applies``, else through
+``beam_search_layer_reference``, the twin. The graphs are
+tests/test_torch_search.py's: 2,500 natively built nodes with every 50th
+deleted, cosine and l2, m = 8, D = 32.
+
+On the CPU:
+  (a) the kernel's premise: the twin run on each query alone gives the
+      pool it gives on the whole batch, and the batch's hop count is the
+      largest single-query count (a query that stops keeps its pool);
+  (b) the twin against ``hnsw_tpu.core.search.beam_search_layer``;
+  (c) which calls the predicate sends to the kernel, from each layout's
+      tensors, and that a CPU graph never loads the library.
+Marked ``cuda`` (skipped without an NVIDIA GPU; decided in the fixture):
+  (d) the kernel against the twin on the same layer inputs, in every mode
+      it covers. Ids overlap >= 0.99; distances of shared ids within 1e-5
+      for f32 rows and fp16 blocks (f32 sums in another order) and 1e-3
+      where the operands are bf16-rounded (DEFAULT rows, int8 blocks: a
+      near tie may also steer a hop); hop counts equal. Run on a GPU
+      machine with
+      ``python3 -m pytest --noconftest tests/test_torch_beam_kernel.py -m cuda``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import hnsw_tpu_torch  # noqa: E402
+from hnsw_tpu_torch.core import search as tsearch  # noqa: E402
+from hnsw_tpu_torch.core.state import DeviceGraph, from_host  # noqa: E402
+from hnsw_tpu_torch.ops import beam_search as bs  # noqa: E402
+from hnsw_tpu_torch.ops.distance import (DEFAULT, HIGHEST,  # noqa: E402
+                                         INF_DIST, register_distance)
+
+INF = float(INF_DIST)
+#: the kernel's layouts: from_host keyword arguments
+LAYOUTS = {"dense": {}, "split": dict(split_layers=True, upper_m=8),
+           "compact": dict(split_layers="compact", upper_m=8),
+           "int8-blocks": dict(block_layout=True, block_dtype="int8"),
+           "fp16-blocks": dict(block_layout=True, block_dtype="float16")}
+
+
+def _data(seed, n, d=32):
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((n, d)) / np.sqrt(d)).astype(np.float32)
+
+
+def _host_graph(metric, d=32):
+    g = hnsw_tpu_torch.Graph(m=8, ef_construction=64, metric=metric, seed=3,
+                             device="cpu")
+    v = _data(1, 2500, d)
+    g.build(list(range(len(v))), v, method="host")
+    g.batch_delete(list(range(0, 2500, 50)))      # tombstones
+    n = g.slots.capacity_used
+    nb, levels, entry, _ = g.host.arrays()
+    return (g.store.vectors[:n], g.store.sq_norms[:n], nb[:, :n],
+            levels[:n], g.store.alive[:n], entry)
+
+
+@pytest.fixture(scope="module")
+def hosts():
+    """Host arrays of the seeded graph per metric (l2 also serves
+    sqeuclidean and dot: the kernel's metric is an argument)."""
+    return {m: _host_graph(m) for m in ("cosine", "l2")}
+
+
+def _layout(hosts, metric, layout="dense", device="cpu", **kw):
+    arrays = hosts["cosine" if metric == "cosine" else "l2"]
+    return from_host(*arrays, metric=metric, device=device,
+                     **{**LAYOUTS[layout], **kw})
+
+
+def _starts(g, q, q_sq, metric, precision, seeded, seed=0):
+    """Start entries [B, S]: the graph's entry, or S = 6 seeded slots with
+    a repeated id, a -1 and a valid id at INF (as the builder's refine
+    seeds the node itself)."""
+    B = q.shape[0]
+    if not seeded:
+        ids = g.entry.expand(B).to(torch.int32)[:, None]
+    else:
+        r = np.random.default_rng(seed)
+        ids = torch.from_numpy(
+            r.integers(0, 2400, (B, 6)).astype(np.int32)).to(q.device)
+        ids[:, 1] = ids[:, 0]
+        ids[:, 2] = -1
+    safe = torch.clamp(ids, 0, g.cap - 1)
+    d = tsearch._score_hop(g, q, q_sq, safe, metric, precision)
+    d = torch.where(ids >= 0, d, INF)
+    if seeded:
+        d[:, 3] = INF
+    return ids, d
+
+
+def _queries(device="cpu", n=24, d=32, seed=2):
+    q = torch.from_numpy(_data(seed, n, d)).to(device)
+    return q, torch.sum(q * q, dim=-1)
+
+
+# --------------------------------------------------------------------------
+# (a) the premise: one query alone == the batch, hops = the largest count
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("start,max_hops", [("entry", 64), ("seeded", 64),
+                                            ("entry", 3)])
+@pytest.mark.parametrize("expand", [1, 4])
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+def test_single_query_equals_batch(hosts, merge, expand, start, max_hops):
+    metric = "cosine" if merge == "bitonic" else "l2"
+    precision = HIGHEST if expand == 1 else DEFAULT
+    g = _layout(hosts, metric)
+    q, q_sq = _queries()
+    ids, d = _starts(g, q, q_sq, metric, precision, start == "seeded")
+    kw = dict(pool_size=24, max_hops=max_hops, metric=metric,
+              precision=precision, expand=expand, merge=merge,
+              store_normalized=metric == "cosine")
+    stats = {}
+    bd, bi = tsearch.beam_search_layer_reference(g, 0, q, q_sq, ids, d,
+                                                 stats=stats, **kw)
+    single_hops = []
+    for b in range(q.shape[0]):
+        st = {}
+        sd, si = tsearch.beam_search_layer_reference(
+            g, 0, q[b:b + 1], q_sq[b:b + 1], ids[b:b + 1], d[b:b + 1],
+            stats=st, **kw)
+        np.testing.assert_array_equal(si.numpy()[0], bi.numpy()[b])
+        np.testing.assert_array_equal(sd.numpy()[0], bd.numpy()[b])
+        single_hops.append(st["hops"][0])
+    assert stats["hops"] == [max(single_hops)]
+    assert 0 < max(single_hops) <= max_hops
+    if max_hops == 3:
+        assert max(single_hops) == 3           # the cut binds
+
+
+# --------------------------------------------------------------------------
+# (b) the twin against the JAX package's beam_search_layer
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_graphs():
+    """(jax DeviceGraph, port DeviceGraph) per metric, laid out by the JAX
+    package and carried into the port, as tests/test_torch_search.py."""
+    pytest.importorskip("jax")
+    import hnsw_tpu
+    from hnsw_tpu_torch.convert import device_graph_from_numpy
+    out = {}
+    for metric in ("cosine", "l2"):
+        g = hnsw_tpu.Graph(m=8, ef_construction=64, metric=metric, seed=3)
+        v = _data(1, 2500)
+        g.build(list(range(len(v))), v, method="host")
+        g.batch_delete(list(range(0, 2500, 50)))
+        dev = g.device_graph()
+        fields = {k: np.asarray(x) for k, x in dev._asdict().items()
+                  if x is not None}
+        out[metric] = (dev, device_graph_from_numpy(fields, "cpu"))
+    return out
+
+
+@pytest.mark.parametrize("layer", [0, "top"])
+@pytest.mark.parametrize("expand", [1, 4])
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_twin_matches_jax_layer(jax_graphs, metric, merge, expand, layer):
+    import jax
+    import jax.numpy as jnp
+    from hnsw_tpu.core import search as jsearch
+    jg, tg = jax_graphs[metric]
+    layer = tg.num_layers - 1 if layer == "top" else 0
+    q, q_sq = _queries()
+    ids, d = _starts(tg, q, q_sq, metric, HIGHEST, False)
+    P = 32 if layer == 0 else 8
+    jd, ji = jsearch.beam_search_layer(
+        jg, layer, jnp.asarray(q.numpy()), jnp.asarray(q_sq.numpy()),
+        jnp.asarray(ids.numpy()), jnp.asarray(d.numpy()), P, 64, metric,
+        jax.lax.Precision.HIGHEST, expand=expand, merge=merge)
+    td, ti = tsearch.beam_search_layer_reference(
+        tg, layer, q, q_sq, ids, d, P, 64, metric, HIGHEST, expand=expand,
+        merge=merge)
+    ov, err = _overlap_and_err(np.asarray(jd), np.asarray(ji), td.numpy(),
+                               ti.numpy())
+    assert ov >= 0.99 and err <= 1e-5, (ov, err)
+
+
+def _overlap_and_err(da, ia, db, ib):
+    """Share of ``ib``'s valid ids found in ``ia`` (row by row) and the
+    largest distance gap over the ids both hold."""
+    hits, err = 0, 0.0
+    for rda, ria, rdb, rib in zip(da, ia, db, ib):
+        pos = {int(x): p for p, x in enumerate(ria) if x >= 0}
+        for p, x in enumerate(rib):
+            if x >= 0 and int(x) in pos:
+                hits += 1
+                err = max(err, abs(float(rda[pos[int(x)]]) - float(rdb[p])))
+    return hits / max(1, int((ib >= 0).sum())), err
+
+
+# --------------------------------------------------------------------------
+# (c) the predicate, from each layout's tensors
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout,store,want0,want_up", [
+    ("dense", {}, "rows", "rows"),
+    ("split", {}, "rows", "rows"),
+    ("compact", {}, "rows", "rows"),
+    ("int8-blocks", {}, "blocks", "rows"),
+    ("fp16-blocks", {}, "blocks", "rows"),
+    ("int8-blocks", dict(hbm_vectors=False), "blocks", None),
+    ("dense", dict(quantize=True, hbm_vectors=False), None, None),
+    ("dense", dict(store_dtype="float16"), None, None),
+    ("dense", dict(store_dtype="bfloat16"), None, None),
+    ("fp16-blocks", dict(store_dtype="float16"), "blocks", None)])
+def test_layer_mode_routes_each_layout(hosts, layout, store, want0,
+                                       want_up):
+    g = _layout(hosts, "cosine", layout, **store)
+    assert bs.layer_mode(g, 0, "cosine", 64, 4) == want0
+    for layer in range(1, g.num_layers):
+        assert bs.layer_mode(g, layer, "cosine", 8, 4) == want_up
+    q, _ = _queries()
+    assert not bs.hop_kernel_applies(g, 0, "cosine", q, 64, 4)
+
+
+def test_layer_mode_limits_and_metrics():
+    """P + E*M <= 4,096 within 227 KB: ef 512 at E = 4, M0 = 32 fits, the
+    next pool past the width does not; registered metrics and unknown
+    merges run the twin. The tensors lie on "meta": shapes and types are
+    all the predicate reads, and a meta tensor is not a CUDA tensor."""
+    meta = torch.device("meta")
+    g = DeviceGraph(
+        vectors=torch.empty((4096, 128), device=meta),
+        sq_norms=torch.empty(4096, device=meta),
+        neighbors=torch.empty((1, 4096, 32), dtype=torch.int32, device=meta),
+        levels=torch.empty(4096, dtype=torch.int32, device=meta),
+        alive=torch.empty(4096, dtype=torch.bool, device=meta),
+        entry=torch.empty((), dtype=torch.int32, device=meta))
+    for merge in ("bitonic", "sort"):
+        assert bs.layer_mode(g, 0, "l2", 512, 4, merge) == "rows"
+        assert bs.layer_mode(g, 0, "l2", 4096 - 128, 4, merge) == "rows"
+        assert bs.layer_mode(g, 0, "l2", 4096 - 127, 4, merge) is None
+    assert bs.smem_bytes(128, 512, 4, 32, "bitonic") == 15_920
+    assert bs.smem_bytes(128, 4096 - 128, 4, 32, "bitonic") <= bs.SMEM_LIMIT
+    for metric in ("cosine", "l2", "sqeuclidean", "dot"):
+        assert bs.layer_mode(g, 0, metric, 64, 4) == "rows"
+    register_distance("beam_kernel_test_l1",
+                      lambda a, b: float(np.abs(a - b).sum()),
+                      pairwise_fn=lambda a, b: torch.cdist(a, b, p=1))
+    assert bs.layer_mode(g, 0, "beam_kernel_test_l1", 64, 4) is None
+    assert bs.layer_mode(g, 0, "l2", 64, 4, "heap") is None
+    q = torch.empty((8, 128), device=meta)
+    assert not bs.hop_kernel_applies(g, 0, "l2", q, 64, 4)
+
+
+def test_twin_layers_on_cuda_are_counted_by_reason(hosts, monkeypatch):
+    """count_twin_layer: a covered mode past the width limit is "size", a
+    mode the kernel lacks (registered metric, fp16 store) is "mode"; the
+    dispatcher counts only layers on CUDA tensors, so a CPU search counts
+    none."""
+    meta = torch.device("meta")
+    g = DeviceGraph(
+        vectors=torch.empty((4096, 128), device=meta),
+        sq_norms=torch.empty(4096, device=meta),
+        neighbors=torch.empty((1, 4096, 32), dtype=torch.int32, device=meta),
+        levels=torch.empty(4096, dtype=torch.int32, device=meta),
+        alive=torch.empty(4096, dtype=torch.bool, device=meta),
+        entry=torch.empty((), dtype=torch.int32, device=meta))
+    monkeypatch.setattr(bs, "twin_layers_on_cuda", {"mode": 0, "size": 0})
+    assert bs.count_twin_layer(g, 0, "l2", 4096 - 127, 4, "sort") == "size"
+    register_distance("beam_kernel_test_l1",
+                      lambda a, b: float(np.abs(a - b).sum()),
+                      pairwise_fn=lambda a, b: torch.cdist(a, b, p=1))
+    assert bs.count_twin_layer(g, 0, "beam_kernel_test_l1", 64, 4) == "mode"
+    fp16 = _layout(hosts, "cosine", store_dtype="float16")
+    assert bs.count_twin_layer(fp16, 0, "cosine", 64, 4) == "mode"
+    assert bs.twin_layers_on_cuda == {"mode": 2, "size": 1}
+    q, _ = _queries()
+    tsearch.search_graph(fp16, q, k=10, ef=32, metric="cosine", expand=4,
+                         merge="bitonic")
+    assert bs.twin_layers_on_cuda == {"mode": 2, "size": 1}
+
+
+@pytest.mark.parametrize("layout", ["dense", "int8-blocks"])
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+def test_touched_lists_what_each_hop_reads(hosts, layout, merge):
+    """The twin's ``touched`` ids leave its pools as they are: one tensor a
+    hop of the nodes it expanded (at most E a query) and of the rows it
+    scored: vector slots, or node * block_m + j for block rows, each of a
+    node expanded in that hop."""
+    g = _layout(hosts, "cosine", layout)
+    q, q_sq = _queries()
+    ids, d = _starts(g, q, q_sq, "cosine", HIGHEST, True)
+    kw = dict(pool_size=24, max_hops=64, metric="cosine", precision=HIGHEST,
+              expand=4, merge=merge)
+    stats, touched = {}, {}
+    pd, pi = tsearch.beam_search_layer_reference(g, 0, q, q_sq, ids, d,
+                                                 stats=stats,
+                                                 touched=touched, **kw)
+    rd, ri = tsearch.beam_search_layer_reference(g, 0, q, q_sq, ids, d, **kw)
+    np.testing.assert_array_equal(pi.numpy(), ri.numpy())
+    np.testing.assert_array_equal(pd.numpy(), rd.numpy())
+    assert len(touched["nodes"]) == len(touched["rows"]) == stats["hops"][0]
+    bm = g.nbr_blocks.shape[1] if layout == "int8-blocks" else None
+    for nodes, rows in zip(touched["nodes"], touched["rows"]):
+        assert 0 < nodes.numel() <= 4 * q.shape[0]
+        assert (nodes >= 0).all() and (nodes < g.cap).all()
+        assert rows.numel() > 0 and (rows >= 0).all()
+        owner = rows // bm if bm else None
+        if bm:
+            assert set(owner.tolist()) <= set(nodes.tolist())
+        else:
+            assert (rows < g.cap).all()
+
+
+def test_cpu_graph_never_loads_the_library(hosts, monkeypatch):
+    def broken():
+        raise RuntimeError("the CPU path loaded the kernel library")
+    monkeypatch.setattr(bs, "_lib", None)
+    monkeypatch.setattr(bs, "build", broken)
+    launches = bs.launches
+    q, _ = _queries()
+    for layout in ("dense", "compact", "int8-blocks"):
+        g = _layout(hosts, "cosine", layout)
+        stats = {}
+        d, i = tsearch.search_graph(g, q, k=10, ef=32, metric="cosine",
+                                    expand=4, merge="bitonic", stats=stats)
+        assert i.shape == (24, 10) and (i >= 0).all()
+        assert len(stats["hops"]) == g.num_layers
+    assert bs.launches == launches and bs._lib is None
+
+
+def test_beam_search_layer_is_the_twin_on_the_cpu(hosts):
+    """Off CUDA the dispatcher returns the twin's pools and hop count."""
+    g = _layout(hosts, "l2", "compact")
+    q, q_sq = _queries()
+    ids, d = _starts(g, q, q_sq, "l2", HIGHEST, False)
+    for layer in (0, g.num_layers - 1):
+        a, b = {}, {}
+        kw = dict(pool_size=16, max_hops=64, metric="l2",
+                  precision=HIGHEST, expand=4, merge="sort")
+        pd, pi = tsearch.beam_search_layer(g, layer, q, q_sq, ids, d,
+                                           stats=a, **kw)
+        rd, ri = tsearch.beam_search_layer_reference(g, layer, q, q_sq, ids,
+                                                     d, stats=b, **kw)
+        np.testing.assert_array_equal(pi.numpy(), ri.numpy())
+        np.testing.assert_array_equal(pd.numpy(), rd.numpy())
+        assert a == b
+
+
+# --------------------------------------------------------------------------
+# (d) the kernel against the twin, on the card
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _reset():
+    bs.launches = 0
+    bs.launches_by_mode.update(rows=0, blocks=0)
+    bs.twin_layers_on_cuda.update(mode=0, size=0)
+
+
+def _kernel_vs_twin(g, layer, q, q_sq, ids, d, *, P, E, metric, precision,
+                    merge, max_hops=64, tol=1e-5, normalized=False):
+    kw = dict(pool_size=P, max_hops=max_hops, metric=metric,
+              precision=precision, expand=E, merge=merge,
+              store_normalized=normalized)
+    mode = bs.layer_mode(g, layer, metric, P, min(E, P), merge)
+    assert mode is not None and bs.hop_kernel_applies(
+        g, layer, metric, q, P, min(E, P), merge)
+    _reset()
+    ks, ts = {}, {}
+    kd, ki = tsearch.beam_search_layer(g, layer, q, q_sq, ids, d, stats=ks,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert bs.launches == 1 and bs.launches_by_mode[mode] == 1
+    rd, ri = tsearch.beam_search_layer_reference(g, layer, q, q_sq, ids, d,
+                                                 stats=ts, **kw)
+    kd, ki, rd, ri = (t.cpu().numpy() for t in (kd, ki, rd, ri))
+    assert ki.shape == ri.shape == (q.shape[0], P)
+    assert np.isfinite(kd).all()
+    assert ((ki < 0) == (kd >= INF)).all()
+    ov, err = _overlap_and_err(kd, ki, rd, ri)
+    assert ov >= 0.99 and err <= tol, (ov, err)
+    assert ks["hops"] == ts["hops"], (ks, ts)
+    return ks["hops"][0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expand", [1, 4])
+@pytest.mark.parametrize("precision", [HIGHEST, DEFAULT])
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sqeuclidean", "dot"])
+def test_kernel_matches_twin_on_rows(cuda, hosts, metric, merge, precision,
+                                     expand):
+    g = _layout(hosts, metric, device=cuda)
+    q, q_sq = _queries(cuda, n=64)
+    tol = 1e-5 if precision == HIGHEST else 1e-3
+    for layer in range(g.num_layers - 1, -1, -1):
+        ids, d = _starts(g, q, q_sq, metric, precision, False)
+        _kernel_vs_twin(g, layer, q, q_sq, ids, d, P=48 if layer == 0
+                        else 8, E=expand, metric=metric,
+                        precision=precision, merge=merge, tol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expand", [1, 4])
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sqeuclidean", "dot"])
+@pytest.mark.parametrize("layout", ["int8-blocks", "fp16-blocks"])
+def test_kernel_matches_twin_on_blocks(cuda, hosts, layout, metric, merge,
+                                       expand):
+    normalized = metric == "cosine"
+    g = _layout(hosts, metric, layout, device=cuda)
+    q, q_sq = _queries(cuda, n=64)
+    ids, d = _starts(g, q, q_sq, metric, HIGHEST, True)
+    _kernel_vs_twin(g, 0, q, q_sq, ids, d, P=48, E=expand, metric=metric,
+                    precision=DEFAULT, merge=merge,
+                    tol=1e-3 if layout == "int8-blocks" else 1e-5,
+                    normalized=normalized)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+@pytest.mark.parametrize("layout", ["split", "compact"])
+def test_kernel_matches_twin_on_upper_layouts(cuda, hosts, layout, merge):
+    g = _layout(hosts, "l2", layout, device=cuda)
+    q, q_sq = _queries(cuda, n=64)
+    for layer in range(g.num_layers - 1, 0, -1):
+        ids, d = _starts(g, q, q_sq, "l2", HIGHEST, layer == 1)
+        _kernel_vs_twin(g, layer, q, q_sq, ids, d, P=8, E=4, metric="l2",
+                        precision=HIGHEST, merge=merge)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+def test_kernel_pool_at_the_width_limit_and_a_hop_cut(cuda, hosts, merge):
+    """P + E*M = 4,096 (the largest pool the kernel takes: more than the
+    graph holds, so it ends unfilled), and a max_hops cut of 5."""
+    g = _layout(hosts, "cosine", device=cuda)
+    q, q_sq = _queries(cuda, n=16)
+    ids, d = _starts(g, q, q_sq, "cosine", HIGHEST, True)
+    M = g.layer_width(0)
+    P = bs.HOP_MAX_WIDTH - 4 * M
+    hops = _kernel_vs_twin(g, 0, q, q_sq, ids, d, P=P, E=4,
+                           metric="cosine", precision=HIGHEST, merge=merge,
+                           max_hops=24)
+    assert hops == 24
+    hops = _kernel_vs_twin(g, 0, q, q_sq, ids, d, P=48, E=4,
+                           metric="cosine", precision=HIGHEST, merge=merge,
+                           max_hops=5)
+    assert hops == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "fp16-blocks"])
+def test_kernel_odd_width_takes_scalar_loads(cuda, layout):
+    """D = 30: rows and blocks load element by element."""
+    arrays = _host_graph("l2", d=30)
+    g = from_host(*arrays, metric="l2", device=cuda, **LAYOUTS[layout])
+    q, q_sq = _queries(cuda, n=64, d=30)
+    ids, d = _starts(g, q, q_sq, "l2", HIGHEST, False)
+    _kernel_vs_twin(g, 0, q, q_sq, ids, d, P=32, E=4, metric="l2",
+                    precision=HIGHEST, merge="bitonic")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "bench"])
+def test_graph_search_launches_once_per_layer(cuda, mode):
+    """Graph.batch_search_slots on the card: one launch a layer searched,
+    and the results the twin gives on the same graph."""
+    v = _data(3, 6000)
+    q = _data(4, 64)
+    g = hnsw_tpu_torch.Graph(m=8, ef_construction=64, seed=0, device=cuda)
+    g.build(list(range(len(v))), v, method="host")
+    g.native_serve_max_batch = 0
+    if mode == "bench":
+        g.fast_math = True
+        g.block_layout = True
+        g.entry_mode = "pivots"
+    _reset()
+    d, i = g.batch_search_slots(q, 10, ef=64)
+    layers = 1 if mode == "bench" else g.device_graph().num_layers
+    assert bs.launches == layers == len(g.last_search_hops)
+    assert bs.twin_layers_on_cuda == {"mode": 0, "size": 0}
+    assert bs.launches_by_mode == ({"rows": 0, "blocks": 1} if mode == "bench"
+                                   else {"rows": layers, "blocks": 0})
+    real = bs.hop_kernel_applies
+    try:
+        bs.hop_kernel_applies = lambda *a, **k: False
+        _reset()
+        dt, it = g.batch_search_slots(q, 10, ef=64)
+        assert bs.launches == 0
+    finally:
+        bs.hop_kernel_applies = real
+    ov, err = _overlap_and_err(d, i, dt, it)
+    assert ov >= 0.99 and err <= 1e-5, (ov, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+def test_kernel_work_counts_match_the_twins_reads(cuda, hosts, merge):
+    """The kernel's work counts (nodes expanded, candidates scored) against
+    the twin's ``touched`` ids on the same inputs: the same nodes; the same
+    candidates with the sort merge, and no more with the bitonic one (the
+    kernel drops a hop's duplicate ids before it scores them, the twin
+    after)."""
+    g = _layout(hosts, "l2", device=cuda)
+    q, q_sq = _queries(cuda, n=64)
+    ids, d = _starts(g, q, q_sq, "l2", HIGHEST, True)
+    kw = dict(pool_size=32, max_hops=64, metric="l2", precision=HIGHEST,
+              expand=4, merge=merge, store_normalized=False)
+    _, _, _, work = bs.beam_search_cuda(g, 0, q, q_sq, ids, d, **kw)
+    touched = {}
+    tsearch.beam_search_layer_reference(g, 0, q, q_sq, ids, d,
+                                        touched=touched, **kw)
+    nodes = sum(t.numel() for t in touched["nodes"])
+    rows = sum(t.numel() for t in touched["rows"])
+    w = work.sum(0).tolist()
+    assert w[0] == nodes
+    assert (w[1] == rows) if merge == "sort" else (0 < w[1] <= rows)
+
+
+@pytest.mark.cuda
+def test_smem_bytes_match_the_library(cuda):
+    lib = bs._load()
+    for D, P, E, M, merge in ((128, 512, 4, 32, "bitonic"),
+                              (30, 64, 1, 16, "sort"),
+                              (960, 3968, 4, 32, "bitonic")):
+        assert lib.beam_search_smem_bytes(
+            D, P, E, M, int(merge == "sort")) == bs.smem_bytes(D, P, E, M,
+                                                               merge)
+
+
+@pytest.mark.cuda
+def test_wrapper_raises_when_the_library_fails_to_load(cuda, hosts,
+                                                       monkeypatch):
+    def broken():
+        raise RuntimeError("nvcc failed (1): simulated")
+    g = _layout(hosts, "l2", device=cuda)
+    q, q_sq = _queries(cuda, n=4)
+    ids, d = _starts(g, q, q_sq, "l2", HIGHEST, False)
+    monkeypatch.setattr(bs, "_lib", None)
+    monkeypatch.setattr(bs, "build", broken)
+    _reset()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tsearch.beam_search_layer(g, 0, q, q_sq, ids, d, 16, 64, "l2",
+                                  HIGHEST, expand=4, merge="bitonic")
+    assert bs.launches == 0

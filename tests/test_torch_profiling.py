@@ -74,6 +74,59 @@ def test_kernel_events_counts_the_kernel_category(tmp_path):
     assert profiling.kernel_events(str(path)) == 2
 
 
+def test_device_events_lists_kernels_copies_and_sets(tmp_path):
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": [
+        {"cat": "kernel", "name": "k1", "dur": 2.5},
+        {"cat": "cpu_op", "name": "mm", "dur": 9},
+        {"cat": "gpu_memcpy", "name": "Memcpy DtoH", "dur": 1},
+        {"cat": "gpu_memset", "name": "Memset", "dur": 0.5},
+        {"name": "meta"}]}))
+    assert profiling.device_events(str(path)) == [
+        ("kernel", "k1", 2.5), ("gpu_memcpy", "Memcpy DtoH", 1.0),
+        ("gpu_memset", "Memset", 0.5)]
+
+
+def test_trace_summary_splits_one_call(monkeypatch):
+    """trace_summary: one call in device_trace, the device ms of its
+    kernels, copies and sets by name, its kernel launches and the idle
+    share of its wall time (the trace's events scripted here)."""
+    calls = []
+    monkeypatch.setattr(profiling, "device_events", lambda path: [
+        ("kernel", "k", 1000.0), ("kernel", "k", 500.0),
+        ("gpu_memcpy", "Memcpy DtoH", 250.0)])
+    ticks = iter([10.0, 10.004])
+    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(ticks))
+    s = profiling.trace_summary(lambda: calls.append(1))
+    assert calls == [1]
+    assert s["by_name"] == {"k": 1.5, "Memcpy DtoH": 0.25}
+    assert s["launches"] == 2 and s["device_ms"] == 1.75
+    assert s["wall_ms"] == pytest.approx(4.0)
+    assert s["idle_share"] == pytest.approx(1 - 1.75 / 4.0)
+
+
+def test_trace_summary_is_none_when_the_card_recorded_nothing(monkeypatch):
+    """A trace without kernel events gives no split: trace_summary returns
+    None where device_trace raises for it, and lets any other error up."""
+    class Raising:
+        def __init__(self, exc):
+            self.exc = exc
+
+        def __enter__(self):
+            return None
+
+        def __exit__(self, *a):
+            raise self.exc
+
+    monkeypatch.setattr(profiling, "device_trace", lambda td: Raising(
+        RuntimeError("device_trace: x holds no CUDA kernel event; ...")))
+    assert profiling.trace_summary(lambda: None) is None
+    monkeypatch.setattr(profiling, "device_trace",
+                        lambda td: Raising(RuntimeError("other")))
+    with pytest.raises(RuntimeError, match="other"):
+        profiling.trace_summary(lambda: None)
+
+
 def test_device_trace_raises_when_the_card_recorded_nothing(
         tmp_path, monkeypatch):
     """With the CUDA activity asked for (a card present) and no kernel

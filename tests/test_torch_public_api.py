@@ -31,6 +31,7 @@ MODULES = ["hnsw_tpu_torch", "hnsw_tpu_torch.analyzer",
            "hnsw_tpu_torch.parallel.multihost",
            "hnsw_tpu_torch.parallel.rpc", "hnsw_tpu_torch.parallel.dryrun",
            "hnsw_tpu_torch.utils.roofline", "hnsw_tpu_torch.utils.profiling",
+           "hnsw_tpu_torch.ops.beam_search", "hnsw_tpu_torch.core.search",
            "hnsw_tpu_torch.tools.bench", "hnsw_tpu_torch.tools.sweep",
            "hnsw_tpu_torch.tools.datasets", "hnsw_tpu_torch.tools.entry",
            "hnsw_tpu_torch.examples.quickstart",

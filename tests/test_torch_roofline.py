@@ -53,7 +53,28 @@ def test_gpu_mfu_is_against_the_cards_bf16_peak():
                    "mfu": round(fl / dt / 989.4e12, 4),
                    "floor_frac": round(0.01 / dt, 3)}
     assert roofline.PEAKS[H100] == {"bf16": 989.4e12, "tf32": 494.7e12,
+                                    "int8": 1979e12, "fp32": 66.9e12,
                                     "hbm_bytes_s": 3.35e12}
+
+
+def test_hop_bound_counts_the_rows_it_scores():
+    """K2's bound: bytes of the query rows, start entries, ids of the
+    distinct expanded nodes, the distinct scored rows and the pools
+    written, over 3.35 TB/s; or 2 d operations a scored row over the
+    operands' peak, when larger. A row scored by many queries counts once;
+    with the totals over the queries the bound is the one without reuse."""
+    t, by = roofline.hop_bound_s(1024, 128, 64, 1, 32, 40_000, 90_000,
+                                 600_000, 516, "fp32")
+    per_query = 1024 * (512 + 4 + 8 + 512 + 12)
+    moved = per_query + 4 * 32 * 40_000 + 516 * 90_000
+    assert by == "bytes" and t == moved / 3.35e12
+    t_all, _ = roofline.hop_bound_s(1024, 128, 64, 1, 32, 80_000, 600_000,
+                                    600_000, 516, "fp32")
+    assert t_all == (per_query + 4 * 32 * 80_000 + 516 * 600_000) / 3.35e12
+    assert t_all > t
+    t, by = roofline.hop_bound_s(1, 1 << 16, 8, 1, 8, 1, 1, 1 << 20, 4,
+                                 "fp32")
+    assert by == "operations" and t == 2.0 * (1 << 16) * (1 << 20) / 66.9e12
 
 
 def test_unknown_card_and_no_card_give_no_mfu(monkeypatch):
