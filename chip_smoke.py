@@ -11,7 +11,8 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    one nvcc each, started together (csrc/exact_screen.cu: K1's TF32
    wgmma screen, fed by TMA, route "wgmma", or by cp.async, route
    "wgmma_cp"; csrc/beam_search.cu: K2, one graph layer's beam search a
-   launch), and the native host engine;
+   launch, and the same source with -DBEAM_PHASE_CLOCKS for phase 5b's
+   hop split), and the native host engine;
 3. kernel vs plain: exact_topk_fused through each K1 route against the
    same wrapper with the plain torch screen in its place, on the card;
    (the exact tier's shapes, and the adaptive engine's: a 131,072-row
@@ -39,9 +40,12 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    rows, bench.py's mode at ef 192 on int8 and on fp16 neighbour blocks,
    the wave builder's DEFAULT/sort descent at ef 100, and the local-repair
    refine that batch_delete(refine=True) runs, on a copy of the graph):
-   id overlap, error, hop counts, the kernel's ms beside its bound
-   (utils/roofline.hop_bound_s over the distinct nodes and rows the batch
-   reads, and without reuse across queries) and the twin's ms;
+   id overlap, error, hop counts, the kernel's ms and µs a hop of the
+   slowest query beside its bound (utils/roofline.hop_bound_s over the
+   distinct nodes and rows the batch reads, and without reuse across
+   queries), its resident blocks an SM and registers, and the twin's ms;
+   then where a hop's time goes at rows ef 64 and 192 (tools/hop_split.py:
+   each phase's share of the slowest block's cycles);
 6. exact capacity ladder at BIGANN-10M's shape (10,000,000 x 128, L2,
    k=10; synthetic rows from a seed): the float32 rung through the kernel,
    checked against a chunked numpy scan, then hbm_dtype int8, bf16 and
@@ -177,6 +181,9 @@ KERNEL = {"route": "cuda",
 BEAM_KERNEL = {"route": "cuda",
                "source": "hnsw_tpu_torch/csrc/beam_search.cu",
                "replaces": "hnsw_tpu/core/search.py:240"}
+#: where phase 5b builds K2 with its phase counters (tools/hop_split.py)
+HOP_SPLIT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "hop_split_clocks")
 #: K2's launches on the main path, by scoring mode, summed over the phases
 #: that drive a graph path (each resets the counts before it and reads
 #: them after)
@@ -226,31 +233,34 @@ def phase_build() -> None:
 
     from hnsw_tpu_torch import native
     from hnsw_tpu_torch.ops import beam_search, exact_screen
+    from hnsw_tpu_torch.tools import hop_split
     took, errors = {}, []
 
-    def load(name, mod):
+    def load(name, fn):
         t = time.perf_counter()
         try:
-            mod._load()
+            fn()
         except Exception as e:       # reported by the check below
             errors.append(f"{name}: {e}")
         took[name] = time.perf_counter() - t
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=load, args=a) for a in
-               (("exact_screen.cu", exact_screen),
-                ("beam_search.cu", beam_search))]
+               (("exact_screen.cu", exact_screen._load),
+                ("beam_search.cu", beam_search._load),
+                ("beam_search.cu -DBEAM_PHASE_CLOCKS",
+                 lambda: hop_split.clocks_library(HOP_SPLIT_DIR)))]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     t1 = time.perf_counter()
-    check(not errors, f"both CUDA libraries build and load {errors}")
+    check(not errors, f"the CUDA libraries build and load {errors}")
     check(native.available(), "native host engine builds and loads")
     t2 = time.perf_counter()
-    print(f"# build: exact_screen.cu {took['exact_screen.cu']:.1f} s, "
-          f"beam_search.cu {took['beam_search.cu']:.1f} s (together "
-          f"{t1 - t0:.1f} s), native engine {t2 - t1:.1f} s", flush=True)
+    print("# build: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
+          + f" (together {t1 - t0:.1f} s), native engine {t2 - t1:.1f} s",
+          flush=True)
 
 
 def _overlap(a: np.ndarray, b: np.ndarray) -> float:
@@ -807,28 +817,8 @@ def phase_graph_tier() -> dict:
             "recall": recall, "qps": qps_by_ef, "twin": twin}
 
 
-def _layer0_call(run, module) -> dict:
-    """The arguments of the first layer-0 beam_search_layer call that
-    ``run()`` makes through ``module`` (core/search for Graph,
-    core/build_device for the builder's descent and refine)."""
-    seen = {}
-    real = module.beam_search_layer
-
-    def spy(g, layer, *args, **kw):
-        if layer == 0 and not seen:
-            seen.update(g=g, args=args, kw=kw)
-        return real(g, layer, *args, **kw)
-
-    module.beam_search_layer = spy
-    try:
-        run()
-    finally:
-        module.beam_search_layer = real
-    return seen
-
-
 def _beam_case(label: str, c: dict) -> dict:
-    """One captured layer-0 call (_layer0_call) through K2
+    """One captured layer-0 call (tools/hop_split.layer0_call) through K2
     (ops/beam_search.beam_search_cuda) and through its twin
     (core/search.beam_search_layer_reference) on the same inputs: a failed
     check unless the ids overlap >= 0.99 and the distances of shared ids
@@ -840,11 +830,10 @@ def _beam_case(label: str, c: dict) -> dict:
     expanded and rows scored)."""
     from hnsw_tpu_torch.core import search
     from hnsw_tpu_torch.ops import beam_search
+    from hnsw_tpu_torch.tools import hop_split
     from hnsw_tpu_torch.utils import roofline
     cg, args = c["g"], c["args"]
-    # the builder leaves beam_search_layer's defaults in place
-    kw = dict(dict(expand=1, merge="sort", store_normalized=False),
-              **{k: v for k, v in c["kw"].items() if k != "stats"})
+    kw = hop_split.case_kwargs(c)
     E = max(1, min(kw["expand"], kw["pool_size"]))
     mode = beam_search.layer_mode(cg, 0, kw["metric"], kw["pool_size"], E,
                                   kw["merge"])
@@ -892,17 +881,32 @@ def _beam_case(label: str, c: dict) -> dict:
     flat_s, _ = roofline.hop_bound_s(B, D, P, S, M, w[0], w[1], w[1],
                                      row_bytes, kind)
     bound, flat = bound_s * 1e3, flat_s * 1e3
+    hops = int(khops.max())
+    us_hop = ms * 1e3 / max(1, hops)
+    lib = beam_search._load()
+    per_sm = hop_split.occupancy(lib, c)
+    score, vec = hop_split.instantiation(c)
+    inst = (f"{hop_split.SCORE_NAMES[score]}/"
+            f"{'vec' if vec else 'scalar'}")
+    with open(os.path.join(beam_search.BUILD_DIR,
+                           "beam_search.ptxas.txt")) as f:
+        regs = hop_split.parse_ptxas(f.read()).get(inst, {})
     print(f"  {label}: overlap {ov:.5f}, max |d| err {err:.2e}; hops "
-          f"kernel {int(khops.max())} (mean {khops.float().mean():.1f}) "
+          f"kernel {hops} (mean {khops.float().mean():.1f}) "
           f"twin {ts['hops'][0]}; kernel counts {w[0]} nodes expanded, "
           f"{w[1]} rows scored (twin {nodes.numel()}, {rows.numel()}), of "
           f"them distinct {n_nodes} nodes, {n_rows} rows; kernel {ms:.3f} "
-          f"ms, bound {bound:.4f} ms ({by}), {bound / ms:.4f} of the bound "
-          f"(without reuse across queries {flat:.4f} ms, {flat / ms:.4f}); "
-          f"twin {twin_ms:.3f} ms", flush=True)
+          f"ms ({us_hop:.2f} us a hop of the slowest query; {inst}: "
+          f"{per_sm} blocks an SM, {regs.get('registers')} registers, "
+          f"{regs.get('spill_stores')} B spill stores), bound {bound:.4f} "
+          f"ms ({by}), {bound / ms:.4f} of the bound (without reuse across "
+          f"queries {flat:.4f} ms, {flat / ms:.4f}); twin {twin_ms:.3f} ms",
+          flush=True)
     return {"ms": ms, "plain_ms": twin_ms, "bound_ms": bound,
             "bound_by": by, "no_reuse_bound_ms": flat, "max_abs_err": err,
-            "hops": int(khops.max()), "twin_hops": ts["hops"][0],
+            "hops": hops, "twin_hops": ts["hops"][0], "us_per_hop": us_hop,
+            "blocks_per_sm": per_sm, "registers": regs.get("registers"),
+            "spill_stores": regs.get("spill_stores"),
             "expanded": w[0], "scored": w[1], "distinct_nodes": n_nodes,
             "distinct_rows": n_rows}
 
@@ -921,43 +925,33 @@ def phase_beam_kernel(st: dict, smi: str) -> dict:
     E = 4). Returns the kernels-line entry (the rows case at ef 64 is the
     headline)."""
     from hnsw_tpu_torch.convert import graph_from_host_arrays
-    from hnsw_tpu_torch.core import build, build_device, search
+    from hnsw_tpu_torch.core import build_device
+    from hnsw_tpu_torch.ops import beam_search
+    from hnsw_tpu_torch.tools import hop_split
     g, queries, base = st["g"], st["queries"], st["base"]
     print(f"# K2 beam search vs its twin, one layer-0 launch, {N_GRAPH} x "
           f"{DIM} cosine (median of 5 CUDA-event reps; {smi})", flush=True)
-
-    def graph_case(ef, **modes):
-        for name, value in modes.items():
-            setattr(g, name, value)
-        return _layer0_call(lambda: g.batch_search_slots(queries, 10, ef=ef),
-                            search)
-
-    cases = [("rows ef=64", graph_case(64)),
-             ("rows ef=192", graph_case(192))]
-    for dt in ("int8", "float16"):
-        cases.append((f"{dt} blocks ef=192 (bench mode)",
-                      graph_case(192, fast_math=True, block_layout=True,
-                                 block_dtype=dt, entry_mode="pivots")))
-    graph_case(64, fast_math=False, block_layout=False, block_dtype="auto",
-               entry_mode="descent")
-    dg = g.device_graph()
-    wq = torch.from_numpy(base[:1024]).to(dg.vectors.device)
-    cases.append(("builder descent DEFAULT/sort ef=100",
-                  _layer0_call(lambda: build.construction_descent(
-                      dg, wq, ef=100, m_out=32, metric="cosine",
-                      max_hops=128), build)))
+    cases = list(hop_split.capture_cases(g, queries, base).items())
     n_used = g.slots.capacity_used
     gc = graph_from_host_arrays(
         g.cfg, g.slots.slot_to_key, g.store.vectors[:n_used],
         g.store.alive[:n_used], *g.host.arrays(), device=DEVICE)
     gc.native_serve_max_batch = 0
-    refine = _layer0_call(lambda: gc.batch_delete(
+    refine = hop_split.layer0_call(lambda: gc.batch_delete(
         list(range(0, N_GRAPH, 100)), refine=True), build_device)
     check(bool(refine), "batch_delete(refine=True) made a layer-0 call")
     cases.append((f"refine (batch_delete) DEFAULT/sort "
                   f"ef={refine['kw']['pool_size']}, "
                   f"{len(refine['args'][0])} nodes", refine))
     out = {label: _beam_case(label, c) for label, c in cases}
+    # where a hop's time goes: the kernel built with its phase counters
+    # (tools/hop_split.py) on the two f32 row cases
+    print("# K2 hop split (BEAM_PHASE_CLOCKS build; shares of the slowest "
+          "block's cycles, us a hop from the timings above)", flush=True)
+    split = hop_split.split_cases(
+        {k: c for k, c in cases if k in ("rows ef=64", "rows ef=192")},
+        beam_search._load(), hop_split.clocks_library(HOP_SPLIT_DIR),
+        ms={k: v["ms"] for k, v in out.items()})
     del gc, refine, cases
     torch.cuda.empty_cache()
     head = out["rows ef=64"]
@@ -966,9 +960,15 @@ def phase_beam_kernel(st: dict, smi: str) -> dict:
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 no_reuse_bound_ms=head["no_reuse_bound_ms"], library_ms=None,
-                cases={k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms",
-                                                "no_reuse_bound_ms")}
-                       for k, v in out.items()})
+                us_per_hop=head["us_per_hop"],
+                blocks_per_sm=head["blocks_per_sm"],
+                cases={k: {kk: v[kk] for kk in (
+                    "ms", "plain_ms", "bound_ms", "no_reuse_bound_ms",
+                    "us_per_hop", "blocks_per_sm", "registers")}
+                       for k, v in out.items()},
+                hop_split={k: {"shares": v["shares"],
+                               "us_per_hop": v["us_per_hop"]}
+                           for k, v in split.items()})
 
 
 def _np_scan_topk(queries, rows, sq, k: int, metric: str,

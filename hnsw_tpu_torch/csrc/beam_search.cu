@@ -8,44 +8,77 @@
 // and ids [B, P], ascending, empty slots (INF_DIST, -1), and each query's
 // hop count.
 //
-// Design. Within a layer a query's search depends on nothing but its own
-// pool: a query whose best unexpanded entry is no better than its worst
-// entry merges only INF candidates from then on, and its pool stays as it
-// is. So one block (128 threads) owns one query for the whole layer and
-// loops over its hops until nothing is taken or it reaches max_hops; the
-// batch's lockstep hop count is the largest per-query count. No barrier
-// spans blocks and nothing returns to the host between hops. Shared
-// memory holds the query row, the pool [P] (distance and id, with the
-// "expanded" flag in bit 30 of the id, as the twin carries it), the
-// candidate block [E*M] and a merge buffer. Each hop repeats the twin's
-// steps in its order, with its tie rules:
+// One block a query. Within a layer a query's search depends on nothing
+// but its own pool: a query whose best unexpanded entry is no better than
+// its worst entry merges only INF candidates from then on, and its pool
+// stays as it is. So one block (128 threads) owns one query for the whole
+// layer and loops over its hops until nothing is taken or it reaches
+// max_hops; the batch's lockstep hop count is the largest per-query count.
+// No barrier spans blocks and nothing returns to the host between hops.
 //
-//   1. select: the first E unexpanded entries in pool order (the pool is
-//      sorted, so these are the E best, ties to the lower position);
-//      take = distance < the pool's last (= largest) distance;
-//   2. mark them expanded;
-//   3. gather their E*M neighbour ids (through upper_map for a compact
-//      upper table);
-//   4. mask ids < 0, slots of entries not taken, and ids already in the
-//      pool (a C x P compare in shared memory); under the bitonic merge,
-//      also later copies of an id seen earlier in the same block;
-//   5. score the survivors, one warp per candidate and U = 4 candidates a
-//      warp at once (their loads in flight together): coalesced vector
-//      loads of the row (f32 rows, or one row of the expanded node's int8
-//      or fp16 neighbour block), a shuffle reduction, the metric's
-//      epilogue (ops/distance.gathered_epilogue, rounding step by step as
-//      PyTorch's separate elementwise kernels do);
-//   6. merge. "bitonic": the candidates ranked by (distance, slot),
-//      reversed behind the pool and an INF pad to W2 = the next power of
-//      two >= P + E*M, then the twin's compare-exchange network (swap iff
-//      a > b), keeping the first P. "sort": a stable merge of the sorted
+// What bounds it on this card (H100 SXM, 3.35 TB/s, 132 SMs). Per query and
+// hop it reads the E expanded nodes' neighbour ids (E*M*4 bytes) and the
+// rows of the candidates it scores (512 bytes each for f32 at D = 128):
+// over a batch of 1,024 queries a bound of tens of microseconds, which the
+// kernel misses by 50-100x. Neither bytes nor operations bound it: the
+// time is (dependent latency and issued instructions of one hop) x (the
+// slowest query's hop count), with eight blocks sharing an SM. Each hop is
+// a chain (select -> ids -> rows -> merge) of two trips to device memory
+// and shared-memory work between block barriers. The design keeps that
+// chain short and its instruction count small:
+//
+//   S. every thread puts the pool's ids into an open-addressing hash table
+//      in shared memory (H slots, a power of two >= 2x its keys; 64-bit
+//      words: id << 32 | 0 for a pool entry, id << 32 | slot + 1 for a
+//      candidate; atomicCAS); warp 0 meanwhile selects the first E
+//      unexpanded entries in pool order with ballots (the pool is sorted,
+//      so these are the E best, ties to the lower position; take =
+//      distance < the pool's last, largest, distance) and marks them
+//      expanded (bit 30 of the id, as the twin carries it).  [barrier 1]
+//   G. one thread a candidate slot loads its neighbour id (through
+//      upper_map for a compact upper table), asks the L2 cache for its row
+//      (prefetch.global.L2), and probes the table: an id of the pool is
+//      masked (entries at INF with a valid id too: the refine seeds a node
+//      with itself at INF); under the bitonic merge it inserts the id with
+//      atomicMin of its slot, so the lowest slot of a hop's copies wins.
+//      O(1) a candidate in place of the C x P and C^2 compares.  [2]
+//   L. warp 0 lists the surviving slots in slot order with ballots (a
+//      later copy of an id finds a lower slot in the table and drops); the
+//      other warps lay out the merge buffer.  [3]
+//   C. score the list: a warp takes 8 rows at once (U; one 16-byte load a
+//      lane a row at D = 128: 32 rows of a block in flight), sums them
+//      with a transposing shuffle reduction (9 shuffles for 8 rows), and
+//      applies the metric's epilogue (ops/distance.gathered_epilogue,
+//      rounding step by step as PyTorch's separate elementwise kernels
+//      do). A candidate that can enter the pool (distance <= the pool's
+//      worst, < under the sort merge; every one while the pool's worst is
+//      INF) appends its 64-bit key (the distance's order-preserving bits,
+//      then its list index: slot order) with a shared atomicAdd. The others
+//      cannot reach the first P outputs of either merge and are left out;
+//      a hop with none keeps its pool as it is. The table is cleared.  [4]
+//   R. rank the entering candidates by sorting their keys (bitonic; the
+//      stages with stride < 64 in registers with __shfl_xor_sync), then
+//      merge. "bitonic": the ranked candidates reversed behind the pool
+//      and an INF pad to W2 = the next power of two >= P + E*M, then the
+//      twin's compare-exchange network (swap iff a > b), only the
+//      exchanges whose outputs reach the first P (stride >= 64 in shared
+//      memory, < 64 in registers a warp). "sort": a stable merge of the
 //      pool with the ranked candidates (merge path: each element's output
 //      position from a binary search in the other list), keeping P, then
 //      the twin's adjacent-duplicate mask. The twin leaves those holes
 //      (INF, -1) in place; here they move behind the finite entries, in
 //      order. Both are the same pool to every later step (the next stable
 //      sort sees the same order of finite entries and of INF entries), and
-//      the twin's final stable sort makes the outputs equal.
+//      the twin's final stable sort makes the outputs equal. Up to 64
+//      entering candidates and P + E*M <= 512 (the common hop) take warp 0
+//      alone, with no block barrier inside; larger ones the whole block.
+//      [5; a hop of the block-wide path has 8-13]
+//
+// Block barriers a hop: 5 (4 when no candidate enters), against about 20
+// before. __launch_bounds__(128, 8): at most 64 registers a thread, so
+// eight blocks fit an SM (132 x 8 = 1,056 >= a batch of 1,024 in one
+// wave) while each needs under 28 KB of shared memory (P + E*M <= 512 at
+// D = 128, E*M = 128).
 //
 // Precision, as the twin's _score_hop / _score_blocks: f32 rows at HIGHEST
 // multiply in f32; at DEFAULT both operands are rounded to bf16 first;
@@ -55,23 +88,19 @@
 // store_normalized cosine store has squared norm 1. The f32 sums run in
 // another order than the twin's einsum.
 //
-// What bounds it on this card (H100 SXM, 3.35 TB/s). Per query and hop it
-// must read the E expanded nodes' neighbour ids (E*M*4 bytes) and the
-// rows of the candidates it scores (512 bytes each for f32 at D = 128,
-// 128 for an int8 block row): a few KB. Over a batch of 1,024 queries at
-// ef 64 that is tens of MB, a bound of tens of microseconds. What the
-// kernel spends instead is latency: every hop is a chain of dependent
-// steps (ids, then rows, then the merge) with about twenty block
-// barriers, so a block is idle while its loads are in flight. The design
-// answers that with many resident blocks an SM (128 threads and a few KB
-// of shared memory each: up to 16) so that one block's merge overlaps
-// another's loads, and with U candidates in flight a warp.
-//
-// Shared memory (dynamic) for C = E*M, WB = W2 under the bitonic merge and
-// P under the sort merge, in 4-byte words: D (padded to 4) + 2P (pool) +
-// 2WB (merge buffer) + 6C (candidate ids, the scored list, the sorted
-// list) + 2E + NW. The wrapper (ops/beam_search.py) takes P + C <= 4,096
-// and at most 227 KB; ef 512 at E = 4, M = 32 needs 15.9 KB at D = 128.
+// Shared memory (dynamic), in bytes, for C = E*M, W2 = next_pow2(P + C),
+// WB = W2 under the bitonic merge and P under the sort merge, H =
+// next_pow2(2 (P + C)) (bitonic: pool and candidate ids) or
+// next_pow2(2 P) (sort: pool ids), NS = max(64, next_pow2(C)):
+//   8 (H (table) + NS (keys)) + 4 (D padded to 4 (the query row) + 2P
+//   (pool) + 2WB (merge buffer) + 4C (ids, table slots, list, distances)
+//   + 3C under the sort merge (the ranked list) + 2E + 4).
+// The wrapper (ops/beam_search.py) computes the same number and takes
+// P + C <= 4,096 within 227 KB: ef 64 / 192 at E = 4, M = 32, D = 128 need
+// 10,288 / 17,456 B, ef 512 32,304 B, P + C = 4,096 133,680 B (sort:
+// 134,192 B), which leaves room for D up to 24,692 there (the layout
+// before this one, without the table and keys: 41,204), and at ef 512 for
+// D up to 50,164.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -82,16 +111,27 @@ namespace {
 
 constexpr int NT = 128;            // threads a block
 constexpr int NW = NT / 32;        // warps a block
-constexpr int U = 4;               // candidates a warp scores at once
+constexpr int MIN_BLOCKS = 8;      // resident blocks an SM (launch bounds)
+constexpr int U = 8;               // rows a warp scores at once
+constexpr int SOLO_WIDTH = 512;    // P + C up to which warp 0 merges alone
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float INF_DIST = 3.0e38f;
 constexpr int EXP_BIT = 1 << 30;
 constexpr float EPS = 1e-30f;
+constexpr unsigned long long EMPTY = ~0ull;    // a free table slot
+constexpr unsigned long long KEY_PAD = ~0ull;  // sorts after every key
 
 enum { M_COSINE = 0, M_L2 = 1, M_SQEUCLIDEAN = 2, M_DOT = 3 };
 // scoring modes: f32 rows at HIGHEST, f32 rows at DEFAULT (bf16 operands),
 // int8 neighbour blocks, fp16 neighbour blocks
 enum { S_F32 = 0, S_BF16 = 1, S_I8 = 2, S_F16 = 3 };
+
+// Byte offsets of the shared-memory arrays (layout(): the query row at 0;
+// 8-byte arrays next).
+struct Layout {
+  int tab, keys, pool_d, pool_i, buf_d, buf_i, cand_id, cand_pos, ok_slot,
+      ok_d, so_d, so_i, so_r, sel_j, sel_cur, counts, bytes;
+};
 
 struct Params {
   const float* queries;    // [B, D]
@@ -108,12 +148,36 @@ struct Params {
   const void* blocks;      // [cap, block_m, D] int8 / fp16 (blocks)
   int block_m;
   const float* block_scale;  // [] (int8 blocks)
-  int D, P, E, M, max_hops, metric, merge_sort, normalized, W2;
+  int D, P, E, M, max_hops, metric, merge_sort, normalized;
+  int C, W2, WB, H, NS, shift;   // E*M, merge widths, table slots, keys
+  Layout L;                // byte offsets into the dynamic shared memory
   float* out_d;            // [B, P]
   int* out_i;              // [B, P]
   int* hops;               // [B]
   int* work;               // [B, 2]: nodes expanded, candidates scored
+  long long* clocks;       // [B, N_PHASE] (BEAM_PHASE_CLOCKS builds only)
 };
+
+// Phase counters (BEAM_PHASE_CLOCKS builds, tools/hop_split.py): thread 0
+// adds the clock64() cycles since the last mark to the phase's counter.
+// The same-hop dedup has no phase of its own here: the table does it in
+// "gather" and "list".
+enum { PH_SELECT = 0, PH_GATHER, PH_DEDUP, PH_LIST, PH_SCORE, PH_RANK,
+       PH_MERGE, PH_COMPACT, N_PHASE };
+#ifdef BEAM_PHASE_CLOCKS
+#define PHASE_MARK(ph)                                  \
+  do {                                                  \
+    if (threadIdx.x == 0) {                             \
+      const long long t_ = clock64();                   \
+      clk[ph] += t_ - clk[N_PHASE];                     \
+      clk[N_PHASE] = t_;                                \
+    }                                                   \
+  } while (0)
+#else
+#define PHASE_MARK(ph) \
+  do {                 \
+  } while (0)
+#endif
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -122,6 +186,16 @@ __device__ __forceinline__ float bf16r(float x) {
 // id without the expanded flag (-1 stays -1)
 __device__ __forceinline__ int unpack(int p) {
   return p >= 0 ? (p & (EXP_BIT - 1)) : p;
+}
+
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+  return (1u << lane) - 1u;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
+  const char* c = static_cast<const char*>(p);
+  for (int o = 0; o < bytes; o += 128)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(c + o));
 }
 
 // ops/distance.gathered_epilogue, one PyTorch elementwise step at a time
@@ -136,55 +210,244 @@ __device__ __forceinline__ float epilogue(int metric, float qv, float qsq,
   return metric == M_L2 ? __fsqrt_rn(d) : d;
 }
 
-// Exclusive prefix sum of v over the block's threads in thread order;
-// *total gets the sum. Every thread calls it; scratch holds NW ints.
-__device__ __forceinline__ int block_scan(int v, int* scratch, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) scratch[warp] = x;
-  __syncthreads();
-  int off = 0, tot = 0;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    int s = scratch[w];
-    off += w < warp ? s : 0;
-    tot += s;
-  }
-  __syncthreads();
-  *total = tot;
-  return off + x - v;
+// A sort key that orders as (distance, j): the float's order-preserving
+// bits (-0 as +0, so equal distances tie), then j.
+__device__ __forceinline__ unsigned long long make_key(float d, int j) {
+  unsigned u = __float_as_uint(d);
+  if ((u << 1) == 0u) u = 0u;
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(u) << 32) | static_cast<unsigned>(j);
 }
 
-// The n entries of (sd, si) into (dd, di): finite distances first, then
-// the INF ones, each group in its order (a stable sort of an array whose
-// finite entries are ascending). Ends with a barrier.
-__device__ __forceinline__ void compact(const float* sd, const int* si,
-                                        float* dd, int* di, int n,
-                                        int* scratch) {
-  const int per = (n + NT - 1) / NT;
-  const int lo = min((int)threadIdx.x * per, n), hi = min(lo + per, n);
-  int cnt = 0;
-  for (int p = lo; p < hi; ++p) cnt += sd[p] < INF_DIST;
-  int tot;
-  int fin = block_scan(cnt, scratch, &tot);
-  int inf = tot + (lo - fin);
-  for (int p = lo; p < hi; ++p) {
-    float d = sd[p];
-    int i = si[p];
-    if (d < INF_DIST) {
-      dd[fin] = d;
-      di[fin++] = i;
-    } else {
-      dd[inf] = d;
-      di[inf++] = i;
+// ---- the pool's hash table ------------------------------------------------
+
+__device__ __forceinline__ int tab_hash(int id, int shift) {
+  return static_cast<int>((static_cast<unsigned>(id) * 0x9E3779B1u) >> shift);
+}
+
+// Puts a pool id in the table (low word 0: a pool entry).
+__device__ __forceinline__ void tab_insert_pool(unsigned long long* tab,
+                                                int mask, int shift, int id) {
+  const unsigned long long want = static_cast<unsigned long long>(id) << 32;
+  for (int h = tab_hash(id, shift);; h = (h + 1) & mask) {
+    const unsigned long long old = atomicCAS(tab + h, EMPTY, want);
+    if (old == EMPTY || old == want) return;
+  }
+}
+
+// Candidate slot c with id: -1 if the id is in the pool. Else, with
+// insert (bitonic merge), the table position of its entry, whose low word
+// ends as the lowest slot + 1 of the hop's copies; without, 0.
+__device__ __forceinline__ int tab_probe(unsigned long long* tab, int mask,
+                                         int shift, int id, int c,
+                                         bool insert) {
+  const unsigned long long key = static_cast<unsigned long long>(id) << 32;
+  const unsigned long long want = key | static_cast<unsigned>(c + 1);
+  for (int h = tab_hash(id, shift);; h = (h + 1) & mask) {
+    unsigned long long cur =
+        *reinterpret_cast<volatile unsigned long long*>(tab + h);
+    if (cur == EMPTY) {
+      if (!insert) return 0;
+      cur = atomicCAS(tab + h, EMPTY, want);
+      if (cur == EMPTY) return h;
+    }
+    if ((cur >> 32) == (key >> 32)) {
+      if (static_cast<unsigned>(cur) == 0u) return -1;
+      atomicMin(tab + h, want);
+      return h;
     }
   }
+}
+
+// ---- sorting and merging in registers -------------------------------------
+
+// One compare-exchange stage (k, j) of an ascending bitonic sort, j < 32,
+// over a warp's 64-chunk at base: the lane holds elements base + lane (x0)
+// and base + lane + 32 (x1).
+__device__ __forceinline__ void sort_stage(unsigned long long& x0,
+                                           unsigned long long& x1, int base,
+                                           int k, int j, int lane) {
+  const unsigned long long p0 = __shfl_xor_sync(FULL, x0, j);
+  const unsigned long long p1 = __shfl_xor_sync(FULL, x1, j);
+  const bool lower = (lane & j) == 0;
+  const bool up0 = ((base + lane) & k) == 0;
+  const bool up1 = ((base + lane + 32) & k) == 0;
+  x0 = (lower == up0) ? min(x0, p0) : max(x0, p0);
+  x1 = (lower == up1) ? min(x1, p1) : max(x1, p1);
+}
+
+// The stages j = 32 .. 1 of bitonic step k (k >= 64) on a warp's 64-chunk.
+__device__ __forceinline__ void sort_chunk_tail(unsigned long long& x0,
+                                                unsigned long long& x1,
+                                                int base, int k, int lane) {
+  const bool up = ((base + lane) & k) == 0;   // x1's direction is the same
+  if ((x0 > x1) == up) {
+    const unsigned long long t = x0;
+    x0 = x1;
+    x1 = t;
+  }
+#pragma unroll
+  for (int j = 16; j >= 1; j >>= 1) sort_stage(x0, x1, base, k, j, lane);
+}
+
+// A warp's 64-chunk sorted: ascending where (base & 64) == 0, else
+// descending (the first six steps of a bitonic sort of the whole array).
+__device__ __forceinline__ void sort_chunk(unsigned long long& x0,
+                                           unsigned long long& x1, int base,
+                                           int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j >= 1; j >>= 1) sort_stage(x0, x1, base, k, j, lane);
+  }
+  sort_chunk_tail(x0, x1, base, 64, lane);
+}
+
+// Ascending bitonic sort of keys[0, ns) (ns a power of two >= 64) by the
+// whole block; ends with a barrier.
+__device__ void block_sort(unsigned long long* keys, int ns) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int base = warp * 64; base < ns; base += NW * 64) {
+    unsigned long long x0 = keys[base + lane], x1 = keys[base + lane + 32];
+    sort_chunk(x0, x1, base, lane);
+    keys[base + lane] = x0;
+    keys[base + lane + 32] = x1;
+  }
   __syncthreads();
+  for (int k = 128; k <= ns; k <<= 1) {
+    for (int j = k >> 1; j >= 64; j >>= 1) {
+      for (int i = threadIdx.x; i < (ns >> 1); i += NT) {
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1)), hi = lo + j;
+        const unsigned long long x = keys[lo], y = keys[hi];
+        if ((x > y) == ((lo & k) == 0)) {
+          keys[lo] = y;
+          keys[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+    for (int base = warp * 64; base < ns; base += NW * 64) {
+      unsigned long long x0 = keys[base + lane], x1 = keys[base + lane + 32];
+      sort_chunk_tail(x0, x1, base, k, lane);
+      keys[base + lane] = x0;
+      keys[base + lane + 32] = x1;
+    }
+    __syncthreads();
+  }
+}
+
+// One stage (stride s < 32) of the twin's merge network on a warp's
+// 64-chunk of (distance, id): swap iff the lower position's distance is
+// larger.
+__device__ __forceinline__ void net_stage(float& d, int& i, int s, int lane) {
+  const float pd = __shfl_xor_sync(FULL, d, s);
+  const int pi = __shfl_xor_sync(FULL, i, s);
+  const bool lower = (lane & s) == 0;
+  if (lower ? d > pd : pd > d) {
+    d = pd;
+    i = pi;
+  }
+}
+
+// The twin's bitonic merge network (_bitonic_merge: stages s = W2/2 .. 1,
+// swap iff a > b) over buf[0, W2), keeping only the exchanges whose outputs
+// reach [0, P), which it writes to the pool. SOLO: warp 0 alone (the
+// other warps do not call it), else the whole block; ends synced.
+template <bool SOLO>
+__device__ void merge_network(float* bd, int* bi, int W2, int P,
+                              float* pool_d, int* pool_i) {
+  const int lane = threadIdx.x & 31;
+  const int rank = SOLO ? lane : threadIdx.x, team = SOLO ? 32 : NT;
+  for (int s = W2 >> 1; s >= 64; s >>= 1) {
+    const int need = (P + s - 1) / s * s;   // outputs below it matter
+    for (int i = rank; i < (W2 >> 1); i += team) {
+      const int lo = ((i & ~(s - 1)) << 1) | (i & (s - 1)), hi = lo + s;
+      if (lo >= need) break;
+      const float x = bd[lo], y = bd[hi];
+      if (x > y) {
+        bd[lo] = y;
+        bd[hi] = x;
+        const int t = bi[lo];
+        bi[lo] = bi[hi];
+        bi[hi] = t;
+      }
+    }
+    if (SOLO) __syncwarp(); else __syncthreads();
+  }
+  const int first = SOLO ? 0 : threadIdx.x >> 5, step = SOLO ? 1 : NW;
+  for (int base = first * 64; base < P; base += step * 64) {
+    const int i0 = base + lane, i1 = i0 + 32;
+    float d0 = i0 < W2 ? bd[i0] : INF_DIST, d1 = i1 < W2 ? bd[i1] : INF_DIST;
+    int x0 = i0 < W2 ? bi[i0] : -1, x1 = i1 < W2 ? bi[i1] : -1;
+    if (W2 >= 64 && d0 > d1) {
+      const float t = d0;
+      d0 = d1;
+      d1 = t;
+      const int u = x0;
+      x0 = x1;
+      x1 = u;
+    }
+    for (int s = min(16, W2 >> 1); s >= 1; s >>= 1) {
+      net_stage(d0, x0, s, lane);
+      net_stage(d1, x1, s, lane);
+    }
+    if (i0 < P) {
+      pool_d[i0] = d0;
+      pool_i[i0] = x0;
+    }
+    if (i1 < P) {
+      pool_d[i1] = d1;
+      pool_i[i1] = x1;
+    }
+  }
+  if (SOLO) __syncwarp(); else __syncthreads();
+}
+
+// Warp 0: buf[0, n) into the pool with the twin's adjacent-duplicate mask
+// (a later copy of the previous entry's id becomes (INF, -1)), finite
+// distances first, then the INF ones, each group in its order (a stable
+// sort of an array whose finite entries are ascending).
+__device__ void dedup_compact(const float* bd, const int* bi, float* pool_d,
+                              int* pool_i, int n) {
+  const int lane = threadIdx.x & 31;
+  int n_fin = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int p = base + lane;
+    bool fin = false;
+    if (p < n) {
+      const int id = unpack(bi[p]);
+      const bool dup = p > 0 && id >= 0 && id == unpack(bi[p - 1]);
+      fin = !dup && bd[p] < INF_DIST;
+    }
+    n_fin += __popc(__ballot_sync(FULL, fin));
+  }
+  int fo = 0, io = n_fin;
+  for (int base = 0; base < n; base += 32) {
+    const int p = base + lane;
+    bool fin = false, inf = false;
+    float d = INF_DIST;
+    int i = -1;
+    if (p < n) {
+      const int id = unpack(bi[p]);
+      const bool dup = p > 0 && id >= 0 && id == unpack(bi[p - 1]);
+      if (!dup) {
+        d = bd[p];
+        i = bi[p];
+      }
+      fin = !dup && d < INF_DIST;
+      inf = !fin;
+    }
+    const unsigned bf = __ballot_sync(FULL, fin);
+    const unsigned bn = __ballot_sync(FULL, inf);
+    if (fin || inf) {
+      const int o = fin ? fo + __popc(bf & lanes_below(lane))
+                        : io + __popc(bn & lanes_below(lane));
+      pool_d[o] = d;
+      pool_i[o] = i;
+    }
+    fo += __popc(bf);
+    io += __popc(bn);
+  }
 }
 
 // entries of the ascending a[0, n) below x / at most x
@@ -205,18 +468,10 @@ __device__ __forceinline__ int upper_bound(const float* a, int n, float x) {
   return lo;
 }
 
-// One element of a row as the scoring mode reads it (f32 after the mode's
-// rounding), and its square's contribution to the block squared norm.
-template <int SCORE>
-__device__ __forceinline__ float elem(const Params& a, size_t i) {
-  if (SCORE == S_F32) return __ldg(a.vectors + i);
-  if (SCORE == S_BF16) return bf16r(__ldg(a.vectors + i));
-  if (SCORE == S_I8)
-    return (float)__ldg(static_cast<const signed char*>(a.blocks) + i);
-  return __half2float(__ldg(static_cast<const __half*>(a.blocks) + i));
-}
+// ---- scoring --------------------------------------------------------------
 
-// Four consecutive elements (i a multiple of 4, rows aligned: VEC).
+// Four consecutive elements (i a multiple of 4, rows aligned: VEC), f32
+// after the mode's rounding.
 template <int SCORE>
 __device__ __forceinline__ void elem4(const Params& a, size_t i, float* x) {
   if (SCORE == S_F32 || SCORE == S_BF16) {
@@ -240,37 +495,70 @@ __device__ __forceinline__ void elem4(const Params& a, size_t i, float* x) {
   }
 }
 
+// One element (any alignment).
+template <int SCORE>
+__device__ __forceinline__ float elem(const Params& a, size_t i) {
+  if (SCORE == S_F32) return __ldg(a.vectors + i);
+  if (SCORE == S_BF16) return bf16r(__ldg(a.vectors + i));
+  if (SCORE == S_I8)
+    return (float)__ldg(static_cast<const signed char*>(a.blocks) + i);
+  return __half2float(__ldg(static_cast<const __half*>(a.blocks) + i));
+}
+
 template <int SCORE>
 __device__ __forceinline__ float sq_term(float x) {
   return SCORE == S_I8 ? bf16r(x * x) : __fmul_rn(x, x);
 }
 
+// Sum over the warp of each of the U = 8 values; lanes 4u .. 4u + 3 get
+// row u's sum. Each step keeps half its rows and trades the other half
+// with the lane across (9 shuffles in place of 40).
+__device__ __forceinline__ float reduce8(const float* v, int lane) {
+  float w[4], x[2];
+  const bool b16 = lane & 16, b8 = lane & 8, b4 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float send = b16 ? v[i] : v[i + 4];
+    const float keep = b16 ? v[i + 4] : v[i];
+    w[i] = keep + __shfl_xor_sync(FULL, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float send = b8 ? w[i] : w[i + 2];
+    const float keep = b8 ? w[i + 2] : w[i];
+    x[i] = keep + __shfl_xor_sync(FULL, send, 8);
+  }
+  float y = (b4 ? x[1] : x[0]) + __shfl_xor_sync(FULL, b4 ? x[0] : x[1], 4);
+  y += __shfl_xor_sync(FULL, y, 2);
+  y += __shfl_xor_sync(FULL, y, 1);
+  return y;
+}
+
 // Distances of the n_ok listed candidates: warp w takes list entries
-// w*U .. w*U+U-1, then NW*U further, and so on.
+// w*U .. w*U+U-1, then NW*U further, and so on. Each one that can enter the
+// pool appends its key to keys[] (the count in *n_enter).
 template <int SCORE, bool VEC>
 __device__ __forceinline__ void score_list(
     const Params& a, const float* qop, float qsq, float scale,
     const int* sel_cur, const int* cand_id, const int* ok_slot, float* ok_d,
-    int n_ok) {
+    int n_ok, float worst, unsigned long long* keys, int* n_enter) {
   constexpr bool BLOCKS = SCORE == S_I8 || SCORE == S_F16;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int D = a.D, M = a.M;
+  const bool all_enter = !(worst < INF_DIST);
   for (int base = warp * U; base < n_ok; base += NW * U) {
-    size_t off[U];
-    bool v[U];
-    float vsq_row = 0.0f;   // lane u < U: the squared norm of row u
+    int row[U];   // f32 rows: the vector slot; blocks: node * block_m + m
+    float vsq_row = 0.0f;   // lane 4u: the squared norm of row u
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int k = base + u;
-      v[u] = k < n_ok;
-      const int slot = v[u] ? ok_slot[k] : 0;
+      const int slot = k < n_ok ? ok_slot[k] : -1;
       if (BLOCKS) {
         const int e = slot / M, m = slot - e * M;
-        off[u] = ((size_t)sel_cur[e] * a.block_m + m) * D;
+        row[u] = slot < 0 ? -1 : sel_cur[e] * a.block_m + m;
       } else {
-        const int id = v[u] ? cand_id[slot] : 0;
-        off[u] = (size_t)id * D;
-        if (lane == u && v[u]) vsq_row = __ldg(a.sq_norms + id);
+        row[u] = slot < 0 ? -1 : cand_id[slot];
+        if (lane == 4 * u && slot >= 0) vsq_row = __ldg(a.sq_norms + row[u]);
       }
     }
     float acc[U], ssq[U];
@@ -282,8 +570,8 @@ __device__ __forceinline__ void score_list(
         float x[U][4];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          if (v[u]) {
-            elem4<SCORE>(a, off[u] + k, x[u]);
+          if (row[u] >= 0) {
+            elem4<SCORE>(a, (size_t)row[u] * D + k, x[u]);
           } else {
             x[u][0] = x[u][1] = x[u][2] = x[u][3] = 0.0f;
           }
@@ -305,8 +593,8 @@ __device__ __forceinline__ void score_list(
         const float qk = qop[k];
         float x[U];
 #pragma unroll
-        for (int u = 0; u < U; ++u) x[u] = v[u] ? elem<SCORE>(a, off[u] + k)
-                                                : 0.0f;
+        for (int u = 0; u < U; ++u)
+          x[u] = row[u] >= 0 ? elem<SCORE>(a, (size_t)row[u] * D + k) : 0.0f;
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           acc[u] = fmaf(qk, x[u], acc[u]);
@@ -314,25 +602,10 @@ __device__ __forceinline__ void score_list(
         }
       }
     }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int o = 16; o >= 1; o >>= 1) {
-        acc[u] += __shfl_xor_sync(FULL, acc[u], o);
-        if (BLOCKS) ssq[u] += __shfl_xor_sync(FULL, ssq[u], o);
-      }
-    }
-    bool mine = false;
-    float qv = 0.0f, s = 0.0f;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (lane == u) {
-        mine = v[u];
-        qv = acc[u];
-        s = ssq[u];
-      }
-    }
-    if (mine) {
+    float qv = reduce8(acc, lane);
+    const float s = BLOCKS ? reduce8(ssq, lane) : 0.0f;
+    const int j = base + (lane >> 2);
+    if ((lane & 3) == 0 && j < n_ok) {
       float vsq;
       if (SCORE == S_I8) {
         qv = __fmul_rn(qv, scale);
@@ -343,31 +616,45 @@ __device__ __forceinline__ void score_list(
       } else {
         vsq = vsq_row;
       }
-      ok_d[base + lane] = epilogue(a.metric, qv, qsq, vsq);
+      const float d = epilogue(a.metric, qv, qsq, vsq);
+      ok_d[j] = d;
+      if (all_enter || (a.merge_sort ? d < worst : d <= worst))
+        keys[atomicAdd(n_enter, 1)] = make_key(d, j);
     }
   }
 }
 
+// ---- the kernel -------------------------------------------------------------
+
 template <int SCORE, bool VEC>
-__global__ void __launch_bounds__(NT) beam_search_kernel(Params a) {
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+    beam_search_kernel(Params a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool BLOCKS = SCORE == S_I8 || SCORE == S_F16;
   const int b = blockIdx.x, tid = threadIdx.x;
-  const int D = a.D, P = a.P, E = a.E, M = a.M, C = E * M, W2 = a.W2;
-  const int WB = a.merge_sort ? P : W2;
-  float* qop = reinterpret_cast<float*>(smem);        // D (padded to 4)
-  float* pool_d = qop + ((D + 3) & ~3);               // P
-  int* pool_i = reinterpret_cast<int*>(pool_d + P);   // P
-  float* buf_d = reinterpret_cast<float*>(pool_i + P);  // WB
-  int* buf_i = reinterpret_cast<int*>(buf_d + WB);    // WB
-  int* cand_id = buf_i + WB;                          // C
-  int* ok_slot = cand_id + C;                         // C
-  float* ok_d = reinterpret_cast<float*>(ok_slot + C);  // C
-  float* so_d = ok_d + C;                             // C
-  int* so_i = reinterpret_cast<int*>(so_d + C);       // C
-  int* so_r = so_i + C;                               // C
-  int* sel_j = so_r + C;                              // E
-  int* sel_cur = sel_j + E;                           // E
-  int* scratch = sel_cur + E;                         // NW
+  const int lane = tid & 31, warp = tid >> 5;
+  const int D = a.D, P = a.P, E = a.E, M = a.M, C = a.C, W2 = a.W2;
+  const int H = a.H, NS = a.NS, WB = a.WB, sort_merge = a.merge_sort;
+  const int mask = H - 1, shift = a.shift;
+#define SMEM(T, name) reinterpret_cast<T*>(smem + a.L.name)
+  float* const qop = reinterpret_cast<float*>(smem);      // D (padded to 4)
+  unsigned long long* const tab = SMEM(unsigned long long, tab);   // H
+  unsigned long long* const keys = SMEM(unsigned long long, keys);  // NS
+  float* const pool_d = SMEM(float, pool_d);              // P
+  int* const pool_i = SMEM(int, pool_i);                  // P
+  float* const buf_d = SMEM(float, buf_d);                // WB
+  int* const buf_i = SMEM(int, buf_i);                    // WB
+  int* const cand_id = SMEM(int, cand_id);                // C
+  int* const cand_pos = SMEM(int, cand_pos);              // C
+  int* const ok_slot = SMEM(int, ok_slot);                // C
+  float* const ok_d = SMEM(float, ok_d);                  // C
+  float* const so_d = SMEM(float, so_d);                  // C (sort)
+  int* const so_i = SMEM(int, so_i);                      // C (sort)
+  int* const so_r = SMEM(int, so_r);                      // C (sort)
+  int* const sel_j = SMEM(int, sel_j);                    // E
+  int* const sel_cur = SMEM(int, sel_cur);                // E
+  int* const counts = SMEM(int, counts);  // taken, listed, entering
+#undef SMEM
 
   // the query row as the scoring mode multiplies it
   const float* q = a.queries + (size_t)b * D;
@@ -377,6 +664,7 @@ __global__ void __launch_bounds__(NT) beam_search_kernel(Params a) {
   }
   const float qsq = a.q_sq[b];
   const float scale = SCORE == S_I8 ? *a.block_scale : 1.0f;
+  for (int h = tid; h < H; h += NT) tab[h] = EMPTY;
 
   // pool init: the start entries lead; more than one are sorted stably by
   // distance and adjacent duplicate ids masked, as the twin does
@@ -404,200 +692,209 @@ __global__ void __launch_bounds__(NT) beam_search_kernel(Params a) {
       buf_i[p] = -1;
     }
     __syncthreads();
-    for (int p = tid; p < P; p += NT)
-      pool_i[p] = p > 0 && buf_i[p] >= 0 && buf_i[p] == buf_i[p - 1];
+    if (warp == 0) dedup_compact(buf_d, buf_i, pool_d, pool_i, P);
     __syncthreads();
+  }
+
+#ifdef BEAM_PHASE_CLOCKS
+  __shared__ long long clk[N_PHASE + 1];
+  if (tid == 0) {
+    for (int i = 0; i < N_PHASE; ++i) clk[i] = 0;
+    clk[N_PHASE] = clock64();
+  }
+#endif
+  int hops = 0, n_exp = 0, n_scored = 0;
+  while (hops < a.max_hops) {
+    // S. the pool's ids into the table (cleared at init or in the last
+    // hop's scoring); warp 0 selects the first E unexpanded finite entries
+    // in pool order and marks the taken ones (the pool is ascending: they
+    // lead)
     for (int p = tid; p < P; p += NT) {
-      if (pool_i[p]) {
-        buf_d[p] = INF_DIST;
-        buf_i[p] = -1;
+      const int id = unpack(pool_i[p]);
+      if (id >= 0) tab_insert_pool(tab, mask, shift, id);
+    }
+    if (warp == 0) {
+      const float worst = pool_d[P - 1];
+      int found = 0;
+      for (int base = 0; base < P && found < E; base += 32) {
+        const int p = base + lane;
+        const int pi = p < P ? pool_i[p] : -1;
+        const bool elig = pi >= 0 && pi < EXP_BIT && pool_d[p] < INF_DIST;
+        const unsigned bal = __ballot_sync(FULL, elig);
+        const int r = found + __popc(bal & lanes_below(lane));
+        if (elig && r < E) sel_j[r] = p;
+        found += __popc(bal);
+      }
+      __syncwarp();
+      const int n_sel = min(found, E);
+      int n_take = 0;
+      for (int base = 0; base < n_sel; base += 32) {
+        const int e = base + lane;
+        n_take += __popc(__ballot_sync(
+            FULL, e < n_sel && pool_d[sel_j[min(e, n_sel - 1)]] < worst));
+      }
+      for (int e = lane; e < n_take; e += 32) {
+        const int p = sel_j[e];
+        sel_cur[e] = pool_i[p];
+        pool_i[p] |= EXP_BIT;
+      }
+      if (lane == 0) {
+        counts[0] = n_take;
+        counts[2] = 0;
       }
     }
     __syncthreads();
-    compact(buf_d, buf_i, pool_d, pool_i, P, scratch);
-  }
-
-  int hops = 0, n_exp = 0, n_scored = 0;
-  const int per_p = (P + NT - 1) / NT;
-  const int p_lo = min(tid * per_p, P), p_hi = min(p_lo + per_p, P);
-  while (hops < a.max_hops) {
-    // 1. select: the first E unexpanded finite entries in pool order
-    const float worst = pool_d[P - 1];
-    int cnt = 0;
-    for (int p = p_lo; p < p_hi; ++p) {
-      const int pi = pool_i[p];
-      cnt += pi >= 0 && pi < EXP_BIT && pool_d[p] < INF_DIST;
-    }
-    int n_elig;
-    int ord = block_scan(cnt, scratch, &n_elig);
-    for (int p = p_lo; p < p_hi && ord < E; ++p) {
-      const int pi = pool_i[p];
-      if (pi >= 0 && pi < EXP_BIT && pool_d[p] < INF_DIST) sel_j[ord++] = p;
-    }
-    __syncthreads();
-    const int n_sel = min(n_elig, E);
-    int n_take = 0;   // the pool is ascending: the taken entries lead
-    for (int e = 0; e < n_sel; ++e) n_take += pool_d[sel_j[e]] < worst;
+    PHASE_MARK(PH_SELECT);
+    const int n_take = counts[0];
     if (n_take == 0) break;
-    // 2. mark
-    for (int e = tid; e < n_take; e += NT) {
-      const int p = sel_j[e];
-      sel_cur[e] = pool_i[p];
-      pool_i[p] |= EXP_BIT;
-    }
-    __syncthreads();
-    // 3-4. gather ids, mask invalid and in-pool ids
+
+    // G. gather ids; mask invalid and in-pool ids (and, bitonic, leave
+    // each id's lowest slot of the hop in the table)
     const int Ct = n_take * M;
     for (int c = tid; c < C; c += NT) {
-      int id = -1;
+      int id = -1, pos = 0;
       if (c < Ct) {
         const int e = c / M, m = c - e * M;
         int row = sel_cur[e];
+        if (BLOCKS)
+          prefetch_l2(static_cast<const char*>(a.blocks) +
+                          ((size_t)row * a.block_m + m) * D *
+                              (SCORE == S_I8 ? 1 : 2),
+                      D * (SCORE == S_I8 ? 1 : 2));
         if (a.upper_map != nullptr) {
           const int u = __ldg(a.upper_map + row);
           row = u < 0 ? -1 : min(u, a.n_rows - 1);
         }
         if (row >= 0) id = __ldg(a.table + (size_t)row * a.width + m);
         if (id >= 0) {
-          for (int p = 0; p < P; ++p) {
-            if ((pool_i[p] & ~EXP_BIT) == id) {
-              id = -1;
-              break;
-            }
-          }
+          if (!BLOCKS) prefetch_l2(a.vectors + (size_t)id * D, 4 * D);
+          pos = tab_probe(tab, mask, shift, id, c, !sort_merge);
+          if (pos < 0) id = -1;
         }
       }
       cand_id[c] = id;
+      cand_pos[c] = pos;
     }
     __syncthreads();
-    if (!a.merge_sort) {
-      // same-hop duplicates: keep the first copy
-      for (int c = tid; c < Ct; c += NT) {
-        const int id = cand_id[c];
-        int dup = 0;
-        if (id >= 0) {
-          for (int t = 0; t < c; ++t) {
-            if (cand_id[t] == id) {
-              dup = 1;
-              break;
-            }
-          }
-        }
-        so_r[c] = dup;
+    PHASE_MARK(PH_GATHER);
+
+    // L. warp 0: the list of candidates to score, in slot order (bitonic:
+    // a slot whose id's table entry names a lower slot is a later copy);
+    // the other warps lay out the merge buffer (bitonic: the pool, then an
+    // INF pad; sort: INF)
+    if (warp == 0) {
+      int n = 0;
+      for (int base = 0; base < Ct; base += 32) {
+        const int c = base + lane;
+        bool ok = c < Ct && cand_id[c] >= 0;
+        if (ok && !sort_merge)
+          ok = static_cast<unsigned>(tab[cand_pos[c]]) ==
+               static_cast<unsigned>(c + 1);
+        const unsigned bal = __ballot_sync(FULL, ok);
+        if (ok) ok_slot[n + __popc(bal & lanes_below(lane))] = c;
+        n += __popc(bal);
       }
-      __syncthreads();
-      for (int c = tid; c < Ct; c += NT)
-        if (so_r[c]) cand_id[c] = -1;
-      __syncthreads();
-    }
-    // the list of candidates to score, in slot order
-    const int per_c = (Ct + NT - 1) / NT;
-    const int c_lo = min(tid * per_c, Ct), c_hi = min(c_lo + per_c, Ct);
-    cnt = 0;
-    for (int c = c_lo; c < c_hi; ++c) cnt += cand_id[c] >= 0;
-    int n_ok;
-    int k = block_scan(cnt, scratch, &n_ok);
-    for (int c = c_lo; c < c_hi; ++c)
-      if (cand_id[c] >= 0) ok_slot[k++] = c;
-    __syncthreads();
-    // 5. score
-    score_list<SCORE, VEC>(a, qop, qsq, scale, sel_cur, cand_id, ok_slot,
-                           ok_d, n_ok);
-    __syncthreads();
-    // rank the scored candidates by (distance, slot): so_* is the sorted
-    // list, so_r each one's rank among all C slots (the masked slots are
-    // (INF, -1) and rank before a scored one only at a distance >= INF)
-    for (int j = tid; j < n_ok; j += NT) {
-      const float d = ok_d[j];
-      int r = 0;
-      for (int t = 0; t < n_ok; ++t) {
-        const float e = ok_d[t];
-        r += (e < d) || (e == d && t < j);
-      }
-      int full = r;
-      if (d >= INF_DIST) {
-        const int slot = ok_slot[j];
-        for (int c = 0; c < C; ++c)
-          full += cand_id[c] < 0 && (INF_DIST < d || c < slot);
-      }
-      so_d[r] = d;
-      so_i[r] = cand_id[ok_slot[j]];
-      so_r[r] = full;
-    }
-    __syncthreads();
-    // 6. merge
-    if (!a.merge_sort) {
-      for (int p = tid; p < W2; p += NT) {
-        buf_d[p] = p < P ? pool_d[p] : INF_DIST;
-        buf_i[p] = p < P ? pool_i[p] : -1;
-      }
-      __syncthreads();
-      for (int j = tid; j < n_ok; j += NT) {
-        const int pos = W2 - 1 - so_r[j];
-        buf_d[pos] = so_d[j];
-        buf_i[pos] = so_i[j];
-      }
-      __syncthreads();
-      for (int s = W2 >> 1; s >= 1; s >>= 1) {
-        for (int p = tid; p < (W2 >> 1); p += NT) {
-          const int lo = ((p & ~(s - 1)) << 1) | (p & (s - 1)), hi = lo + s;
-          const float x = buf_d[lo], y = buf_d[hi];
-          if (x > y) {
-            buf_d[lo] = y;
-            buf_d[hi] = x;
-            const int t = buf_i[lo];
-            buf_i[lo] = buf_i[hi];
-            buf_i[hi] = t;
-          }
-        }
-        __syncthreads();
-      }
-      for (int p = tid; p < P; p += NT) {
-        pool_d[p] = buf_d[p];
-        pool_i[p] = buf_i[p];
-      }
-      __syncthreads();
+      if (lane == 0) counts[1] = n;
     } else {
-      const int n_masked = C - n_ok;
-      for (int p = tid; p < P; p += NT) {
-        buf_d[p] = INF_DIST;
-        buf_i[p] = -1;
+      for (int p = tid - 32; p < WB; p += NT - 32) {
+        const bool keep = !sort_merge && p < P;
+        buf_d[p] = keep ? pool_d[p] : INF_DIST;
+        buf_i[p] = keep ? pool_i[p] : -1;
       }
-      __syncthreads();
-      for (int p = tid; p < P; p += NT) {
-        const float d = pool_d[p];
-        const int pos = p + lower_bound(so_d, n_ok, d)
-                        + (d > INF_DIST ? n_masked : 0);
-        if (pos < P) {
-          buf_d[pos] = d;
-          buf_i[pos] = pool_i[p];
-        }
-      }
-      for (int j = tid; j < n_ok; j += NT) {
-        const int pos = so_r[j] + upper_bound(pool_d, P, so_d[j]);
-        if (pos < P) {
-          buf_d[pos] = so_d[j];
-          buf_i[pos] = so_i[j];
-        }
-      }
-      __syncthreads();
-      for (int p = tid; p < P; p += NT) {
-        const int id = unpack(buf_i[p]);
-        pool_i[p] = p > 0 && id >= 0 && id == unpack(buf_i[p - 1]);
-      }
-      __syncthreads();
-      for (int p = tid; p < P; p += NT) {
-        if (pool_i[p]) {
-          buf_d[p] = INF_DIST;
-          buf_i[p] = -1;
-        }
-      }
-      __syncthreads();
-      compact(buf_d, buf_i, pool_d, pool_i, P, scratch);
     }
+    __syncthreads();
+    PHASE_MARK(PH_LIST);
+    const int n_ok = counts[1];
+
+    // C. score; the candidates that can enter the pool leave their keys;
+    // the table is cleared for the next hop
+    for (int h = tid; h < H; h += NT) tab[h] = EMPTY;
+    score_list<SCORE, VEC>(a, qop, qsq, scale, sel_cur, cand_id, ok_slot,
+                           ok_d, n_ok, pool_d[P - 1], keys, counts + 2);
+    __syncthreads();
+    PHASE_MARK(PH_SCORE);
+    const int ng = counts[2];
     ++hops;
     n_exp += n_take;
     n_scored += n_ok;
+    if (ng == 0) continue;   // no candidate reaches the first P outputs
+
+    // R. rank the entering candidates by (distance, slot) and merge. A
+    // scored candidate ranks before the masked slots (INF, -1) unless its
+    // distance is >= INF.
+    const int n_masked = C - n_ok;
+    const bool solo = ng <= 64 && P + C <= SOLO_WIDTH;
+    if (solo) {
+      if (warp == 0) {
+        unsigned long long x0 = lane < ng ? keys[lane] : KEY_PAD;
+        unsigned long long x1 = lane + 32 < ng ? keys[lane + 32] : KEY_PAD;
+        sort_chunk(x0, x1, 0, lane);
+        keys[lane] = x0;
+        keys[lane + 32] = x1;
+        __syncwarp();
+      }
+    } else {
+      for (int i = ng + tid; i < NS; i += NT) keys[i] = KEY_PAD;
+      __syncthreads();
+      block_sort(keys, max(64, 1 << (32 - __clz(ng - 1))));
+    }
+    // each ranked candidate: bitonic, to W2 - 1 - its rank among all C
+    // slots; sort, to the ranked list
+    if (!solo || warp == 0) {
+      for (int r = solo ? lane : tid; r < ng; r += solo ? 32 : NT) {
+        const int j = static_cast<int>(keys[r] & 0xffffffffu);
+        const int slot = ok_slot[j];
+        const float d = ok_d[j];
+        const int id = cand_id[slot];
+        const int full = r + (d > INF_DIST ? n_masked
+                              : d >= INF_DIST ? slot - j : 0);
+        if (sort_merge) {
+          so_d[r] = d;
+          so_i[r] = id;
+          so_r[r] = full;
+        } else {
+          buf_d[W2 - 1 - full] = d;
+          buf_i[W2 - 1 - full] = id;
+        }
+      }
+    }
+    if (solo) __syncwarp(); else __syncthreads();
+    PHASE_MARK(PH_RANK);
+    if (!sort_merge) {
+      if (!solo) {
+        merge_network<false>(buf_d, buf_i, W2, P, pool_d, pool_i);
+      } else {
+        if (warp == 0)
+          merge_network<true>(buf_d, buf_i, W2, P, pool_d, pool_i);
+        __syncthreads();
+      }
+      PHASE_MARK(PH_MERGE);
+    } else {
+      if (!solo || warp == 0) {
+        const int rank = solo ? lane : tid, team = solo ? 32 : NT;
+        for (int p = rank; p < P; p += team) {
+          const float d = pool_d[p];
+          const int pos = p + lower_bound(so_d, ng, d)
+                          + (d > INF_DIST ? n_masked : 0);
+          if (pos < P) {
+            buf_d[pos] = d;
+            buf_i[pos] = pool_i[p];
+          }
+        }
+        for (int r = rank; r < ng; r += team) {
+          const int pos = so_r[r] + upper_bound(pool_d, P, so_d[r]);
+          if (pos < P) {
+            buf_d[pos] = so_d[r];
+            buf_i[pos] = so_i[r];
+          }
+        }
+      }
+      if (solo) __syncwarp(); else __syncthreads();
+      PHASE_MARK(PH_MERGE);
+      if (warp == 0) dedup_compact(buf_d, buf_i, pool_d, pool_i, P);
+      __syncthreads();
+      PHASE_MARK(PH_COMPACT);
+    }
   }
   // the pool is ascending with its empty slots last: the twin's final
   // stable sort leaves it as it is
@@ -611,6 +908,11 @@ __global__ void __launch_bounds__(NT) beam_search_kernel(Params a) {
     a.work[2 * b] = n_exp;
     a.work[2 * b + 1] = n_scored;
   }
+#ifdef BEAM_PHASE_CLOCKS
+  if (tid == 0 && a.clocks != nullptr)
+    for (int i = 0; i < N_PHASE; ++i)
+      a.clocks[(size_t)b * N_PHASE + i] = clk[i];
+#endif
 }
 
 int next_pow2(int n) {
@@ -619,10 +921,41 @@ int next_pow2(int n) {
   return w;
 }
 
-size_t smem_bytes(int D, int P, int E, int M, int merge_sort) {
-  const int C = E * M;
+// table slots: twice the keys it may hold (bitonic: pool and candidate
+// ids; sort: pool ids)
+int table_slots(int P, int C, int merge_sort) {
+  return next_pow2(2 * (P + (merge_sort ? 0 : C)));
+}
+
+int key_slots(int C) { return next_pow2(C) > 64 ? next_pow2(C) : 64; }
+
+Layout layout(int D, int P, int E, int M, int merge_sort) {
+  const int C = E * M, SC = merge_sort ? C : 0;
   const int WB = merge_sort ? P : next_pow2(P + C);
-  return 4 * (size_t)(((D + 3) & ~3) + 2 * P + 2 * WB + 6 * C + 2 * E + NW);
+  Layout L;
+  int o = 4 * ((D + 3) & ~3);
+  L.tab = o;      o += 8 * table_slots(P, C, merge_sort);
+  L.keys = o;     o += 8 * key_slots(C);
+  L.pool_d = o;   o += 4 * P;
+  L.pool_i = o;   o += 4 * P;
+  L.buf_d = o;    o += 4 * WB;
+  L.buf_i = o;    o += 4 * WB;
+  L.cand_id = o;  o += 4 * C;
+  L.cand_pos = o; o += 4 * C;
+  L.ok_slot = o;  o += 4 * C;
+  L.ok_d = o;     o += 4 * C;
+  L.so_d = o;     o += 4 * SC;
+  L.so_i = o;     o += 4 * SC;
+  L.so_r = o;     o += 4 * SC;
+  L.sel_j = o;    o += 4 * E;
+  L.sel_cur = o;  o += 4 * E;
+  L.counts = o;   o += 16;
+  L.bytes = o;
+  return L;
+}
+
+size_t smem_bytes(int D, int P, int E, int M, int merge_sort) {
+  return (size_t)layout(D, P, E, M, merge_sort).bytes;
 }
 
 template <int SCORE, bool VEC>
@@ -643,6 +976,10 @@ cudaError_t launch_vec(const Params& p, bool vec, int B, size_t smem,
   return vec ? launch<SCORE, true>(p, B, smem, st)
              : launch<SCORE, false>(p, B, smem, st);
 }
+
+#ifdef BEAM_PHASE_CLOCKS
+long long* g_clocks = nullptr;   // the next launch's phase counters
+#endif
 
 bool aligned(const void* ptr, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
@@ -695,12 +1032,24 @@ int beam_search_launch(const void* queries, const void* q_sq,
   p.metric = metric;
   p.merge_sort = merge_sort;
   p.normalized = normalized;
-  p.W2 = next_pow2(P + E * M);
+  p.C = E * M;
+  p.W2 = next_pow2(P + p.C);
+  p.WB = merge_sort ? P : p.W2;
+  p.H = table_slots(P, p.C, merge_sort);
+  p.NS = key_slots(p.C);
+  p.shift = 32;
+  for (int h = p.H; h > 1; h >>= 1) --p.shift;   // 32 - log2(H)
+  p.L = layout(D, P, E, M, merge_sort);
   p.out_d = static_cast<float*>(out_d);
   p.out_i = static_cast<int*>(out_i);
   p.hops = static_cast<int*>(hops);
   p.work = static_cast<int*>(work);
-  const size_t smem = smem_bytes(D, P, E, M, merge_sort);
+#ifdef BEAM_PHASE_CLOCKS
+  p.clocks = g_clocks;
+#else
+  p.clocks = nullptr;
+#endif
+  const size_t smem = (size_t)p.L.bytes;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // whole-row vector loads: rows start at multiples of D elements, so
   // D % 4 == 0 and an aligned base keep every row aligned
@@ -721,6 +1070,50 @@ int beam_search_launch(const void* queries, const void* q_sq,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+#ifdef BEAM_PHASE_CLOCKS
+// Phase counters of the next launches: [B, N_PHASE] int64 on the device,
+// or null (tools/hop_split.py).
+int beam_search_phase_count() { return N_PHASE; }
+void beam_search_set_clocks(void* clocks) {
+  g_clocks = static_cast<long long*>(clocks);
+}
+#endif
+
+// The SM clock in kHz (cudaDevAttrClockRate of the current device).
+int beam_search_clock_khz() {
+  int dev = 0, khz = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&khz, cudaDevAttrClockRate, dev) != cudaSuccess)
+    return 0;
+  return khz;
+}
+
+// Resident blocks an SM of one instantiation at ``smem`` bytes of dynamic
+// shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int beam_search_blocks_per_sm(int score, int vec, int smem) {
+  int n = 0;
+  const void* f = nullptr;
+  switch (score * 2 + (vec ? 1 : 0)) {
+    case 0: f = (const void*)beam_search_kernel<S_F32, false>; break;
+    case 1: f = (const void*)beam_search_kernel<S_F32, true>; break;
+    case 2: f = (const void*)beam_search_kernel<S_BF16, false>; break;
+    case 3: f = (const void*)beam_search_kernel<S_BF16, true>; break;
+    case 4: f = (const void*)beam_search_kernel<S_I8, false>; break;
+    case 5: f = (const void*)beam_search_kernel<S_I8, true>; break;
+    case 6: f = (const void*)beam_search_kernel<S_F16, false>; break;
+    case 7: f = (const void*)beam_search_kernel<S_F16, true>; break;
+    default: return -1;
+  }
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, f, NT, smem) !=
+      cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // extern "C"

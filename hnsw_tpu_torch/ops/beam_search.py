@@ -62,50 +62,79 @@ _lock = threading.Lock()
 _lib = None
 
 
-def build() -> str:
-    """Compile ``csrc/beam_search.cu`` if the library is missing or older
-    than the source; returns the library's path."""
-    so = os.path.join(BUILD_DIR, "libbeam_search.so")
+def build(defines=(), build_dir: Optional[str] = None,
+          source: Optional[str] = None) -> str:
+    """Compile ``csrc/beam_search.cu`` (or ``source``) into ``build_dir``
+    (default ``BUILD_DIR``) if the library is missing or older than the
+    source; returns the library's path. ``defines``: macros passed as
+    ``-D`` (``BEAM_PHASE_CLOCKS`` for ``tools/hop_split.py``; the port
+    defines none). ptxas's report goes to ``beam_search.ptxas.txt``
+    beside the library."""
+    build_dir = build_dir or BUILD_DIR
+    source = source or SOURCE
+    so = os.path.join(build_dir, "libbeam_search.so")
     if (os.path.exists(so)
-            and os.path.getmtime(so) >= os.path.getmtime(SOURCE)):
+            and os.path.getmtime(so) >= os.path.getmtime(source)):
         return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", SOURCE, "-o", tmp]
+           "-Xptxas", "-v", *(f"-D{m}" for m in defines), source,
+           "-o", tmp]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    with open(os.path.join(BUILD_DIR, "beam_search.ptxas.txt"), "w") as f:
+    with open(os.path.join(build_dir, "beam_search.ptxas.txt"), "w") as f:
         f.write(res.stderr)
     os.replace(tmp, so)
     return so
+
+
+def bind(path: str):
+    """The library at ``path`` loaded with ctypes, its entry points
+    typed."""
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.beam_search_launch.argtypes = (
+        [vp] * 4 + [ci, vp, ci, vp, ci, vp, vp, vp, ci, vp]
+        + [ci] * 10 + [vp] * 5)
+    lib.beam_search_launch.restype = ci
+    lib.beam_search_smem_bytes.argtypes = [ci] * 5
+    lib.beam_search_smem_bytes.restype = ci
+    lib.beam_search_blocks_per_sm.argtypes = [ci] * 3
+    lib.beam_search_blocks_per_sm.restype = ci
+    lib.beam_search_clock_khz.restype = ci
+    return lib
 
 
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.beam_search_launch.argtypes = (
-                [vp] * 4 + [ci, vp, ci, vp, ci, vp, vp, vp, ci, vp]
-                + [ci] * 10 + [vp] * 5)
-            lib.beam_search_launch.restype = ci
-            lib.beam_search_smem_bytes.argtypes = [ci] * 5
-            lib.beam_search_smem_bytes.restype = ci
-            _lib = lib
+            _lib = bind(build())
         return _lib
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
 
 
 def smem_bytes(D: int, P: int, E: int, M: int, merge: str) -> int:
     """Dynamic shared memory of one block of the kernel, in bytes (the
-    library's ``beam_search_smem_bytes``)."""
+    library's ``beam_search_smem_bytes``): the pool's hash table (twice
+    its keys: pool ids, and under the bitonic merge a hop's candidate ids;
+    8 bytes a slot), the sort keys (8 bytes, at least 64), the query row,
+    the pool, the merge buffer (the next power of two >= P + E*M under the
+    bitonic merge, P under the sort merge), four candidate arrays, the
+    sort merge's ranked list, the selection and three counts."""
     C = E * M
-    wb = P if merge == "sort" else 1 << (P + C - 1).bit_length()
-    return 4 * (((D + 3) & ~3) + 2 * P + 2 * wb + 6 * C + 2 * E
-                + _THREADS // 32)
+    sort = merge == "sort"
+    wb = P if sort else _next_pow2(P + C)
+    table = _next_pow2(2 * (P + (0 if sort else C)))
+    keys = max(64, _next_pow2(C))
+    return 8 * (table + keys) + 4 * (((D + 3) & ~3) + 2 * P + 2 * wb + 4 * C
+                                     + (3 * C if sort else 0) + 2 * E + 4)
 
 
 def _covered(g, layer: int, metric: str, merge: str

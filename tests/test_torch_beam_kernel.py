@@ -16,8 +16,11 @@ On the CPU:
       tensors, and that a CPU graph never loads the library.
 Marked ``cuda`` (skipped without an NVIDIA GPU; decided in the fixture):
   (d) the kernel against the twin on the same layer inputs, in every mode
-      it covers. Ids overlap >= 0.99; distances of shared ids within 1e-5
-      for f32 rows and fp16 blocks (f32 sums in another order) and 1e-3
+      it covers, and where its design could part from the twin's: equal
+      distances, a hop's duplicate ids, an INF start entry with a valid
+      id, a whole batch of 1,024 queries in one wave. Ids overlap >=
+      0.99; distances of shared ids within 1e-5 for f32 rows and fp16
+      blocks (f32 sums in another order) and 1e-3
       where the operands are bf16-rounded (DEFAULT rows, int8 blocks: a
       near tie may also steer a hop); hop counts equal. Run on a GPU
       machine with
@@ -240,7 +243,7 @@ def test_layer_mode_limits_and_metrics():
         assert bs.layer_mode(g, 0, "l2", 512, 4, merge) == "rows"
         assert bs.layer_mode(g, 0, "l2", 4096 - 128, 4, merge) == "rows"
         assert bs.layer_mode(g, 0, "l2", 4096 - 127, 4, merge) is None
-    assert bs.smem_bytes(128, 512, 4, 32, "bitonic") == 15_920
+    assert bs.smem_bytes(128, 512, 4, 32, "bitonic") == 32_304
     assert bs.smem_bytes(128, 4096 - 128, 4, 32, "bitonic") <= bs.SMEM_LIMIT
     for metric in ("cosine", "l2", "sqeuclidean", "dot"):
         assert bs.layer_mode(g, 0, metric, 64, 4) == "rows"
@@ -251,6 +254,63 @@ def test_layer_mode_limits_and_metrics():
     assert bs.layer_mode(g, 0, "l2", 64, 4, "heap") is None
     q = torch.empty((8, 128), device=meta)
     assert not bs.hop_kernel_applies(g, 0, "l2", q, 64, 4)
+
+
+def _earlier_smem_bytes(D, P, E, M, merge):
+    """The shared memory of the kernel's earlier layout (the query row,
+    pool, merge buffer, six candidate arrays, no hash table or sort
+    keys), for the coverage check below."""
+    C = E * M
+    wb = P if merge == "sort" else 1 << (P + C - 1).bit_length()
+    return 4 * (((D + 3) & ~3) + 2 * P + 2 * wb + 6 * C + 2 * E + 4)
+
+
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+def test_smem_bytes_at_the_limits(merge):
+    """The layout's bytes (csrc/beam_search.cu's note): the table and keys
+    at 8 bytes a slot, the rest at 4. ef 64 / 192 at the smoke's D = 128,
+    E = 4, M = 32 stay under 27.5 KB (eight blocks an SM); ef 512 and
+    P + E*M = 4,096 fit 227 KB."""
+    want = {"bitonic": {64: 10_288, 192: 17_456, 512: 32_304,
+                        3968: 133_680},
+            "sort": {64: 7_216, 192: 12_336, 512: 21_552, 3968: 134_192}}
+    for P, nbytes in want[merge].items():
+        assert bs.smem_bytes(128, P, 4, 32, merge) == nbytes
+        for D in (7, 960, 4096):     # the query row: D padded to 4, 4 bytes
+            assert bs.smem_bytes(D, P, 4, 32, merge) \
+                == nbytes + 4 * (((D + 3) & ~3) - 128)
+    assert bs.smem_bytes(128, 192, 4, 32, merge) <= 28_160   # 27.5 KB
+    assert bs.smem_bytes(128, 4096 - 128, 4, 32, merge) <= bs.SMEM_LIMIT
+    assert bs.smem_bytes(128, 4096 - 8, 1, 8, merge) <= bs.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+def test_layer_mode_keeps_every_shape_it_took(merge):
+    """Every (D, P, E, M) that the earlier layout fitted in 227 KB within
+    P + E*M <= 4,096 the kernel still takes, for D up to 16,384. (The hash
+    table and sort keys cost up to 64 KB more at the width limit, so there
+    D may now reach 24,692 where it reached 41,204.)"""
+    meta = torch.device("meta")
+    for D in (7, 32, 128, 960, 4096, 16_384):
+        for M in (8, 16, 32, 64):
+            g = DeviceGraph(
+                vectors=torch.empty((8, D), device=meta),
+                sq_norms=torch.empty(8, device=meta),
+                neighbors=torch.empty((1, 8, M), dtype=torch.int32,
+                                      device=meta),
+                levels=torch.empty(8, dtype=torch.int32, device=meta),
+                alive=torch.empty(8, dtype=torch.bool, device=meta),
+                entry=torch.empty((), dtype=torch.int32, device=meta))
+            for E in (1, 4, 8):
+                for P in (8, 64, 100, 192, 512, 1024, 4096 - E * M):
+                    if P < 1 or P + E * M > bs.HOP_MAX_WIDTH:
+                        continue
+                    old = _earlier_smem_bytes(D, P, E, M, merge)
+                    if old <= bs.SMEM_LIMIT:
+                        assert bs.layer_mode(g, 0, "l2", P, E, merge) \
+                            == "rows", (D, P, E, M)
+                        assert bs.smem_bytes(D, P, E, M, merge) \
+                            <= bs.SMEM_LIMIT
 
 
 def test_twin_layers_on_cuda_are_counted_by_reason(hosts, monkeypatch):
@@ -531,10 +591,151 @@ def test_smem_bytes_match_the_library(cuda):
     lib = bs._load()
     for D, P, E, M, merge in ((128, 512, 4, 32, "bitonic"),
                               (30, 64, 1, 16, "sort"),
-                              (960, 3968, 4, 32, "bitonic")):
+                              (960, 3968, 4, 32, "bitonic"),
+                              (128, 64, 4, 32, "bitonic"),
+                              (128, 192, 4, 32, "bitonic"),
+                              (128, 100, 4, 32, "sort"),
+                              (128, 3968, 4, 32, "sort"),
+                              (7, 8, 4, 16, "bitonic"),
+                              (128, 4088, 1, 8, "sort")):
         assert lib.beam_search_smem_bytes(
             D, P, E, M, int(merge == "sort")) == bs.smem_bytes(D, P, E, M,
                                                                merge)
+
+
+def _int_graph(device):
+    """An l2 graph on small-integer rows, a fifth of them copies of
+    others: distances are exact in f32 on either side (and in bf16), so
+    equal distances tie exactly and the kernel must order them as the
+    twin does."""
+    r = np.random.default_rng(11)
+    v = r.integers(-2, 3, (2500, 32)).astype(np.float32)
+    v[2000:] = v[:500]
+    g = hnsw_tpu_torch.Graph(m=8, ef_construction=64, metric="l2", seed=3,
+                             device="cpu")
+    g.build(list(range(len(v))), v, method="host")
+    n = g.slots.capacity_used
+    nb, levels, entry, _ = g.host.arrays()
+    q = torch.from_numpy(
+        r.integers(-2, 3, (64, 32)).astype(np.float32)).to(device)
+    return (from_host(g.store.vectors[:n], g.store.sq_norms[:n], nb[:, :n],
+                      levels[:n], g.store.alive[:n], entry,
+                      metric="sqeuclidean", device=device),
+            q, torch.sum(q * q, dim=-1))
+
+
+def _kernel_equals_twin(g, q, q_sq, ids, d, **kw):
+    """One launch against the twin: the same pools, bit for bit, the same
+    hop counts. Returns (ids, the kernel's work [B, 2], the twin's rows
+    scored)."""
+    _reset()
+    ks, ts, touched = {}, {}, {}
+    kd, ki = tsearch.beam_search_layer(g, 0, q, q_sq, ids, d, stats=ks, **kw)
+    torch.cuda.synchronize()
+    assert bs.launches == 1
+    rd, ri = tsearch.beam_search_layer_reference(g, 0, q, q_sq, ids, d,
+                                                 stats=ts, touched=touched,
+                                                 **kw)
+    np.testing.assert_array_equal(ki.cpu().numpy(), ri.cpu().numpy())
+    np.testing.assert_array_equal(kd.cpu().numpy(), rd.cpu().numpy())
+    assert ks["hops"] == ts["hops"]
+    _, _, _, work = bs.beam_search_cuda(g, 0, q, q_sq, ids, d, **kw)
+    return (ki.cpu().numpy(), work.cpu().numpy(),
+            sum(t.numel() for t in touched["rows"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expand", [1, 4])
+@pytest.mark.parametrize("precision", [HIGHEST, DEFAULT])
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+def test_kernel_breaks_ties_as_the_twin(cuda, merge, precision, expand):
+    """Equal distances (copied rows, integer data): the kernel ranks by
+    (distance, slot) and merges as the twin's network or stable sort does,
+    so the pools are equal bit for bit, ties included."""
+    g, q, q_sq = _int_graph(cuda)
+    ids, d = _starts(g, q, q_sq, "sqeuclidean", precision, True)
+    kw = dict(pool_size=48, max_hops=64, metric="sqeuclidean",
+              precision=precision, expand=expand, merge=merge,
+              store_normalized=False)
+    ki, _, _ = _kernel_equals_twin(g, q, q_sq, ids, d, **kw)
+    dist = torch.sum((q[:, None, :] - g.vectors[torch.clamp(
+        torch.from_numpy(ki).to(cuda), 0).long()]) ** 2, -1).cpu().numpy()
+    fin = ki >= 0
+    ties = sum(len(row[f]) - len(np.unique(row[f]))
+               for row, f in zip(dist, fin))
+    assert ties > 0                        # the pools do hold equal distances
+
+
+@pytest.mark.cuda
+def test_kernel_drops_same_hop_diamonds_as_the_twin(cuda):
+    """Bitonic merge, E = 4: nodes expanded in one hop share neighbours
+    (diamonds). The kernel scores each id once (its lowest slot), so it
+    scores fewer rows than the twin reads, and its pools equal the twin's,
+    which masks the later copies after scoring."""
+    g, q, q_sq = _int_graph(cuda)
+    ids, d = _starts(g, q, q_sq, "sqeuclidean", HIGHEST, False)
+    kw = dict(pool_size=32, max_hops=64, metric="sqeuclidean",
+              precision=HIGHEST, expand=4, merge="bitonic",
+              store_normalized=False)
+    _, work, twin_rows = _kernel_equals_twin(g, q, q_sq, ids, d, **kw)
+    assert 0 < int(work[:, 1].sum()) < twin_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+def test_kernel_masks_an_inf_start_entry(cuda, merge):
+    """A start entry at INF with a valid id (the refine seeds a node with
+    itself at INF) still masks that id: in the first hop the entry's
+    neighbour seeded so is not scored (one row fewer than the entry's
+    neighbours) and does not leave the pool at a finite distance. Over
+    all hops the pools equal the twin's."""
+    g, q, q_sq = _int_graph(cuda)
+    B = q.shape[0]
+    entry = int(g.entry)
+    row = g.neighbors[0, entry]
+    nbr = int(row[row >= 0][0])
+    ids = torch.tensor([[entry, nbr]] * B, dtype=torch.int32, device=cuda)
+    d = tsearch._score_hop(g, q, q_sq, ids, "sqeuclidean", HIGHEST)
+    d[:, 1] = INF
+    for max_hops in (1, 64):
+        kw = dict(pool_size=32, max_hops=max_hops, metric="sqeuclidean",
+                  precision=HIGHEST, expand=4, merge=merge,
+                  store_normalized=False)
+        ki, work, _ = _kernel_equals_twin(g, q, q_sq, ids, d, **kw)
+        if max_hops == 1:
+            assert not (ki == nbr).any()
+            assert (work[:, 1] == int((row >= 0).sum()) - 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ef", [64, 192])
+def test_a_full_batch_fits_one_wave(cuda, ef):
+    """1,024 queries at the smoke's shape (D = 128, m = 16: M0 = 32, E =
+    4): by the occupancy API every instantiation the graph tier launches
+    keeps a block of each query resident at once on this card, and the
+    launch holds the twin."""
+    r = np.random.default_rng(7)
+    v = r.standard_normal((6000, 128)).astype(np.float32)
+    g = hnsw_tpu_torch.Graph(m=16, ef_construction=64, metric="cosine",
+                             seed=0, device="cpu")
+    g.build(list(range(len(v))), v, method="host")
+    n = g.slots.capacity_used
+    nb, levels, entry, _ = g.host.arrays()
+    dg = from_host(g.store.vectors[:n], g.store.sq_norms[:n], nb[:, :n],
+                   levels[:n], g.store.alive[:n], entry, metric="cosine",
+                   device=cuda)
+    assert dg.layer_width(0) == 32
+    lib = bs._load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for merge in ("bitonic", "sort"):
+        nbytes = bs.smem_bytes(128, ef, 4, 32, merge)
+        for score in range(4):
+            per_sm = lib.beam_search_blocks_per_sm(score, 1, nbytes)
+            assert per_sm * sms >= 1024, (merge, score, per_sm, sms)
+    q, q_sq = _queries(cuda, n=1024, d=128)
+    ids, d = _starts(dg, q, q_sq, "cosine", HIGHEST, False)
+    _kernel_vs_twin(dg, 0, q, q_sq, ids, d, P=ef, E=4, metric="cosine",
+                    precision=HIGHEST, merge="bitonic", max_hops=128)
 
 
 @pytest.mark.cuda
