@@ -38,14 +38,21 @@ call real, and fails (non-zero exit, no result line) on any failed check:
 5b. K2 against its twin on that graph: one layer-0 launch beside the twin
    on the inputs the entry points give it (Graph at ef 64 and 192 on f32
    rows, bench.py's mode at ef 192 on int8 and on fp16 neighbour blocks,
-   the wave builder's DEFAULT/sort descent at ef 100, and the local-repair
-   refine that batch_delete(refine=True) runs, on a copy of the graph):
+   the wave builder's DEFAULT/sort descent at ef 100, the local-repair
+   refine that batch_delete(refine=True) runs, on a copy of the graph,
+   and the capacity stores: hbm_mode="quantized" (int8 rows with per-row
+   scales) and hbm_mode="float16" + fast_math at ef 192, the bf16 store
+   at DEFAULT at ef 64, held to id overlap >= 0.999 and equal hops):
    id overlap, error, hop counts, the kernel's ms and µs a hop of the
    slowest query beside its bound (utils/roofline.hop_bound_s over the
    distinct nodes and rows the batch reads, and without reuse across
    queries), its resident blocks an SM and registers, and the twin's ms;
-   then where a hop's time goes at rows ef 64 and 192 (tools/hop_split.py:
-   each phase's share of the slowest block's cycles);
+   then k2-capacity-8m: one layer-0 launch of K2 on int8 rows and on fp16
+   rows at 8,388,608 x 128 (made on the card from a seed, a random
+   32-out table, no build; larger than L2) beside the twin, held the
+   same way; then where a hop's time goes at rows ef 64 and 192 and on
+   the int8 rows (tools/hop_split.py: each phase's share of the slowest
+   block's cycles);
 6. exact capacity ladder at BIGANN-10M's shape (10,000,000 x 128, L2,
    k=10; synthetic rows from a seed): the float32 rung through the kernel,
    checked against a chunked numpy scan, then hbm_dtype int8, bf16 and
@@ -56,22 +63,29 @@ call real, and fails (non-zero exit, no result line) on any failed check:
 8. the graph tier's serving modes on the same 100k graph: bench.py's
    configuration (fast_math, block_layout, entry_mode="pivots") at ef 192
    and 384 (and at ef 192 through the plain twin: QPS, recall within
-   0.005), hbm_mode float16 and quantized at ef 192, and compact upper
-   layers at ef 64 (ids equal to the dense layout's);
+   0.005), hbm_mode float16 and quantized at ef 192 (K2 on fp16 rows and
+   on int8 rows with per-row scales, then the host rerank; each also
+   through the twin, recall within 0.005, and one batch traced each way
+   with the host rerank's share), the bf16 store at ef 64 (and through
+   the twin), and compact upper layers at ef 64 (ids equal to the dense
+   layout's);
 9. the device wave builder on the first 50,000 of the same vectors (wave
    2048): a build held to the recall of the native build of the same
    50,000 (phase 5's graph, measured when it held only them) and
    served on the card and the CPU, the same build through the plain twin
    (nodes/s, recall within 0.005) and one more wave traced each way
    (launches, device ms, idle share), the int8-block fp16
-   descent, batch_delete of every 10th key with refine=True, and a build
+   descent (its upper layers on K2's fp16 rows, layer 0 on its int8
+   blocks), batch_delete of every 10th key with refine=True, and a build
    aborted at its deadline, served as its inserted prefix and finished by
    Graph.resume_build; the recall oracle is the exact tier (the kernel)
    on the card;
 10. a device build of 262,144 x 128 L2 rows (synthetic, from a seed) by
    method="device", after a check that "auto" sends 1,048,576 rows to
    the wave builder: build time, peak memory, levels, recall@10 against
-   the exact tier at ef 64 and 192, and a profile of one mid-build wave
+   the exact tier at ef 64 and 192 with the f32 store and in hbm_mode
+   "quantized" and "float16" (K2 on their rows, then the host rerank;
+   within 0.05 of the f32 store's), and a profile of one mid-build wave
    split into descent, row assembly (diversity selection) and reverse
    update (its padding is taken out of the build time);
 11. IVFIndex on 1,000,000 x 128 cosine rows of a 1,024-centre Gaussian
@@ -129,9 +143,11 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    (CUDA kernel events and the annotated name).
 
 Phases 5, 8, 9, 10 and 18 each check that K2 launched while they ran and
-that no layer of a mode K2 covers went to the twin for its size
-(ops/beam_search.twin_layers_on_cuda); phases 5 and 10 drive only covered
-modes and check that no layer went to the twin at all.
+that no layer of a mode K2 covers went to the twin
+(ops/beam_search.twin_layers_on_cuda); phases 5, 8, 9 and 10 drive only
+covered modes and check that no layer went to the twin at all, and the
+main path as a whole launched K2 in each of its five modes (f32 rows,
+blocks, int8 rows, fp16 rows, bf16 rows).
 The last two lines are the kernel table (one entry a K1 route and one for
 K2, each with its launches on the main path) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -184,10 +200,14 @@ BEAM_KERNEL = {"route": "cuda",
 #: where phase 5b builds K2 with its phase counters (tools/hop_split.py)
 HOP_SPLIT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "build", "hop_split_clocks")
-#: K2's launches on the main path, by scoring mode, summed over the phases
-#: that drive a graph path (each resets the counts before it and reads
-#: them after)
-BEAM_LAUNCHES = {"rows": 0, "blocks": 0}
+#: K2's launches on the main path, by scoring mode (ops/beam_search.MODES),
+#: summed over the phases that drive a graph path (each resets the counts
+#: before it and reads them after)
+BEAM_LAUNCHES = dict.fromkeys(("rows", "blocks", "qrows", "f16rows",
+                               "bf16rows"), 0)
+#: the k2-capacity-8m probe: rows of its int8 and fp16 stores, their width
+#: and the out-degree of its random layer-0 table
+N_PROBE, PROBE_M = 8_388_608, 32
 
 
 def check(ok: bool, what: str) -> None:
@@ -295,15 +315,15 @@ def _launches() -> dict:
 def _beam_reset() -> None:
     from hnsw_tpu_torch.ops import beam_search
     beam_search.launches = 0
-    beam_search.launches_by_mode.update(rows=0, blocks=0)
-    beam_search.twin_layers_on_cuda.update(mode=0, size=0)
+    beam_search.launches_by_mode.update(dict.fromkeys(beam_search.MODES, 0))
+    beam_search.twin_layers_on_cuda.update(mode=0, size=0, other=0)
 
 
 def _beam_read(label: str, need=("rows",), covered_only=False) -> dict:
     """K2's launches by mode since the last _beam_reset(), added to
     BEAM_LAUNCHES. On the card, a failed check unless every mode in
     ``need`` launched and no layer of a mode K2 covers went to the twin
-    for its size (ops/beam_search.twin_layers_on_cuda["size"]); with
+    (ops/beam_search.twin_layers_on_cuda["size"] and ["other"]); with
     ``covered_only`` (a phase that drives only modes K2 covers), no layer
     went to the twin at all."""
     from hnsw_tpu_torch.ops import beam_search
@@ -313,9 +333,10 @@ def _beam_read(label: str, need=("rows",), covered_only=False) -> dict:
         BEAM_LAUNCHES[m] += n
     if DEVICE == "cuda":
         check(all(by[m] > 0 for m in need) and twin["size"] == 0
+              and twin["other"] == 0
               and (twin["mode"] == 0 or not covered_only),
               f"{label} launched the beam-search kernel: {by}; layers the "
-              f"twin ran on the card {twin} (none for their size"
+              f"twin ran on the card {twin} (none of a covered mode"
               + (", none at all)" if covered_only else
                  "; by mode, those K2 lacks)"))
     return by
@@ -817,17 +838,26 @@ def phase_graph_tier() -> dict:
             "recall": recall, "qps": qps_by_ef, "twin": twin}
 
 
+#: bytes a scored row reads in each of K2's row modes at width D (the row
+#: and its squared norm; the int8 rows also their scale)
+ROW_BYTES = {"rows": lambda D: 4 * D + 4, "qrows": lambda D: D + 4 + 4,
+             "f16rows": lambda D: 2 * D + 4, "bf16rows": lambda D: 2 * D + 4}
+
+
 def _beam_case(label: str, c: dict) -> dict:
     """One captured layer-0 call (tools/hop_split.layer0_call) through K2
     (ops/beam_search.beam_search_cuda) and through its twin
     (core/search.beam_search_layer_reference) on the same inputs: a failed
-    check unless the ids overlap >= 0.99 and the distances of shared ids
-    agree within 1e-5 (f32 products) or 1e-3 (bf16-rounded operands, int8
-    blocks). Times both (median of 5 CUDA-event reps) and puts the kernel
-    beside two bounds (utils/roofline.hop_bound_s): the distinct nodes and
-    rows the batch reads (from the twin's ``touched`` ids), and the same
-    work without reuse across queries (the kernel's own counts of nodes
-    expanded and rows scored)."""
+    check unless the ids overlap >= 0.999, the hop counts are equal and
+    the distances of shared ids agree within 1e-5 (every product is exact
+    in f32 or rounded once on both sides, so only the order of f32 sums
+    differs), or 1e-3 on int8 blocks (their squared norms are f32 sums
+    rounded to bf16, where one ulp of the sum may flip a rounding). Times
+    both (median of 5 CUDA-event reps) and puts the kernel beside two bounds
+    (utils/roofline.hop_bound_s, each mode's bytes a row): the distinct
+    nodes and rows the batch reads (from the twin's ``touched`` ids), and
+    the same work without reuse across queries (the kernel's own counts of
+    nodes expanded and rows scored)."""
     from hnsw_tpu_torch.core import search
     from hnsw_tpu_torch.ops import beam_search
     from hnsw_tpu_torch.tools import hop_split
@@ -852,36 +882,42 @@ def _beam_case(label: str, c: dict) -> dict:
     kd, ki, td, ti = (t.cpu().numpy() for t in (kd, ki, td, ti))
     ov = _overlap(ki, ti)
     err = _matched_err(kd, ki, td, ti)
-    exact = (mode == "rows" and kw["precision"] != "default") or (
-        mode == "blocks" and cg.nbr_blocks.dtype == torch.float16)
-    tol = 1e-5 if exact else 1e-3
+    store = (cg.nbr_blocks if mode == "blocks" else cg.qvec
+             if mode == "qrows" else cg.vectors)
+    int8 = store.dtype == torch.int8
+    tol = 1e-3 if int8 and mode == "blocks" else 1e-5
     start_ids = args[2]
     S = start_ids.shape[1] if start_ids.ndim == 2 else 1
-    check(np.isfinite(kd).all() and ov >= 0.99 and err <= tol,
+    hops = int(khops.max())
+    check(np.isfinite(kd).all() and ov >= 0.999 and err <= tol
+          and hops == ts["hops"][0],
           f"{label} ({mode}, {kw['merge']}, P={kw['pool_size']}, E={E}, "
-          f"S={S}, {kw['precision']}): id overlap {ov:.5f} >= 0.99, "
-          f"matched dists within {tol:g} ({err:.2e})")
+          f"S={S}, {kw['precision']}): id overlap {ov:.5f} >= 0.999, "
+          f"matched dists within {tol:g} ({err:.2e}), hops {hops} == the "
+          f"twin's {ts['hops'][0]}")
     ms, twin_ms = cuda_ms(kern), cuda_ms(twin)
     w = work.sum(0).tolist()
     nodes = torch.cat(touched.get("nodes", [torch.empty(0)]))
     rows = torch.cat(touched.get("rows", [torch.empty(0)]))
     n_nodes, n_rows = (int(torch.unique(t).numel()) for t in (nodes, rows))
     D = cg.dim
-    if mode == "rows":
-        row_bytes = 4 * D + 4              # the row and its norm
-        kind = "bf16" if kw["precision"] == "default" else "fp32"
-        M = cg.layer_width(0)
-    else:
+    # the operands' type: int8 elements, else bf16 where the query is
+    # rounded (f32 rows then are too), else f32
+    kind = ("int8" if int8 else "bf16" if beam_search.rounds_operands(
+        beam_search.score_code(cg, mode, kw["precision"]), kw["precision"])
+        else "fp32")
+    if mode == "blocks":
         row_bytes = D * cg.nbr_blocks.element_size()
-        kind = "int8" if cg.nbr_blocks.dtype == torch.int8 else "fp32"
         M = min(cg.layer_width(0), cg.nbr_blocks.shape[1])
+    else:
+        row_bytes = ROW_BYTES[mode](D)
+        M = cg.layer_width(0)
     B, P = len(args[0]), kw["pool_size"]
     bound_s, by = roofline.hop_bound_s(B, D, P, S, M, n_nodes, n_rows, w[1],
                                        row_bytes, kind)
     flat_s, _ = roofline.hop_bound_s(B, D, P, S, M, w[0], w[1], w[1],
                                      row_bytes, kind)
     bound, flat = bound_s * 1e3, flat_s * 1e3
-    hops = int(khops.max())
     us_hop = ms * 1e3 / max(1, hops)
     lib = beam_search._load()
     per_sm = hop_split.occupancy(lib, c)
@@ -902,9 +938,10 @@ def _beam_case(label: str, c: dict) -> dict:
           f"ms ({by}), {bound / ms:.4f} of the bound (without reuse across "
           f"queries {flat:.4f} ms, {flat / ms:.4f}); twin {twin_ms:.3f} ms",
           flush=True)
-    return {"ms": ms, "plain_ms": twin_ms, "bound_ms": bound,
+    return {"mode": mode, "ms": ms, "plain_ms": twin_ms, "bound_ms": bound,
             "bound_by": by, "no_reuse_bound_ms": flat, "max_abs_err": err,
-            "hops": hops, "twin_hops": ts["hops"][0], "us_per_hop": us_hop,
+            "overlap": ov, "hops": hops, "twin_hops": ts["hops"][0],
+            "us_per_hop": us_hop,
             "blocks_per_sm": per_sm, "registers": regs.get("registers"),
             "spill_stores": regs.get("spill_stores"),
             "expanded": w[0], "scored": w[1], "distinct_nodes": n_nodes,
@@ -922,8 +959,13 @@ def phase_beam_kernel(st: dict, smi: str) -> dict:
     100) with 1,024 stored rows as its queries, and the local-repair
     refine's first wave as batch_delete(refine=True) runs it on a copy of
     the graph (DEFAULT, sort, S = M0 + 1 seeds with the node itself at INF,
-    E = 4). Returns the kernels-line entry (the rows case at ef 64 is the
-    headline)."""
+    E = 4); and the capacity stores (hop_split.CAPACITY_CASES: the int8
+    rows of hbm_mode="quantized" and the fp16 rows of hbm_mode="float16"
+    with fast_math at ef 192, the bf16 store with fast_math at ef 64),
+    every case held to ids overlap >= 0.999 and equal hops. Then the
+    k2-capacity-8m probe (_capacity_probe) and the hop split of rows ef
+    64 / 192 and the int8 rows. Returns the kernels-line entry (the rows
+    case at ef 64 is the headline)."""
     from hnsw_tpu_torch.convert import graph_from_host_arrays
     from hnsw_tpu_torch.core import build_device
     from hnsw_tpu_torch.ops import beam_search
@@ -945,15 +987,19 @@ def phase_beam_kernel(st: dict, smi: str) -> dict:
                   f"{len(refine['args'][0])} nodes", refine))
     out = {label: _beam_case(label, c) for label, c in cases}
     # where a hop's time goes: the kernel built with its phase counters
-    # (tools/hop_split.py) on the two f32 row cases
+    # (tools/hop_split.py) on the two f32 row cases and the int8 rows
     print("# K2 hop split (BEAM_PHASE_CLOCKS build; shares of the slowest "
           "block's cycles, us a hop from the timings above)", flush=True)
+    split_labels = ("rows ef=64", "rows ef=192", hop_split.CAPACITY_CASES[0])
     split = hop_split.split_cases(
-        {k: c for k, c in cases if k in ("rows ef=64", "rows ef=192")},
+        {k: c for k, c in cases if k in split_labels},
         beam_search._load(), hop_split.clocks_library(HOP_SPLIT_DIR),
         ms={k: v["ms"] for k, v in out.items()})
     del gc, refine, cases
     torch.cuda.empty_cache()
+    out.update(_capacity_probe({v["mode"]: v["us_per_hop"] for k, v in
+                                out.items()
+                                if k in hop_split.CAPACITY_CASES}))
     head = out["rows ef=64"]
     return dict(BEAM_KERNEL, name="beam_search",
                 max_abs_err=max(v["max_abs_err"] for v in out.values()),
@@ -963,12 +1009,82 @@ def phase_beam_kernel(st: dict, smi: str) -> dict:
                 us_per_hop=head["us_per_hop"],
                 blocks_per_sm=head["blocks_per_sm"],
                 cases={k: {kk: v[kk] for kk in (
-                    "ms", "plain_ms", "bound_ms", "no_reuse_bound_ms",
-                    "us_per_hop", "blocks_per_sm", "registers")}
+                    "mode", "ms", "plain_ms", "bound_ms", "no_reuse_bound_ms",
+                    "us_per_hop", "blocks_per_sm", "registers", "hops",
+                    "max_abs_err")}
                        for k, v in out.items()},
                 hop_split={k: {"shares": v["shares"],
                                "us_per_hop": v["us_per_hop"]}
                            for k, v in split.items()})
+
+
+def _capacity_probe(us_hop_100k: dict) -> dict:
+    """k2-capacity-8m: one layer-0 launch of K2 on a table at capacity size,
+    which no L2 holds: N_PROBE x 128 int8 rows with per-row scales (the
+    capacity mode's store, quantized as core/state.quantize_rows does) and
+    an fp16 copy of the same rows, made on the card from a seeded
+    torch.Generator, under a seeded random PROBE_M-out layer-0 table (no
+    build). 1,024 queries at ef 192 (E = 4, bitonic, l2) from one random
+    start each, through K2 (qrows, then f16rows) beside the twin, held as
+    the phase-5b cases are (_beam_case). Returns the two
+    cases; prints each one's µs a hop over its mode's at 100k rows
+    (``us_hop_100k``: mode -> µs a hop)."""
+    from hnsw_tpu_torch.core import search
+    from hnsw_tpu_torch.core.state import DeviceGraph
+    from hnsw_tpu_torch.ops.distance import DEFAULT
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n, d = N_PROBE, DIM
+    t0 = time.perf_counter()
+    qvec = torch.empty((n, d), dtype=torch.int8, device=dev)
+    qscale = torch.empty((n,), dtype=torch.float32, device=dev)
+    f16 = torch.empty((n, d), dtype=torch.float16, device=dev)
+    sq = torch.empty((n,), dtype=torch.float32, device=dev)
+    step = 1 << 20
+    for lo in range(0, n, step):
+        x = torch.randn((min(step, n - lo), d), generator=gen, device=dev)
+        s = torch.clamp(x.abs().amax(dim=1) / 127.0, min=1e-30)
+        qvec[lo:lo + len(x)] = torch.clamp(torch.round(x / s[:, None]),
+                                           -127, 127).to(torch.int8)
+        qscale[lo:lo + len(x)] = s
+        f16[lo:lo + len(x)] = x.to(torch.float16)
+        sq[lo:lo + len(x)] = torch.sum(x * x, dim=1)
+    nbrs = torch.randint(0, n, (1, n, PROBE_M), generator=gen, device=dev,
+                         dtype=torch.int32)
+    queries = torch.randn((BATCH, d), generator=gen, device=dev)
+    q_sq = torch.sum(queries * queries, dim=1)
+    starts = torch.randint(0, n, (BATCH, 1), generator=gen, device=dev,
+                           dtype=torch.int32)
+    _sync_device()
+    common = dict(sq_norms=sq, neighbors=nbrs,
+                  levels=torch.zeros((n,), dtype=torch.int32, device=dev),
+                  alive=torch.ones((n,), dtype=torch.bool, device=dev),
+                  entry=torch.zeros((), dtype=torch.int32, device=dev))
+    graphs = {
+        "qrows": DeviceGraph(vectors=torch.zeros((1, d), device=dev),
+                             qvec=qvec, qscale=qscale, **common),
+        "f16rows": DeviceGraph(vectors=f16, **common)}
+    print(f"# k2-capacity-8m: {n} x {d} int8 rows + scales "
+          f"({(qvec.numel() + 4 * n) / 1e9:.2f} GB) and fp16 rows "
+          f"({f16.numel() * 2 / 1e9:.2f} GB), a random {PROBE_M}-out "
+          f"layer-0 table ({nbrs.numel() * 4 / 1e9:.2f} GB), made on the "
+          f"card in {time.perf_counter() - t0:.1f} s; {BATCH} queries, ef "
+          f"192, l2", flush=True)
+    kw = dict(pool_size=192, max_hops=128, metric="l2", precision=DEFAULT,
+              expand=4, merge="bitonic", store_normalized=False)
+    out = {}
+    for mode, g in graphs.items():
+        start_d = search._score_hop(g, queries, q_sq, starts, "l2", DEFAULT)
+        label = f"k2-capacity-8m {mode} ef=192"
+        out[label] = _beam_case(label, {"g": g, "args": (
+            queries, q_sq, starts, start_d), "kw": dict(kw)})
+        us = out[label]["us_per_hop"]
+        print(f"  {label}: {us:.2f} us a hop ({out[label]['hops']} hops) "
+              f"at {n} rows, {us / us_hop_100k[mode]:.3f}x its us a hop "
+              f"at {N_GRAPH} rows (phase 5b)", flush=True)
+    del graphs, common, qvec, qscale, f16, sq, nbrs
+    torch.cuda.empty_cache()
+    return out
 
 
 def _np_scan_topk(queries, rows, sq, k: int, metric: str,
@@ -1171,11 +1287,38 @@ def phase_auto_ladder() -> dict:
     return launches
 
 
+def _profile_rerank(label: str, g, fn, need: str):
+    """_profile of ``fn`` with ``g._host_rerank`` timed on the host clock
+    inside the traced call: returns (the summary or None, rerank ms)."""
+    sw = _Stopwatch()
+
+    def traced():
+        sw.seconds.clear()
+        sw.wrap(g, "_host_rerank", "rerank")
+        try:
+            return fn()
+        finally:
+            sw.restore()
+    out = _profile(label, traced, need=need)
+    ms = sw.seconds.get("rerank", 0.0) * 1e3
+    if out is not None:
+        print(f"    host rerank (Graph._host_rerank) {ms:.3f} ms, "
+              f"{ms / out['wall_ms']:.3f} of the wall", flush=True)
+    return out, ms
+
+
 def phase_graph_modes(st: dict) -> None:
-    """bench.py's serving configuration and the capacity modes on the
-    100k graph of phase_graph_tier (no second build)."""
+    """bench.py's serving configuration, the capacity modes (hbm_mode
+    "float16" and "quantized": K2 on fp16 rows and on int8 rows with
+    per-row scales, then the host rerank) and the bf16 store on the 100k
+    graph of phase_graph_tier (no second build). Each capacity mode and
+    the bf16 store also run through the plain twin (recall@10 within
+    0.005 of the kernel's) and the capacity modes trace one batch each
+    way (the host rerank's share)."""
+    import dataclasses
     g, cpu, base, queries, gt = (st[k] for k in
                                  ("g", "cpu", "base", "queries", "gt"))
+    served = {}
 
     def serve(label, ef, setup):
         for x in (g, cpu):
@@ -1193,10 +1336,27 @@ def phase_graph_modes(st: dict) -> None:
         check(hit >= 0.99, f"{label} ef={ef}: self-retrieval {hit:.4f} "
               f">= 0.99")
         qps = _qps(lambda: g.batch_search_slots(queries, 10, ef=ef), 1024)
+        served[label, ef] = qps
         print(f"  {label} ef={ef}: {qps:.1f} QPS (1024-query batch, median "
               f"of 3), recall@10 {_recall(ids, gt, 10):.4f} vs the exact "
               f"tier, hops per layer (top..0) {hops}", flush=True)
         return ids
+
+    def against_twin(label, ef, ids):
+        """The same batch through the plain twin: QPS, and recall@10
+        within 0.005 of the kernel's."""
+        with _twin():
+            _, ids_t = g.batch_search_slots(queries, 10, ef=ef)
+            qps_t = _qps(lambda: g.batch_search_slots(queries, 10, ef=ef),
+                         1024)
+        rec_k, rec_t = _recall(ids, gt, 10), _recall(ids_t, gt, 10)
+        check(abs(rec_k - rec_t) <= 0.005,
+              f"{label} ef={ef}: recall@10 through the kernel {rec_k:.4f} "
+              f"within 0.005 of the twin's {rec_t:.4f}")
+        print(f"  {label} ef={ef}, the plain twin "
+              f"(beam_search_layer_reference): {qps_t:.1f} QPS, recall@10 "
+              f"{rec_t:.4f} (the kernel's {served[label, ef]:.1f} QPS, "
+              f"{served[label, ef] / qps_t:.1f}x)", flush=True)
 
     def bench_config(x):
         x.fast_math = True
@@ -1208,15 +1368,7 @@ def phase_graph_modes(st: dict) -> None:
     bench_ids = {ef: serve("fast_math + block_layout + pivots", ef,
                            bench_config) for ef in (192, 384)}
     # bench.py's graph row through the plain twin, on the same batch
-    with _twin():
-        _, ids_t = g.batch_search_slots(queries, 10, ef=192)
-        qps_t = _qps(lambda: g.batch_search_slots(queries, 10, ef=192), 1024)
-    rec_k, rec_t = _recall(bench_ids[192], gt, 10), _recall(ids_t, gt, 10)
-    check(abs(rec_k - rec_t) <= 0.005,
-          f"bench mode ef=192: recall@10 through the kernel {rec_k:.4f} "
-          f"within 0.005 of the twin's {rec_t:.4f}")
-    print(f"  fast_math + block_layout + pivots ef=192, the plain twin "
-          f"(beam_search_layer_reference): {qps_t:.1f} QPS", flush=True)
+    against_twin("fast_math + block_layout + pivots", 192, bench_ids[192])
     dev = g.device_graph()
     blocks = dev.nbr_blocks
     check(blocks is not None and blocks.device.type == DEVICE,
@@ -1229,7 +1381,8 @@ def phase_graph_modes(st: dict) -> None:
         def capacity(x, mode=mode):
             x.block_layout = False
             x.hbm_mode = mode
-        serve(f"hbm_mode={mode} + fast_math + pivots", 192, capacity)
+        label = f"hbm_mode={mode} + fast_math + pivots"
+        ids = serve(label, 192, capacity)
         dev = g.device_graph()
         if mode == "float16":
             check(dev.vectors.dtype == torch.float16 and dev.qvec is None,
@@ -1239,8 +1392,27 @@ def phase_graph_modes(st: dict) -> None:
                   and dev.qvec.dtype == torch.int8
                   and dev.qvec.device.type == DEVICE,
                   "hbm_mode=quantized: only the int8 store on the card")
+        against_twin(label, 192, ids)
+        if DEVICE == "cuda":
+            batch = (lambda: g.batch_search_slots(queries, 10, ef=192))
+            _profile_rerank(f"one 1024-query batch, {label} ef=192, kernel",
+                            g, batch, need="beam_search_kernel")
+            with _twin():
+                _profile_rerank(f"one 1024-query batch, {label} ef=192, "
+                                f"twin", g, batch, need="")
+
+    def bf16_store(x):
+        x.hbm_mode = "full"
+        x.cfg = dataclasses.replace(x.cfg, store_dtype="bfloat16")
+        x._dirty = True
+
+    ids = serve("store_dtype=bfloat16 + fast_math + pivots", 64, bf16_store)
+    check(g.device_graph().vectors.dtype == torch.bfloat16,
+          "store_dtype=bfloat16: a bf16 store on the card")
+    against_twin("store_dtype=bfloat16 + fast_math + pivots", 64, ids)
 
     def compact(x):
+        x.cfg = dataclasses.replace(x.cfg, store_dtype="float32")
         x.hbm_mode = "full"
         x.fast_math = False
         x.entry_mode = "descent"
@@ -1252,8 +1424,9 @@ def phase_graph_modes(st: dict) -> None:
           "compact upper layers on the card")
     check(np.array_equal(ids, st["dense_ids_ef64"]),
           "compact uppers: ids equal the dense layout's at ef=64")
-    _beam_read("phase 8 (bench.py's blocks, compact uppers)",
-               need=("rows", "blocks"))
+    _beam_read("phase 8 (bench.py's blocks, the capacity modes' int8 and "
+               "fp16 rows, the bf16 store, compact uppers)",
+               need=tuple(BEAM_LAUNCHES), covered_only=True)
 
 
 class _NativeInserts:
@@ -1415,10 +1588,19 @@ def phase_device_builds(st: dict) -> int:
           f"({n / t_twin:.1f} nodes/s; the kernel's {n / t_build:.1f}, "
           f"{t_twin / t_build:.2f}x)", flush=True)
 
+    from hnsw_tpu_torch.ops import beam_search
+    by0 = dict(beam_search.launches_by_mode)
+    twin0 = dict(beam_search.twin_layers_on_cuda)
     gq, t_q = _device_build(keys, base, "cosine", method="device",
                             quant_descent=True, descent_dtype="float16")
     check(_all_inserted(gq, n), "int8-block fp16 descent: every key "
           "inserted")
+    by_q = {m: beam_search.launches_by_mode[m] - by0[m] for m in by0}
+    if DEVICE == "cuda":
+        check(by_q["f16rows"] > 0 and by_q["blocks"] > 0
+              and beam_search.twin_layers_on_cuda == twin0,
+              f"int8-block fp16 descent: upper layers on K2's fp16 rows, "
+              f"layer 0 on its int8 blocks ({by_q}), no layer on the twin")
     rec_q = _graph_recalls(gq, queries, gt, "int8-block fp16 descent")
     for ef in (64, 192):
         check(rec_q[ef] >= rec[ef] - 0.03,
@@ -1505,7 +1687,7 @@ def phase_device_builds(st: dict) -> int:
     del gr
     torch.cuda.empty_cache()
     _beam_read("phase 9 (wave builds, refine, serving)",
-               need=("rows", "blocks"))
+               need=("rows", "blocks", "f16rows"), covered_only=True)
     launches = _launches()
     check(launches["wgmma"] >= 2 and launches["wgmma_cp"] == 0,
           f"the exact-tier oracle launched the wgmma kernel "
@@ -1668,15 +1850,29 @@ def phase_sift_shape_build() -> int:
           f"the exact-tier oracle launched the wgmma kernel "
           f"{launches['wgmma']} times")
     del oracle
-    for ef in (64, 192):
-        d, ids = g.batch_search_slots(queries, 10, ef=ef)
-        check(ids.shape == (BATCH, 10) and (ids >= 0).all()
-              and np.isfinite(d).all(),
-              f"ef={ef}: finite [{BATCH}, 10] results, no misses")
-        print(f"  ef={ef}: recall@10 {_recall(ids, gt, 10):.4f} vs the exact "
-              f"tier, hops per layer (top..0) {g.last_search_hops}",
-              flush=True)
-    _beam_read("phase 10 (the 262,144-row wave build and its serving)",
+    rec = {}
+    for mode in ("full", "quantized", "float16"):
+        # the capacity modes: K2 on int8 rows with per-row scales / fp16
+        # rows, then the host rerank
+        g.hbm_mode = mode
+        for ef in (64, 192):
+            d, ids = g.batch_search_slots(queries, 10, ef=ef)
+            check(ids.shape == (BATCH, 10) and (ids >= 0).all()
+                  and np.isfinite(d).all(),
+                  f"hbm_mode={mode} ef={ef}: finite [{BATCH}, 10] results, "
+                  f"no misses")
+            rec[mode, ef] = _recall(ids, gt, 10)
+            print(f"  hbm_mode={mode} ef={ef}: recall@10 "
+                  f"{rec[mode, ef]:.4f} vs the exact tier, hops per layer "
+                  f"(top..0) {g.last_search_hops}", flush=True)
+            if mode != "full":
+                check(rec[mode, ef] >= rec["full", ef] - 0.05,
+                      f"hbm_mode={mode} ef={ef}: recall@10 "
+                      f"{rec[mode, ef]:.4f} >= the f32 store's "
+                      f"{rec['full', ef]:.4f} - 0.05")
+    g.hbm_mode = "full"
+    _beam_read("phase 10 (the 262,144-row wave build and its serving in "
+               "every hbm_mode)", need=("rows", "qrows", "f16rows"),
                covered_only=True)
     s = probe.summary
     check(s is not None and s["launches"] > 0,
@@ -3008,7 +3204,7 @@ def main() -> int:
     check(all(launches[r] > 0 for r in timing)
           and all(n > 0 for n in BEAM_LAUNCHES.values()),
           f"the main path launched every K1 route: {launches}, and K2 in "
-          f"both modes: {BEAM_LAUNCHES}")
+          f"every mode: {BEAM_LAUNCHES}")
     print(f"# smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included", flush=True)
     print(smi)

@@ -18,9 +18,11 @@ than its worst pool entry (reference graph.go:164-166).
 On CUDA a layer is one launch of the hand-written kernel K2
 (``ops/beam_search``, ``csrc/beam_search.cu``): one block a query, the
 pool in shared memory, every hop inside the kernel, no host sync until
-the layer is done. ``ops/beam_search.hop_kernel_applies`` decides which
-calls take it. Every other call (CPU tensors, registered metrics, the
-fp16 / bf16 stores and the int8 capacity mode) runs the plain twin,
+the layer is done, in every layout and store ``core/state.from_host``
+makes (f32 / fp16 / bf16 rows, the int8 capacity mode's rows, layer-0
+neighbour blocks). ``ops/beam_search.hop_kernel_applies`` decides which
+calls take it. Every other call (CPU tensors, registered metrics, a pool
+past the kernel's limits) runs the plain twin,
 ``beam_search_layer_reference``: there the JAX ``lax.while_loop`` is a
 host loop that reads ``take.any()`` once per hop. Both count the hops
 (``stats["hops"]``, one entry per layer searched, top layer first).
@@ -173,12 +175,16 @@ def beam_search_layer(g: DeviceGraph, layer: int, queries: torch.Tensor,
                       stats: Optional[dict] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search one layer for a batch of queries: one launch of the
-    CUDA kernel where ``ops/beam_search.hop_kernel_applies``, else
-    ``beam_search_layer_reference`` (same arguments, same results; see
-    there). With the kernel, ``stats["hops"]`` gets the largest hop count
-    of any query, which is the twin's lockstep count: a query that stops
-    keeps its pool from then on. A layer on CUDA tensors that the twin
-    runs is counted in ``ops/beam_search.twin_layers_on_cuda``."""
+    CUDA kernel where ``ops/beam_search.hop_kernel_applies`` (CUDA
+    tensors, a built-in metric, any store: f32, fp16 or bf16 rows, the
+    int8 capacity mode's rows with per-row scales, layer-0 int8 / fp16
+    blocks), else ``beam_search_layer_reference`` (same arguments, same
+    results; see there). With the kernel, ``stats["hops"]`` gets the
+    largest hop count of any query, which is the twin's lockstep count: a
+    query that stops keeps its pool from then on. A layer on CUDA tensors
+    that the twin runs (a registered metric, a pool past the kernel's
+    limits, a graph not on the card) is counted in
+    ``ops/beam_search.twin_layers_on_cuda``."""
     E = max(1, min(expand, pool_size))
     if not _kernel.hop_kernel_applies(g, layer, metric, queries, pool_size,
                                       E, merge):

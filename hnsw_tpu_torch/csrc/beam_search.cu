@@ -85,8 +85,19 @@
 // int8 blocks take a bf16-rounded query against the exact upcast, times
 // block_scale, with squared norms that are bf16-rounded sums of
 // bf16-rounded squares times block_scale^2; fp16 blocks score in f32; a
-// store_normalized cosine store has squared norm 1. The f32 sums run in
-// another order than the twin's einsum.
+// store_normalized cosine store has squared norm 1. The row stores of the
+// capacity modes read their rows from the typed ``vectors`` and the
+// squared norms from ``sq_norms``: int8 rows (the capacity mode's qvec,
+// ``vectors`` on the device a [1, D] placeholder) take a bf16-rounded
+// query whatever the precision, against the exact upcast, and the f32 sum
+// times the row's own qscale (one rounding); fp16 rows take the f32 query
+// whatever the precision (the store's 11 significand bits are its point);
+// bf16 rows take the query rounded to bf16 at DEFAULT, else in f32. The
+// host says whether the query is rounded (``round_q``, from
+// ops/beam_search.rounds_operands, the one place that decides). Every
+// such product but f32 x fp16 / bf16 is exact in f32, so
+// the kernel parts from the twin only in the order of its f32 sums (and
+// in that an FMA does not round the f32 x fp16 / bf16 product).
 //
 // Shared memory (dynamic), in bytes, for C = E*M, W2 = next_pow2(P + C),
 // WB = W2 under the bitonic merge and P under the sort merge, H =
@@ -123,8 +134,20 @@ constexpr unsigned long long KEY_PAD = ~0ull;  // sorts after every key
 
 enum { M_COSINE = 0, M_L2 = 1, M_SQEUCLIDEAN = 2, M_DOT = 3 };
 // scoring modes: f32 rows at HIGHEST, f32 rows at DEFAULT (bf16 operands),
-// int8 neighbour blocks, fp16 neighbour blocks
-enum { S_F32 = 0, S_BF16 = 1, S_I8 = 2, S_F16 = 3 };
+// int8 neighbour blocks, fp16 neighbour blocks, int8 rows with per-row
+// scales, fp16 rows, bf16 rows
+enum { S_F32 = 0, S_BF16 = 1, S_I8 = 2, S_F16 = 3, S_Q8ROW = 4,
+       S_F16ROW = 5, S_B16ROW = 6 };
+
+// layer-0 neighbour blocks (else rows of ``vectors``)
+__host__ __device__ constexpr bool is_blocks(int score) {
+  return score == S_I8 || score == S_F16;
+}
+// bytes an element of the scored store
+__host__ __device__ constexpr int elem_bytes(int score) {
+  return (score == S_F32 || score == S_BF16) ? 4
+         : (score == S_I8 || score == S_Q8ROW) ? 1 : 2;
+}
 
 // Byte offsets of the shared-memory arrays (layout(): the query row at 0;
 // 8-byte arrays next).
@@ -143,8 +166,10 @@ struct Params {
   int width;
   const int* upper_map;    // [cap] slot -> row of a compact table, or null
   int n_rows;
-  const float* vectors;    // [cap, D] f32 (rows)
+  const void* vectors;     // [cap, D] rows: f32, int8 (qvec), fp16, bf16
   const float* sq_norms;   // [cap] (rows)
+  const float* qscale;     // [cap] per-row scale (int8 rows)
+  int round_q;             // the query rounded to bf16 (rounds_operands)
   const void* blocks;      // [cap, block_m, D] int8 / fp16 (blocks)
   int block_m;
   const float* block_scale;  // [] (int8 blocks)
@@ -470,25 +495,40 @@ __device__ __forceinline__ int upper_bound(const float* a, int n, float x) {
 
 // ---- scoring --------------------------------------------------------------
 
+// bf16 bits (the low or high half of a word) as f32: exact
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
 // Four consecutive elements (i a multiple of 4, rows aligned: VEC), f32
 // after the mode's rounding.
 template <int SCORE>
 __device__ __forceinline__ void elem4(const Params& a, size_t i, float* x) {
+  const void* base = is_blocks(SCORE) ? a.blocks : a.vectors;
   if (SCORE == S_F32 || SCORE == S_BF16) {
-    float4 v = __ldg(reinterpret_cast<const float4*>(a.vectors + i));
+    float4 v = __ldg(reinterpret_cast<const float4*>(
+        static_cast<const float*>(base) + i));
     x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
     if (SCORE == S_BF16) {
 #pragma unroll
       for (int t = 0; t < 4; ++t) x[t] = bf16r(x[t]);
     }
-  } else if (SCORE == S_I8) {
+  } else if (SCORE == S_I8 || SCORE == S_Q8ROW) {
     char4 v = __ldg(reinterpret_cast<const char4*>(
-        static_cast<const signed char*>(a.blocks) + i));
+        static_cast<const signed char*>(base) + i));
     x[0] = (float)v.x; x[1] = (float)v.y; x[2] = (float)v.z;
     x[3] = (float)v.w;
+  } else if (SCORE == S_B16ROW) {
+    uint2 v = __ldg(reinterpret_cast<const uint2*>(
+        static_cast<const unsigned short*>(base) + i));
+    x[0] = bf16_lo(v.x); x[1] = bf16_hi(v.x);
+    x[2] = bf16_lo(v.y); x[3] = bf16_hi(v.y);
   } else {
     uint2 v = __ldg(reinterpret_cast<const uint2*>(
-        static_cast<const __half*>(a.blocks) + i));
+        static_cast<const __half*>(base) + i));
     float2 lo = __half22float2(*reinterpret_cast<__half2*>(&v.x));
     float2 hi = __half22float2(*reinterpret_cast<__half2*>(&v.y));
     x[0] = lo.x; x[1] = lo.y; x[2] = hi.x; x[3] = hi.y;
@@ -498,11 +538,15 @@ __device__ __forceinline__ void elem4(const Params& a, size_t i, float* x) {
 // One element (any alignment).
 template <int SCORE>
 __device__ __forceinline__ float elem(const Params& a, size_t i) {
-  if (SCORE == S_F32) return __ldg(a.vectors + i);
-  if (SCORE == S_BF16) return bf16r(__ldg(a.vectors + i));
-  if (SCORE == S_I8)
-    return (float)__ldg(static_cast<const signed char*>(a.blocks) + i);
-  return __half2float(__ldg(static_cast<const __half*>(a.blocks) + i));
+  const void* base = is_blocks(SCORE) ? a.blocks : a.vectors;
+  if (SCORE == S_F32) return __ldg(static_cast<const float*>(base) + i);
+  if (SCORE == S_BF16)
+    return bf16r(__ldg(static_cast<const float*>(base) + i));
+  if (SCORE == S_I8 || SCORE == S_Q8ROW)
+    return (float)__ldg(static_cast<const signed char*>(base) + i);
+  if (SCORE == S_B16ROW)
+    return bf16_lo(__ldg(static_cast<const unsigned short*>(base) + i));
+  return __half2float(__ldg(static_cast<const __half*>(base) + i));
 }
 
 template <int SCORE>
@@ -542,13 +586,14 @@ __device__ __forceinline__ void score_list(
     const Params& a, const float* qop, float qsq, float scale,
     const int* sel_cur, const int* cand_id, const int* ok_slot, float* ok_d,
     int n_ok, float worst, unsigned long long* keys, int* n_enter) {
-  constexpr bool BLOCKS = SCORE == S_I8 || SCORE == S_F16;
+  constexpr bool BLOCKS = is_blocks(SCORE);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int D = a.D, M = a.M;
   const bool all_enter = !(worst < INF_DIST);
   for (int base = warp * U; base < n_ok; base += NW * U) {
-    int row[U];   // f32 rows: the vector slot; blocks: node * block_m + m
+    int row[U];   // rows: the vector slot; blocks: node * block_m + m
     float vsq_row = 0.0f;   // lane 4u: the squared norm of row u
+    float scl_row = 1.0f;   // lane 4u: row u's scale (int8 rows)
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int k = base + u;
@@ -558,7 +603,10 @@ __device__ __forceinline__ void score_list(
         row[u] = slot < 0 ? -1 : sel_cur[e] * a.block_m + m;
       } else {
         row[u] = slot < 0 ? -1 : cand_id[slot];
-        if (lane == 4 * u && slot >= 0) vsq_row = __ldg(a.sq_norms + row[u]);
+        if (lane == 4 * u && slot >= 0) {
+          vsq_row = __ldg(a.sq_norms + row[u]);
+          if (SCORE == S_Q8ROW) scl_row = __ldg(a.qscale + row[u]);
+        }
       }
     }
     float acc[U], ssq[U];
@@ -614,6 +662,7 @@ __device__ __forceinline__ void score_list(
       } else if (SCORE == S_F16) {
         vsq = (a.normalized && a.metric == M_COSINE) ? 1.0f : s;
       } else {
+        if (SCORE == S_Q8ROW) qv = __fmul_rn(qv, scl_row);
         vsq = vsq_row;
       }
       const float d = epilogue(a.metric, qv, qsq, vsq);
@@ -630,7 +679,8 @@ template <int SCORE, bool VEC>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     beam_search_kernel(Params a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool BLOCKS = SCORE == S_I8 || SCORE == S_F16;
+  constexpr bool BLOCKS = is_blocks(SCORE);
+  constexpr int ES = elem_bytes(SCORE);
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int D = a.D, P = a.P, E = a.E, M = a.M, C = a.C, W2 = a.W2;
@@ -660,7 +710,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   const float* q = a.queries + (size_t)b * D;
   for (int k = tid; k < D; k += NT) {
     const float x = q[k];
-    qop[k] = (SCORE == S_BF16 || SCORE == S_I8) ? bf16r(x) : x;
+    qop[k] = a.round_q ? bf16r(x) : x;
   }
   const float qsq = a.q_sq[b];
   const float scale = SCORE == S_I8 ? *a.block_scale : 1.0f;
@@ -758,16 +808,18 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
         int row = sel_cur[e];
         if (BLOCKS)
           prefetch_l2(static_cast<const char*>(a.blocks) +
-                          ((size_t)row * a.block_m + m) * D *
-                              (SCORE == S_I8 ? 1 : 2),
-                      D * (SCORE == S_I8 ? 1 : 2));
+                          ((size_t)row * a.block_m + m) * D * ES,
+                      D * ES);
         if (a.upper_map != nullptr) {
           const int u = __ldg(a.upper_map + row);
           row = u < 0 ? -1 : min(u, a.n_rows - 1);
         }
         if (row >= 0) id = __ldg(a.table + (size_t)row * a.width + m);
         if (id >= 0) {
-          if (!BLOCKS) prefetch_l2(a.vectors + (size_t)id * D, 4 * D);
+          if (!BLOCKS)
+            prefetch_l2(static_cast<const char*>(a.vectors) +
+                            (size_t)id * D * ES,
+                        D * ES);
           pos = tab_probe(tab, mask, shift, id, c, !sort_merge);
           if (pos < 0) id = -1;
         }
@@ -996,18 +1048,22 @@ int beam_search_smem_bytes(int D, int P, int E, int M, int merge_sort) {
 }
 
 // One launch: B blocks, one query each. score: 0 f32 rows, 1 f32 rows with
-// bf16 operands, 2 int8 blocks, 3 fp16 blocks. metric: 0 cosine, 1 l2,
-// 2 sqeuclidean, 3 dot. merge_sort: 0 bitonic, 1 sort. Returns the
+// bf16 operands, 2 int8 blocks, 3 fp16 blocks, 4 int8 rows with per-row
+// scales (vectors = qvec [cap, D] int8, qscale [cap]), 5 fp16 rows, 6 bf16
+// rows. round_q: the query rounded to bf16 (1 for scores 1, 2 and 4, and
+// for 6 at DEFAULT; ops/beam_search.rounds_operands). metric: 0 cosine,
+// 1 l2, 2 sqeuclidean, 3 dot. merge_sort: 0 bitonic, 1 sort. Returns the
 // cudaError_t of the launch.
 int beam_search_launch(const void* queries, const void* q_sq,
                        const void* start_ids, const void* start_d, int s_in,
                        const void* table, int width, const void* upper_map,
                        int n_rows, const void* vectors, const void* sq_norms,
-                       const void* blocks, int block_m,
+                       const void* qscale, const void* blocks, int block_m,
                        const void* block_scale, int B, int D, int P, int E,
                        int M, int max_hops, int metric, int score,
-                       int merge_sort, int normalized, void* out_d,
-                       void* out_i, void* hops, void* work, void* stream) {
+                       int merge_sort, int normalized, int round_q,
+                       void* out_d, void* out_i, void* hops, void* work,
+                       void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   Params p;
   p.queries = static_cast<const float*>(queries);
@@ -1019,8 +1075,10 @@ int beam_search_launch(const void* queries, const void* q_sq,
   p.width = width;
   p.upper_map = static_cast<const int*>(upper_map);
   p.n_rows = n_rows;
-  p.vectors = static_cast<const float*>(vectors);
+  p.vectors = vectors;
   p.sq_norms = static_cast<const float*>(sq_norms);
+  p.qscale = static_cast<const float*>(qscale);
+  p.round_q = round_q;
   p.blocks = blocks;
   p.block_m = block_m;
   p.block_scale = static_cast<const float*>(block_scale);
@@ -1051,8 +1109,9 @@ int beam_search_launch(const void* queries, const void* q_sq,
 #endif
   const size_t smem = (size_t)p.L.bytes;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // whole-row vector loads: rows start at multiples of D elements, so
-  // D % 4 == 0 and an aligned base keep every row aligned
+  // whole-row vector loads (4 elements a lane): rows start at multiples of
+  // D elements, so D % 4 == 0 and a base aligned to 4 elements keep every
+  // row aligned
   const bool vec4 = D % 4 == 0;
   switch (score) {
     case S_F32:
@@ -1067,6 +1126,15 @@ int beam_search_launch(const void* queries, const void* q_sq,
     case S_F16:
       return (int)launch_vec<S_F16>(p, vec4 && aligned(blocks, 8), B, smem,
                                     st);
+    case S_Q8ROW:
+      return (int)launch_vec<S_Q8ROW>(p, vec4 && aligned(vectors, 4), B,
+                                      smem, st);
+    case S_F16ROW:
+      return (int)launch_vec<S_F16ROW>(p, vec4 && aligned(vectors, 8), B,
+                                       smem, st);
+    case S_B16ROW:
+      return (int)launch_vec<S_B16ROW>(p, vec4 && aligned(vectors, 8), B,
+                                       smem, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1104,6 +1172,12 @@ int beam_search_blocks_per_sm(int score, int vec, int smem) {
     case 5: f = (const void*)beam_search_kernel<S_I8, true>; break;
     case 6: f = (const void*)beam_search_kernel<S_F16, false>; break;
     case 7: f = (const void*)beam_search_kernel<S_F16, true>; break;
+    case 8: f = (const void*)beam_search_kernel<S_Q8ROW, false>; break;
+    case 9: f = (const void*)beam_search_kernel<S_Q8ROW, true>; break;
+    case 10: f = (const void*)beam_search_kernel<S_F16ROW, false>; break;
+    case 11: f = (const void*)beam_search_kernel<S_F16ROW, true>; break;
+    case 12: f = (const void*)beam_search_kernel<S_B16ROW, false>; break;
+    case 13: f = (const void*)beam_search_kernel<S_B16ROW, true>; break;
     default: return -1;
   }
   if (smem > 48 * 1024 &&

@@ -8,13 +8,18 @@ plain twin is ``core/search.beam_search_layer_reference``, which returns
 the same pools (the kernel's f32 sums run in another order).
 
 Which calls take the kernel is decided here, in ``hop_kernel_applies``:
-CUDA tensors, a built-in metric, and either f32 row scoring (``vectors``
-float32 with more than one row) or layer 0 with int8 or fp16 neighbour
-blocks, within the kernel's shared-memory limit. Every other call (a CPU
-tensor, a registered custom metric, the fp16 / bf16 stores and the int8
-capacity mode) runs the twin; on CUDA each such layer is counted in
-``twin_layers_on_cuda``, by reason, so a caller can see that a covered
-mode never reached the twin for its size.
+CUDA tensors, a built-in metric and a merge it knows, within the
+kernel's shared-memory limit, in every layout ``core/state.from_host``
+makes. Its scoring mode follows the twin's ``_score_hop`` /
+``_score_blocks`` (``layer_mode``): "blocks" (layer 0 with int8 or fp16
+neighbour blocks), "qrows" (the int8 capacity mode: ``qvec`` rows with
+per-row ``qscale``, ``vectors`` a [1, D] placeholder), "rows" / "f16rows"
+/ "bf16rows" (a float32 / float16 / bfloat16 ``vectors`` store). Every
+other call (a CPU tensor, a registered custom metric) runs the twin; on
+CUDA each such layer is counted in ``twin_layers_on_cuda``, by reason, so
+a caller can see that a covered mode never reached the twin. Which modes
+multiply a bf16-rounded query is decided here too (``rounds_operands``):
+the kernel rounds it as the launch says.
 
 The library is compiled with nvcc at first use into ``build/hnsw_tpu_torch``
 beside the package (rebuilt when the source is newer) and bound with
@@ -39,7 +44,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "beam_search.cu")
 _METRIC_CODE = {"cosine": 0, "l2": 1, "sqeuclidean": 2, "dot": 3}
 #: the kernel's scoring modes (csrc/beam_search.cu S_*)
-_SCORE_F32, _SCORE_BF16, _SCORE_I8, _SCORE_F16 = 0, 1, 2, 3
+(_SCORE_F32, _SCORE_BF16, _SCORE_I8, _SCORE_F16, _SCORE_Q8ROW,
+ _SCORE_F16ROW, _SCORE_B16ROW) = range(7)
+#: the row store's dtype -> its mode (a float32 store is "rows")
+_ROW_MODES = {torch.float32: "rows", torch.float16: "f16rows",
+              torch.bfloat16: "bf16rows"}
 _MERGE_CODE = {"bitonic": 0, "sort": 1}
 
 #: largest pool plus candidate block (P + E*M) the kernel takes: its merge
@@ -49,14 +58,17 @@ HOP_MAX_WIDTH = 4096
 SMEM_LIMIT = 232_448
 _THREADS = 128
 
+#: the kernel's scoring modes, as ``layer_mode`` names them
+MODES = ("rows", "blocks", "qrows", "f16rows", "bf16rows")
 #: kernel launches so far (one per layer searched on CUDA), in all and by
 #: scoring mode
 launches = 0
-launches_by_mode = {"rows": 0, "blocks": 0}
-#: layers searched by the twin on CUDA tensors, by reason: "mode" (one the
-#: kernel lacks) or "size" (a covered mode past HOP_MAX_WIDTH or
-#: SMEM_LIMIT)
-twin_layers_on_cuda = {"mode": 0, "size": 0}
+launches_by_mode = dict.fromkeys(MODES, 0)
+#: layers searched by the twin on CUDA tensors, by reason: "mode" (a
+#: registered metric or a merge the kernel lacks), "size" (a covered mode
+#: past HOP_MAX_WIDTH or SMEM_LIMIT) or "other" (a covered mode within its
+#: limits: a graph that is not on the card, or the twin forced)
+twin_layers_on_cuda = {"mode": 0, "size": 0, "other": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -97,8 +109,8 @@ def bind(path: str):
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.beam_search_launch.argtypes = (
-        [vp] * 4 + [ci, vp, ci, vp, ci, vp, vp, vp, ci, vp]
-        + [ci] * 10 + [vp] * 5)
+        [vp] * 4 + [ci, vp, ci, vp, ci, vp, vp, vp, vp, ci, vp]
+        + [ci] * 11 + [vp] * 5)
     lib.beam_search_launch.restype = ci
     lib.beam_search_smem_bytes.argtypes = [ci] * 5
     lib.beam_search_smem_bytes.restype = ci
@@ -140,25 +152,31 @@ def smem_bytes(D: int, P: int, E: int, M: int, merge: str) -> int:
 def _covered(g, layer: int, metric: str, merge: str
              ) -> Tuple[Optional[str], int]:
     """(mode, M): the kernel's scoring mode for one layer of ``g`` at any
-    size, or None for a mode it lacks, and the layer's neighbour width."""
+    size, or None for a mode it lacks, and the layer's neighbour width.
+    The order is the twin's: layer-0 blocks, then the int8 capacity
+    mode's rows, then the ``vectors`` store by its dtype."""
     if metric not in _METRIC_CODE or merge not in _MERGE_CODE:
         return None, 0
     if layer == 0 and g.nbr_blocks is not None:
         if g.nbr_blocks.dtype not in (torch.int8, torch.float16):
             return None, 0
         return "blocks", min(g.layer_width(0), g.nbr_blocks.shape[1])
-    if g.vectors.dtype == torch.float32 and g.vectors.shape[0] > 1:
-        return "rows", g.layer_width(layer)
-    return None, 0
+    if g.qvec is not None and g.vectors.shape[0] <= 1:
+        return "qrows", g.layer_width(layer)
+    mode = _ROW_MODES.get(g.vectors.dtype)
+    if mode is None or g.vectors.shape[0] <= 1:
+        return None, 0
+    return mode, g.layer_width(layer)
 
 
 def layer_mode(g, layer: int, metric: str, P: int, E: int,
                merge: str = "bitonic") -> Optional[str]:
     """The kernel's scoring mode for one layer of ``g`` on any device:
-    "blocks" (layer 0 with int8 or fp16 ``nbr_blocks``), "rows" (f32
-    ``vectors`` with more than one row, i.e. not the capacity mode's
-    placeholder), or None when the twin runs (a registered metric, the fp16
-    / bf16 stores, the int8 capacity mode, or a pool and candidate block
+    "blocks" (layer 0 with int8 or fp16 ``nbr_blocks``), "qrows" (the int8
+    capacity mode: ``qvec`` with ``vectors`` the [1, D] placeholder),
+    "rows" / "f16rows" / "bf16rows" (a float32 / float16 / bfloat16
+    ``vectors`` store of more than one row), or None when the twin runs (a
+    registered metric, an unknown merge, or a pool and candidate block
     past ``HOP_MAX_WIDTH`` or ``SMEM_LIMIT``)."""
     mode, M = _covered(g, layer, metric, merge)
     if mode is None or (P + E * M > HOP_MAX_WIDTH
@@ -179,15 +197,45 @@ def hop_kernel_applies(g, layer: int, metric: str, queries: torch.Tensor,
 def count_twin_layer(g, layer: int, metric: str, P: int, E: int,
                      merge: str = "bitonic") -> str:
     """Counts one layer that ran the twin on CUDA in
-    ``twin_layers_on_cuda``, by reason: "size" for a mode the kernel covers
-    at a pool and candidate block past its limits, else "mode". Returns
-    the reason."""
-    oversize = (_covered(g, layer, metric, merge)[0] is not None
-                and layer_mode(g, layer, metric, P, E, merge) is None)
-    reason = "size" if oversize else "mode"
+    ``twin_layers_on_cuda``, by reason: "mode" where the kernel lacks the
+    layer's mode (a registered metric, an unknown merge), "size" where
+    the mode is covered but ``layer_mode`` finds the layer past its
+    limits, else "other" (a graph that is not on the card, the twin
+    forced). Returns the reason."""
+    if _covered(g, layer, metric, merge)[0] is None:
+        reason = "mode"
+    elif layer_mode(g, layer, metric, P, E, merge) is None:
+        reason = "size"
+    else:
+        reason = "other"
     with _lock:
         twin_layers_on_cuda[reason] += 1
     return reason
+
+
+def score_code(g, mode: str, precision: str) -> int:
+    """The kernel's scoring mode (csrc/beam_search.cu S_*) for a layer of
+    ``g`` that ``layer_mode`` puts in ``mode``: the blocks' dtype, the
+    precision of f32 rows, else the row store's own mode."""
+    if mode == "blocks":
+        return _SCORE_I8 if g.nbr_blocks.dtype == torch.int8 else _SCORE_F16
+    if mode == "rows":
+        return _SCORE_BF16 if precision == DEFAULT else _SCORE_F32
+    return {"qrows": _SCORE_Q8ROW, "f16rows": _SCORE_F16ROW,
+            "bf16rows": _SCORE_B16ROW}[mode]
+
+
+def rounds_operands(score: int, precision: str) -> bool:
+    """Whether scoring mode ``score`` (``score_code``) multiplies a
+    bf16-rounded query, as the twin does: f32 rows at DEFAULT (their rows
+    rounded too), int8 blocks and int8 rows at any precision, bf16 rows
+    at DEFAULT; never fp16 rows or blocks (f32 at any precision) or f32
+    and bf16 rows at HIGHEST / HIGH. The launch passes it to the kernel
+    (``round_q``). Every product is then exact in f32 but f32 x fp16 /
+    bf16, which both sides round once, so the kernel parts from the twin
+    only in its order of f32 sums."""
+    return (score in (_SCORE_BF16, _SCORE_I8, _SCORE_Q8ROW)
+            or (score == _SCORE_B16ROW and precision == DEFAULT))
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -234,23 +282,25 @@ def beam_search_cuda(g, layer: int, queries: torch.Tensor,
     table = _i32(table)
     if umap is not None:
         umap = _i32(umap)
+    score = score_code(g, mode, precision)
+    blocks = scale = vectors = sq = qscale = None
     if mode == "blocks":
         blocks = g.nbr_blocks.contiguous()
         M = min(g.layer_width(0), blocks.shape[1])
-        score = _SCORE_I8 if blocks.dtype == torch.int8 else _SCORE_F16
         scale = (g.block_scale.to(torch.float32).reshape(()).contiguous()
                  if score == _SCORE_I8 else None)
-        vectors = sq = None
     else:
-        blocks = scale = None
         M = g.layer_width(layer)
-        score = _SCORE_BF16 if precision == DEFAULT else _SCORE_F32
-        vectors = g.vectors.contiguous()
         sq = g.sq_norms.to(torch.float32).contiguous()
+        if mode == "qrows":
+            vectors = g.qvec.contiguous()
+            qscale = g.qscale.to(torch.float32).contiguous()
+        else:
+            vectors = g.vectors.contiguous()
     for name, t in (("table", table), ("upper_map", umap),
                     ("vectors", vectors), ("sq_norms", sq),
-                    ("nbr_blocks", blocks), ("block_scale", scale),
-                    ("start_ids", start_ids)):
+                    ("qscale", qscale), ("nbr_blocks", blocks),
+                    ("block_scale", scale), ("start_ids", start_ids)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, queries on {dev}")
     out_d = torch.empty((B, P), dtype=torch.float32, device=dev)
@@ -269,10 +319,11 @@ def beam_search_cuda(g, layer: int, queries: torch.Tensor,
         rc = lib.beam_search_launch(
             ptr(queries), ptr(q_sq), ptr(start_ids), ptr(start_d),
             start_ids.shape[1], ptr(table), table.shape[1], ptr(umap),
-            table.shape[0], ptr(vectors), ptr(sq), ptr(blocks),
-            blocks.shape[1] if blocks is not None else 0, ptr(scale),
-            B, D, P, E, M, max_hops, _METRIC_CODE[metric], score,
-            _MERGE_CODE[merge], int(bool(store_normalized)), ptr(out_d),
+            table.shape[0], ptr(vectors), ptr(sq), ptr(qscale),
+            ptr(blocks), blocks.shape[1] if blocks is not None else 0,
+            ptr(scale), B, D, P, E, M, max_hops, _METRIC_CODE[metric],
+            score, _MERGE_CODE[merge], int(bool(store_normalized)),
+            int(rounds_operands(score, precision)), ptr(out_d),
             ptr(out_i), ptr(hops), ptr(work), stream)
     if rc != 0:
         raise RuntimeError(f"beam_search ({mode}) launch failed: "

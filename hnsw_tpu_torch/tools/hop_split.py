@@ -13,7 +13,10 @@ rows, seed 1, m=16, ef_construction=100, cosine, native builder) and
 captures the layer-0 call of each of K2's smoke cases (``CASES``: 1,024
 queries; f32 rows at ef 64 and 192, bench's mode with int8 and fp16
 neighbour blocks at ef 192, the wave builder's DEFAULT/sort descent at
-ef 100). For each case it prints:
+ef 100, and the capacity stores: ``hbm_mode="quantized"`` (int8 rows with
+per-row scales) and ``hbm_mode="float16"`` with ``fast_math`` at ef 192,
+``store_dtype="bfloat16"`` with ``fast_math`` (DEFAULT) at ef 64). For
+each case it prints:
 
 * the shipped kernel's ms (median of 5 CUDA-event reps) and its µs a
   hop: ms over the slowest query's hop count (the batch fits one wave,
@@ -36,6 +39,7 @@ raises without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import re
 import statistics
@@ -54,11 +58,16 @@ from hnsw_tpu_torch.tools.screen_split import cuda_ms
 PHASES = ("select", "gather + in-pool mask", "same-hop dedup", "list",
           "score", "rank", "merge", "compact")
 #: csrc/beam_search.cu S_*: scoring mode code -> name
-SCORE_NAMES = {0: "f32", 1: "bf16", 2: "int8", 3: "fp16"}
+SCORE_NAMES = {0: "f32", 1: "bf16", 2: "int8", 3: "fp16", 4: "qrows",
+               5: "f16rows", 6: "bf16rows"}
+#: the capacity stores' cases (the int8 capacity mode, fp16 and bf16 rows)
+CAPACITY_CASES = ("int8 rows ef=192 (hbm_mode=quantized)",
+                  "float16 rows ef=192 (hbm_mode=float16, fast_math)",
+                  "bfloat16 rows ef=64 (store_dtype=bfloat16, fast_math)")
 #: the smoke's K2 cases (chip_smoke.phase_beam_kernel) this tool runs
 CASES = ("rows ef=64", "rows ef=192", "int8 blocks ef=192 (bench mode)",
          "float16 blocks ef=192 (bench mode)",
-         "builder descent DEFAULT/sort ef=100")
+         "builder descent DEFAULT/sort ef=100") + CAPACITY_CASES
 CLOCKS = "BEAM_PHASE_CLOCKS"
 N_GRAPH, DIM, N_QUERIES = 100_000, 128, 1024
 
@@ -195,11 +204,7 @@ def instantiation(case: dict) -> tuple:
     E = max(1, min(kw["expand"], kw["pool_size"]))
     mode = bs.layer_mode(g, 0, kw["metric"], kw["pool_size"], E,
                          kw["merge"])
-    if mode == "blocks":
-        score = 2 if g.nbr_blocks.dtype == torch.int8 else 3
-    else:
-        score = 1 if kw["precision"] == "default" else 0
-    return score, int(g.dim % 4 == 0)
+    return bs.score_code(g, mode, kw["precision"]), int(g.dim % 4 == 0)
 
 
 def case_smem(lib, case: dict) -> int:
@@ -305,16 +310,23 @@ def capture_cases(g, queries: np.ndarray, base: np.ndarray,
     attributes are left as they were."""
     from hnsw_tpu_torch.core import build, search
 
-    def graph_case(ef, **modes):
+    def graph_case(ef, store_dtype=None, **modes):
         saved = {k: getattr(g, k) for k in modes}
+        cfg = g.cfg
         for k, v in modes.items():
             setattr(g, k, v)
+        if store_dtype is not None:
+            g.cfg = dataclasses.replace(cfg, store_dtype=store_dtype)
+            g._dirty = True
         try:
             return layer0_call(
                 lambda: g.batch_search_slots(queries, 10, ef=ef), search)
         finally:
             for k, v in saved.items():
                 setattr(g, k, v)
+            if store_dtype is not None:
+                g.cfg = cfg
+                g._dirty = True
 
     bench = dict(fast_math=True, block_layout=True, entry_mode="pivots")
     make = {
@@ -325,7 +337,12 @@ def capture_cases(g, queries: np.ndarray, base: np.ndarray,
         "float16 blocks ef=192 (bench mode)":
             lambda: graph_case(192, block_dtype="float16", **bench),
         "builder descent DEFAULT/sort ef=100": lambda: descent(
-            g.device_graph())}
+            g.device_graph()),
+        CAPACITY_CASES[0]: lambda: graph_case(192, hbm_mode="quantized"),
+        CAPACITY_CASES[1]: lambda: graph_case(192, hbm_mode="float16",
+                                              fast_math=True),
+        CAPACITY_CASES[2]: lambda: graph_case(64, store_dtype="bfloat16",
+                                              fast_math=True)}
 
     def descent(dg):
         wq = torch.from_numpy(base[:len(queries)]).to(dg.vectors.device)

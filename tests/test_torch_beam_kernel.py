@@ -11,18 +11,24 @@ On the CPU:
   (a) the kernel's premise: the twin run on each query alone gives the
       pool it gives on the whole batch, and the batch's hop count is the
       largest single-query count (a query that stops keeps its pool);
-  (b) the twin against ``hnsw_tpu.core.search.beam_search_layer``;
+  (b) the twin against ``hnsw_tpu.core.search.beam_search_layer``, on
+      f32 rows and on the capacity stores (the JAX Graph's int8 capacity
+      mode, fp16 store and bf16 store, carried across);
   (c) which calls the predicate sends to the kernel, from each layout's
-      tensors, and that a CPU graph never loads the library.
+      tensors (every layout from_host makes has a mode), and that a CPU
+      graph never loads the library.
 Marked ``cuda`` (skipped without an NVIDIA GPU; decided in the fixture):
   (d) the kernel against the twin on the same layer inputs, in every mode
-      it covers, and where its design could part from the twin's: equal
-      distances, a hop's duplicate ids, an INF start entry with a valid
-      id, a whole batch of 1,024 queries in one wave. Ids overlap >=
-      0.99; distances of shared ids within 1e-5 for f32 rows and fp16
-      blocks (f32 sums in another order) and 1e-3
-      where the operands are bf16-rounded (DEFAULT rows, int8 blocks: a
-      near tie may also steer a hop); hop counts equal. Run on a GPU
+      it covers (f32 rows, int8 / fp16 blocks, the capacity stores' int8
+      rows with per-row scales, fp16 and bf16 rows), and where its design
+      could part from the twin's: equal distances, a hop's duplicate ids,
+      an INF start entry with a valid id, scalar loads (D = 7, a view off
+      alignment), the widest pool, a whole batch of 1,024 queries in one
+      wave, a query whose bf16 rounding shows in its distances. Ids
+      overlap >= 0.99; distances of shared ids within 1e-5 (every product
+      is exact in f32 or rounded once on either side, so only the order
+      of f32 sums differs), but 1e-3 on int8 blocks (their squared norms
+      are f32 sums rounded to bf16); hop counts equal. Run on a GPU
       machine with
       ``python3 -m pytest --noconftest tests/test_torch_beam_kernel.py -m cuda``.
 """
@@ -188,6 +194,89 @@ def test_twin_matches_jax_layer(jax_graphs, metric, merge, expand, layer):
     assert ov >= 0.99 and err <= 1e-5, (ov, err)
 
 
+#: the capacity stores of the JAX Graph: the attributes set before
+#: device_graph() (``store_dtype`` through the config)
+CAPACITY_STORES = {"quantized": dict(hbm_mode="quantized"),
+                   "float16": dict(hbm_mode="float16"),
+                   "bfloat16": dict(store_dtype="bfloat16")}
+
+
+@pytest.fixture(scope="module")
+def jax_capacity_graphs():
+    """(jax DeviceGraph, port DeviceGraph) per (store, metric): the JAX
+    Graphs of ``jax_graphs``' seeded build laid out by the JAX package in
+    each capacity store (the int8 capacity mode's qvec rows with per-row
+    scales and a [1, D] placeholder; an fp16 store; a bf16 store, carried
+    across bit for bit) and carried into the port."""
+    import dataclasses
+    pytest.importorskip("jax")
+    import hnsw_tpu
+    from hnsw_tpu_torch.convert import device_graph_from_numpy
+    out = {}
+    for metric in ("cosine", "l2"):
+        g = hnsw_tpu.Graph(m=8, ef_construction=64, metric=metric, seed=3)
+        v = _data(1, 2500)
+        g.build(list(range(len(v))), v, method="host")
+        g.batch_delete(list(range(0, 2500, 50)))
+        for store, attrs in CAPACITY_STORES.items():
+            cfg, mode = g.cfg, g.hbm_mode
+            if "store_dtype" in attrs:
+                g.cfg = dataclasses.replace(cfg,
+                                            store_dtype=attrs["store_dtype"])
+            g.hbm_mode = attrs.get("hbm_mode", "full")
+            g._dirty = True
+            dev = g.device_graph()
+            fields = {k: np.asarray(x) for k, x in dev._asdict().items()
+                      if x is not None}
+            out[store, metric] = (dev, device_graph_from_numpy(fields,
+                                                               "cpu"))
+            g.cfg, g.hbm_mode, g._dirty = cfg, mode, True
+    return out
+
+
+#: the twin against JAX on the capacity stores: the largest matched
+#: distance gap. The fp16 and bf16 stores multiply an f32 query at
+#: HIGHEST on both sides; the int8 rows take a bf16-rounded query against
+#: the exact upcast (every product exact in f32), so each side differs
+#: only in its order of f32 sums. fp16: 1e-5, as the f32 rows; int8 and
+#: bf16: 1e-6, the measured bound (1.2e-7 in every case, ids equal).
+CAPACITY_TOL = {"quantized": 1e-6, "float16": 1e-5, "bfloat16": 1e-6}
+
+
+@pytest.mark.parametrize("layer", [0, "top"])
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+@pytest.mark.parametrize("store", list(CAPACITY_STORES))
+def test_twin_matches_jax_layer_on_capacity_stores(jax_capacity_graphs,
+                                                   store, metric, merge,
+                                                   layer):
+    """The twin's capacity-store scoring (the rows K2's qrows / f16rows /
+    bf16rows modes reproduce) against hnsw_tpu.core.search's
+    beam_search_layer on the same layer inputs."""
+    import jax
+    import jax.numpy as jnp
+    from hnsw_tpu.core import search as jsearch
+    jg, tg = jax_capacity_graphs[store, metric]
+    mode = {"quantized": "qrows", "float16": "f16rows",
+            "bfloat16": "bf16rows"}[store]
+    layer = tg.num_layers - 1 if layer == "top" else 0
+    P = 32 if layer == 0 else 8
+    assert bs.layer_mode(tg, layer, metric, P, 4, merge) == mode
+    q, q_sq = _queries()
+    ids, d = _starts(tg, q, q_sq, metric, HIGHEST, False)
+    jd, ji = jsearch.beam_search_layer(
+        jg, layer, jnp.asarray(q.numpy()), jnp.asarray(q_sq.numpy()),
+        jnp.asarray(ids.numpy()), jnp.asarray(d.numpy()), P, 64, metric,
+        jax.lax.Precision.HIGHEST, expand=4, merge=merge,
+        store_normalized=metric == "cosine")
+    td, ti = tsearch.beam_search_layer_reference(
+        tg, layer, q, q_sq, ids, d, P, 64, metric, HIGHEST, expand=4,
+        merge=merge, store_normalized=metric == "cosine")
+    ov, err = _overlap_and_err(np.asarray(jd), np.asarray(ji), td.numpy(),
+                               ti.numpy())
+    assert ov >= 0.999 and err <= CAPACITY_TOL[store], (ov, err)
+
+
 def _overlap_and_err(da, ia, db, ib):
     """Share of ``ib``'s valid ids found in ``ia`` (row by row) and the
     largest distance gap over the ids both hold."""
@@ -211,19 +300,57 @@ def _overlap_and_err(da, ia, db, ib):
     ("compact", {}, "rows", "rows"),
     ("int8-blocks", {}, "blocks", "rows"),
     ("fp16-blocks", {}, "blocks", "rows"),
-    ("int8-blocks", dict(hbm_vectors=False), "blocks", None),
-    ("dense", dict(quantize=True, hbm_vectors=False), None, None),
-    ("dense", dict(store_dtype="float16"), None, None),
-    ("dense", dict(store_dtype="bfloat16"), None, None),
-    ("fp16-blocks", dict(store_dtype="float16"), "blocks", None)])
+    ("int8-blocks", dict(hbm_vectors=False), "blocks", "qrows"),
+    ("dense", dict(quantize=True, hbm_vectors=False), "qrows", "qrows"),
+    ("dense", dict(store_dtype="float16"), "f16rows", "f16rows"),
+    ("dense", dict(store_dtype="bfloat16"), "bf16rows", "bf16rows"),
+    ("fp16-blocks", dict(store_dtype="float16"), "blocks", "f16rows"),
+    ("compact", dict(quantize=True, hbm_vectors=False), "qrows", "qrows"),
+    ("split", dict(store_dtype="float16"), "f16rows", "f16rows"),
+    ("compact", dict(store_dtype="bfloat16"), "bf16rows", "bf16rows"),
+    ("fp16-blocks", dict(hbm_vectors=False), "blocks", "qrows"),
+    ("dense", dict(quantize=True), "rows", "rows")])
 def test_layer_mode_routes_each_layout(hosts, layout, store, want0,
                                        want_up):
+    """Every layer of every layout from_host makes has a kernel mode (the
+    twin's _score_hop order: layer-0 blocks, the int8 capacity mode's
+    rows, then the store by its dtype); on the CPU none takes the
+    kernel."""
     g = _layout(hosts, "cosine", layout, **store)
     assert bs.layer_mode(g, 0, "cosine", 64, 4) == want0
     for layer in range(1, g.num_layers):
         assert bs.layer_mode(g, layer, "cosine", 8, 4) == want_up
     q, _ = _queries()
     assert not bs.hop_kernel_applies(g, 0, "cosine", q, 64, 4)
+
+
+@pytest.mark.parametrize("precision", [HIGHEST, DEFAULT])
+@pytest.mark.parametrize("layout,store", [
+    ("dense", None), ("int8-blocks", None), ("fp16-blocks", None),
+    ("dense", "quantized"), ("dense", "float16"), ("dense", "bfloat16")])
+def test_rounds_operands_says_what_the_twin_does(hosts, layout, store,
+                                                 precision):
+    """rounds_operands, which tells the kernel whether to round the query
+    to bf16, against the twin's layer-0 scoring on the CPU: the twin gives
+    the same distances, bit for bit, for the query and for its bf16
+    rounding exactly where rounds_operands says the query is rounded."""
+    from hnsw_tpu_torch.ops.distance import bf16_round
+    g = _layout(hosts, "l2", layout, **(STORES[store][0] if store else {}))
+    mode = bs.layer_mode(g, 0, "l2", 32, 4)
+    q, q_sq = _queries()
+    qr = bf16_round(q)
+    assert not torch.equal(q, qr)
+    if mode == "blocks":
+        cur = torch.arange(4 * len(q), dtype=torch.int32).reshape(-1, 4)
+        a, b = (tsearch._score_blocks(g, x, q_sq, cur, "l2", False)
+                for x in (q, qr))
+    else:
+        nb = torch.clamp(g.neighbors[0][:len(q)], 0)
+        a, b = (tsearch._score_hop(g, x, q_sq, nb, "l2", precision)
+                for x in (q, qr))
+    rounds = bs.rounds_operands(bs.score_code(g, mode, precision),
+                                precision)
+    assert torch.equal(a, b) == rounds, (mode, precision)
 
 
 def test_layer_mode_limits_and_metrics():
@@ -314,10 +441,11 @@ def test_layer_mode_keeps_every_shape_it_took(merge):
 
 
 def test_twin_layers_on_cuda_are_counted_by_reason(hosts, monkeypatch):
-    """count_twin_layer: a covered mode past the width limit is "size", a
-    mode the kernel lacks (registered metric, fp16 store) is "mode"; the
-    dispatcher counts only layers on CUDA tensors, so a CPU search counts
-    none."""
+    """count_twin_layer: a covered mode past the width limit is "size" (the
+    capacity stores included), a mode the kernel lacks (only a registered
+    metric) is "mode", a covered mode within its limits (a graph not on
+    the card, the twin forced) is "other"; the dispatcher counts only
+    layers on CUDA tensors, so a CPU search counts none."""
     meta = torch.device("meta")
     g = DeviceGraph(
         vectors=torch.empty((4096, 128), device=meta),
@@ -326,19 +454,25 @@ def test_twin_layers_on_cuda_are_counted_by_reason(hosts, monkeypatch):
         levels=torch.empty(4096, dtype=torch.int32, device=meta),
         alive=torch.empty(4096, dtype=torch.bool, device=meta),
         entry=torch.empty((), dtype=torch.int32, device=meta))
-    monkeypatch.setattr(bs, "twin_layers_on_cuda", {"mode": 0, "size": 0})
+    monkeypatch.setattr(bs, "twin_layers_on_cuda",
+                        {"mode": 0, "size": 0, "other": 0})
     assert bs.count_twin_layer(g, 0, "l2", 4096 - 127, 4, "sort") == "size"
     register_distance("beam_kernel_test_l1",
                       lambda a, b: float(np.abs(a - b).sum()),
                       pairwise_fn=lambda a, b: torch.cdist(a, b, p=1))
     assert bs.count_twin_layer(g, 0, "beam_kernel_test_l1", 64, 4) == "mode"
     fp16 = _layout(hosts, "cosine", store_dtype="float16")
-    assert bs.count_twin_layer(fp16, 0, "cosine", 64, 4) == "mode"
-    assert bs.twin_layers_on_cuda == {"mode": 2, "size": 1}
+    P = bs.HOP_MAX_WIDTH - 4 * fp16.layer_width(0)
+    assert bs.count_twin_layer(fp16, 0, "cosine", P + 1, 4) == "size"
+    assert bs.count_twin_layer(fp16, 0, "cosine", P, 4) == "other"
+    assert bs.count_twin_layer(fp16, 0, "cosine", 64, 4) == "other"
+    assert bs.count_twin_layer(fp16, 0, "beam_kernel_test_l1", 64,
+                               4) == "mode"
+    assert bs.twin_layers_on_cuda == {"mode": 2, "size": 2, "other": 2}
     q, _ = _queries()
     tsearch.search_graph(fp16, q, k=10, ef=32, metric="cosine", expand=4,
                          merge="bitonic")
-    assert bs.twin_layers_on_cuda == {"mode": 2, "size": 1}
+    assert bs.twin_layers_on_cuda == {"mode": 2, "size": 2, "other": 2}
 
 
 @pytest.mark.parametrize("layout", ["dense", "int8-blocks"])
@@ -421,8 +555,14 @@ def cuda():
 
 def _reset():
     bs.launches = 0
-    bs.launches_by_mode.update(rows=0, blocks=0)
-    bs.twin_layers_on_cuda.update(mode=0, size=0)
+    bs.launches_by_mode.update(dict.fromkeys(bs.MODES, 0))
+    bs.twin_layers_on_cuda.update(mode=0, size=0, other=0)
+
+
+#: the capacity stores: from_host keyword arguments, the kernel's mode
+STORES = {"quantized": (dict(quantize=True, hbm_vectors=False), "qrows"),
+          "float16": (dict(store_dtype="float16"), "f16rows"),
+          "bfloat16": (dict(store_dtype="bfloat16"), "bf16rows")}
 
 
 def _kernel_vs_twin(g, layer, q, q_sq, ids, d, *, P, E, metric, precision,
@@ -460,12 +600,11 @@ def test_kernel_matches_twin_on_rows(cuda, hosts, metric, merge, precision,
                                      expand):
     g = _layout(hosts, metric, device=cuda)
     q, q_sq = _queries(cuda, n=64)
-    tol = 1e-5 if precision == HIGHEST else 1e-3
     for layer in range(g.num_layers - 1, -1, -1):
         ids, d = _starts(g, q, q_sq, metric, precision, False)
         _kernel_vs_twin(g, layer, q, q_sq, ids, d, P=48 if layer == 0
                         else 8, E=expand, metric=metric,
-                        precision=precision, merge=merge, tol=tol)
+                        precision=precision, merge=merge)
 
 
 @pytest.mark.cuda
@@ -483,6 +622,116 @@ def test_kernel_matches_twin_on_blocks(cuda, hosts, layout, metric, merge,
                     precision=DEFAULT, merge=merge,
                     tol=1e-3 if layout == "int8-blocks" else 1e-5,
                     normalized=normalized)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expand", [1, 4])
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sqeuclidean", "dot"])
+@pytest.mark.parametrize("store,precision", [
+    ("quantized", DEFAULT), ("float16", DEFAULT), ("bfloat16", HIGHEST),
+    ("bfloat16", DEFAULT)])
+def test_kernel_matches_twin_on_capacity_rows(cuda, hosts, store,
+                                              precision, metric, merge,
+                                              expand):
+    """Every layer of the capacity stores, each one launch in its mode:
+    the int8 rows take a bf16-rounded query and the row's own scale, the
+    fp16 rows an f32 query even at DEFAULT (fast_math), the bf16 rows a
+    query rounded at DEFAULT only."""
+    kw, mode = STORES[store]
+    g = _layout(hosts, metric, device=cuda, **kw)
+    q, q_sq = _queries(cuda, n=64)
+    for layer in range(g.num_layers - 1, -1, -1):
+        assert bs.layer_mode(g, layer, metric, 8, expand) == mode
+        ids, d = _starts(g, q, q_sq, metric, precision, layer == 0)
+        _kernel_vs_twin(g, layer, q, q_sq, ids, d, P=48 if layer == 0
+                        else 8, E=expand, metric=metric,
+                        precision=precision, merge=merge)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element past an aligned base: the
+    kernel's vector loads need the row store 4-byte (int8) or 8-byte
+    (fp16 / bf16) aligned, so this view takes the scalar loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 4 != 0
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["D=7", "unaligned"])
+@pytest.mark.parametrize("store", list(STORES))
+def test_kernel_capacity_rows_take_scalar_loads(cuda, hosts, store, shape):
+    """D = 7, and a D = 32 store viewed off its alignment: every capacity
+    store loads element by element and still holds the twin."""
+    kw, mode = STORES[store]
+    if shape == "D=7":
+        g = from_host(*_host_graph("l2", d=7), metric="l2", device=cuda,
+                      **kw)
+    else:
+        g = _layout(hosts, "l2", device=cuda, **kw)
+        if store == "quantized":
+            g = g._replace(qvec=_misaligned(g.qvec))
+        else:
+            g = g._replace(vectors=_misaligned(g.vectors))
+    q, q_sq = _queries(cuda, n=64, d=g.dim)
+    for layer in (g.num_layers - 1, 0):
+        ids, d = _starts(g, q, q_sq, "l2", DEFAULT, False)
+        assert bs.layer_mode(g, layer, "l2", 32, 4) == mode
+        _kernel_vs_twin(g, layer, q, q_sq, ids, d, P=32, E=4, metric="l2",
+                        precision=DEFAULT, merge="bitonic")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+@pytest.mark.parametrize("store", list(STORES))
+def test_kernel_capacity_rows_at_the_width_limit(cuda, hosts, store, merge):
+    """P + E*M = 4,096 on each capacity store (the pool ends unfilled)."""
+    kw, _ = STORES[store]
+    g = _layout(hosts, "cosine", device=cuda, **kw)
+    q, q_sq = _queries(cuda, n=16)
+    ids, d = _starts(g, q, q_sq, "cosine", HIGHEST, True)
+    P = bs.HOP_MAX_WIDTH - 4 * g.layer_width(0)
+    hops = _kernel_vs_twin(g, 0, q, q_sq, ids, d, P=P, E=4,
+                           metric="cosine", precision=HIGHEST, merge=merge,
+                           max_hops=24)
+    assert hops == 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+@pytest.mark.parametrize("store,precision", [
+    ("quantized", HIGHEST), ("bfloat16", DEFAULT)])
+def test_kernel_rounds_the_query_as_the_twin(cuda, hosts, store, precision,
+                                             metric):
+    """Non-integer data, where the query's bf16 rounding moves distances by
+    far more than the tolerance: the kernel holds the twin within 1e-5
+    (the int8 rows round the query at any precision, the bf16 rows at
+    DEFAULT), while the same rows scored with the query unrounded part
+    from the kernel's distances by more than 1e-4. A kernel that skipped
+    the rounding fails here."""
+    from hnsw_tpu_torch.ops.distance import gathered_epilogue
+    kw, mode = STORES[store]
+    g = _layout(hosts, metric, device=cuda, **kw)
+    q, q_sq = _queries(cuda, n=64)
+    ids, d = _starts(g, q, q_sq, metric, precision, True)
+    _kernel_vs_twin(g, 0, q, q_sq, ids, d, P=48, E=4, metric=metric,
+                    precision=precision, merge="bitonic")
+    kd, ki, _, _ = bs.beam_search_cuda(
+        g, 0, q, q_sq, ids, d, pool_size=48, max_hops=64, metric=metric,
+        precision=precision, expand=4, merge="bitonic",
+        store_normalized=False)
+    safe = torch.clamp(ki, 0).long()
+    if mode == "qrows":
+        qv = torch.einsum("bd,bcd->bc", q, g.qvec[safe].to(torch.float32))
+        plain = gathered_epilogue(metric, qv * g.qscale[safe], q_sq,
+                                  g.sq_norms[safe])
+    else:
+        plain = tsearch._score_hop(g, q, q_sq, safe, metric, HIGHEST)
+    gap = float((plain - kd)[ki >= 0].abs().max())
+    assert gap > 1e-4, gap
 
 
 @pytest.mark.cuda
@@ -530,10 +779,14 @@ def test_kernel_odd_width_takes_scalar_loads(cuda, layout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["default", "bench"])
+@pytest.mark.parametrize("mode", ["default", "bench", "quantized", "float16",
+                                  "bfloat16"])
 def test_graph_search_launches_once_per_layer(cuda, mode):
-    """Graph.batch_search_slots on the card: one launch a layer searched,
-    and the results the twin gives on the same graph."""
+    """Graph.batch_search_slots on the card: one launch a layer searched
+    (bench's mode: layer 0 on blocks; each hbm_mode and the bf16 store:
+    every layer in its store's mode), no layer on the twin, and the
+    results the twin gives on the same graph."""
+    import dataclasses
     v = _data(3, 6000)
     q = _data(4, 64)
     g = hnsw_tpu_torch.Graph(m=8, ef_construction=64, seed=0, device=cuda)
@@ -543,13 +796,20 @@ def test_graph_search_launches_once_per_layer(cuda, mode):
         g.fast_math = True
         g.block_layout = True
         g.entry_mode = "pivots"
+    elif mode in ("quantized", "float16"):
+        g.hbm_mode = mode
+    elif mode == "bfloat16":
+        g.cfg = dataclasses.replace(g.cfg, store_dtype="bfloat16")
+        g._dirty = True
     _reset()
     d, i = g.batch_search_slots(q, 10, ef=64)
     layers = 1 if mode == "bench" else g.device_graph().num_layers
     assert bs.launches == layers == len(g.last_search_hops)
-    assert bs.twin_layers_on_cuda == {"mode": 0, "size": 0}
-    assert bs.launches_by_mode == ({"rows": 0, "blocks": 1} if mode == "bench"
-                                   else {"rows": layers, "blocks": 0})
+    assert bs.twin_layers_on_cuda == {"mode": 0, "size": 0, "other": 0}
+    want = dict.fromkeys(bs.MODES, 0)
+    want[{"default": "rows", "bench": "blocks", "quantized": "qrows",
+          "float16": "f16rows", "bfloat16": "bf16rows"}[mode]] = layers
+    assert bs.launches_by_mode == want
     real = bs.hop_kernel_applies
     try:
         bs.hop_kernel_applies = lambda *a, **k: False
@@ -598,16 +858,24 @@ def test_smem_bytes_match_the_library(cuda):
                               (128, 3968, 4, 32, "sort"),
                               (7, 8, 4, 16, "bitonic"),
                               (128, 4088, 1, 8, "sort")):
-        assert lib.beam_search_smem_bytes(
-            D, P, E, M, int(merge == "sort")) == bs.smem_bytes(D, P, E, M,
-                                                               merge)
+        nbytes = lib.beam_search_smem_bytes(D, P, E, M, int(merge == "sort"))
+        assert nbytes == bs.smem_bytes(D, P, E, M, merge)
+        # every instantiation (seven scoring modes, vector and scalar
+        # loads) launches at that shared memory
+        for score in range(7):
+            for vec in (0, 1):
+                assert lib.beam_search_blocks_per_sm(score, vec,
+                                                     nbytes) >= 1
+    assert lib.beam_search_blocks_per_sm(7, 0, 1024) == -1
 
 
-def _int_graph(device):
+def _int_graph(device, **store):
     """An l2 graph on small-integer rows, a fifth of them copies of
     others: distances are exact in f32 on either side (and in bf16), so
     equal distances tie exactly and the kernel must order them as the
-    twin does."""
+    twin does. ``store``: from_host's store arguments (fp16 and bf16 hold
+    the integers exactly; the int8 rows' Gram is an exact integer sum
+    times the row's scale, the same one rounding on either side)."""
     r = np.random.default_rng(11)
     v = r.integers(-2, 3, (2500, 32)).astype(np.float32)
     v[2000:] = v[:500]
@@ -620,7 +888,7 @@ def _int_graph(device):
         r.integers(-2, 3, (64, 32)).astype(np.float32)).to(device)
     return (from_host(g.store.vectors[:n], g.store.sq_norms[:n], nb[:, :n],
                       levels[:n], g.store.alive[:n], entry,
-                      metric="sqeuclidean", device=device),
+                      metric="sqeuclidean", device=device, **store),
             q, torch.sum(q * q, dim=-1))
 
 
@@ -660,6 +928,30 @@ def test_kernel_breaks_ties_as_the_twin(cuda, merge, precision, expand):
     ki, _, _ = _kernel_equals_twin(g, q, q_sq, ids, d, **kw)
     dist = torch.sum((q[:, None, :] - g.vectors[torch.clamp(
         torch.from_numpy(ki).to(cuda), 0).long()]) ** 2, -1).cpu().numpy()
+    fin = ki >= 0
+    ties = sum(len(row[f]) - len(np.unique(row[f]))
+               for row, f in zip(dist, fin))
+    assert ties > 0                        # the pools do hold equal distances
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+@pytest.mark.parametrize("store", list(STORES))
+def test_kernel_breaks_ties_as_the_twin_on_capacity_rows(cuda, store,
+                                                         merge):
+    """Equal distances on each capacity store: the pools equal the twin's
+    bit for bit, ties included."""
+    g, q, q_sq = _int_graph(cuda, **STORES[store][0])
+    assert bs.layer_mode(g, 0, "sqeuclidean", 48, 4, merge) \
+        == STORES[store][1]
+    ids, d = _starts(g, q, q_sq, "sqeuclidean", DEFAULT, True)
+    kw = dict(pool_size=48, max_hops=64, metric="sqeuclidean",
+              precision=DEFAULT, expand=4, merge=merge,
+              store_normalized=False)
+    ki, _, _ = _kernel_equals_twin(g, q, q_sq, ids, d, **kw)
+    kt = torch.from_numpy(ki).to(cuda)
+    dist = tsearch._score_hop(g, q, q_sq, torch.clamp(kt, 0), "sqeuclidean",
+                              DEFAULT).cpu().numpy()
     fin = ki >= 0
     ties = sum(len(row[f]) - len(np.unique(row[f]))
                for row, f in zip(dist, fin))
@@ -729,7 +1021,7 @@ def test_a_full_batch_fits_one_wave(cuda, ef):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for merge in ("bitonic", "sort"):
         nbytes = bs.smem_bytes(128, ef, 4, 32, merge)
-        for score in range(4):
+        for score in range(7):
             per_sm = lib.beam_search_blocks_per_sm(score, 1, nbytes)
             assert per_sm * sms >= 1024, (merge, score, per_sm, sms)
     q, q_sq = _queries(cuda, n=1024, d=128)

@@ -31,6 +31,14 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118beam_search_kernelI
 ptxas info    : Function properties for _ZN12_GLOBAL__N_118beam_search_kernelILi3ELb0EEEvNS_6ParamsE
     8 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 64 registers, used 1 barriers, 560 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118beam_search_kernelILi4ELb1EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118beam_search_kernelILi4ELb1EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 62 registers, used 1 barriers, 576 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118beam_search_kernelILi6ELb0EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118beam_search_kernelILi6ELb0EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 60 registers, used 1 barriers, 576 bytes cmem[0]
 ptxas info    : Compiling entry function '_Z11other_kernelv' for 'sm_90a'
 ptxas info    : Function properties for _Z11other_kernelv
     0 bytes stack frame, 40 bytes spill stores, 40 bytes spill loads
@@ -44,7 +52,23 @@ def test_parse_ptxas_reads_each_instantiation():
         "f32/vec": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
                     "registers": 64},
         "fp16/scalar": {"stack": 8, "spill_stores": 12, "spill_loads": 8,
-                        "registers": 64}}
+                        "registers": 64},
+        "qrows/vec": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                      "registers": 62},
+        "bf16rows/scalar": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                            "registers": 60}}
+
+
+def test_score_names_follow_the_kernel_modes():
+    """SCORE_NAMES names the kernel's S_* scoring modes by their codes."""
+    with open(bs.SOURCE) as f:
+        src = f.read()
+    enum = re.search(r"enum \{ (S_F32 = 0,[^}]*)\}", src).group(1)
+    codes = {n.split("=")[0].strip(): int(n.split("=")[1])
+             for n in enum.split(",") if n.strip()}
+    assert codes == {"S_F32": 0, "S_BF16": 1, "S_I8": 2, "S_F16": 3,
+                     "S_Q8ROW": 4, "S_F16ROW": 5, "S_B16ROW": 6}
+    assert sorted(hs.SCORE_NAMES) == sorted(codes.values())
 
 
 def test_phase_report_splits_the_slowest_block():
@@ -96,29 +120,44 @@ def test_main_raises_without_cuda(monkeypatch, tmp_path):
     assert not os.listdir(tmp_path)               # nothing was built
 
 
-def _meta_graph(blocks=None):
+def _meta_graph(blocks=None, store=torch.float32):
+    """A graph on "meta" tensors: f32, fp16 or bf16 rows, or (``store``
+    torch.int8) the int8 capacity mode's qvec rows and a [1, D]
+    placeholder."""
     meta = torch.device("meta")
+    quantized = store == torch.int8
     return DeviceGraph(
-        vectors=torch.empty((4096, 128), device=meta),
+        vectors=torch.empty((1 if quantized else 4096, 128),
+                            dtype=torch.float32 if quantized else store,
+                            device=meta),
         sq_norms=torch.empty(4096, device=meta),
         neighbors=torch.empty((1, 4096, 32), dtype=torch.int32, device=meta),
         levels=torch.empty(4096, dtype=torch.int32, device=meta),
         alive=torch.empty(4096, dtype=torch.bool, device=meta),
         entry=torch.empty((), dtype=torch.int32, device=meta),
+        qvec=(torch.empty((4096, 128), dtype=torch.int8, device=meta)
+              if quantized else None),
+        qscale=torch.empty(4096, device=meta) if quantized else None,
         nbr_blocks=(None if blocks is None else
                     torch.empty((4096, 32, 128), dtype=blocks, device=meta)))
 
 
-@pytest.mark.parametrize("blocks,precision,merge,want", [
-    (None, "highest", "bitonic", (0, 1)),
-    (None, "default", "sort", (1, 1)),
-    (torch.int8, "default", "bitonic", (2, 1)),
-    (torch.float16, "default", "bitonic", (3, 1))])
-def test_instantiation_and_shared_memory_of_a_case(blocks, precision, merge,
-                                                   want):
+@pytest.mark.parametrize("blocks,store,precision,merge,want", [
+    (None, torch.float32, "highest", "bitonic", (0, 1)),
+    (None, torch.float32, "default", "sort", (1, 1)),
+    (torch.int8, torch.float32, "default", "bitonic", (2, 1)),
+    (torch.float16, torch.float32, "default", "bitonic", (3, 1)),
+    (None, torch.int8, "highest", "bitonic", (4, 1)),
+    (None, torch.float16, "default", "bitonic", (5, 1)),
+    (None, torch.bfloat16, "default", "sort", (6, 1)),
+    (None, torch.bfloat16, "highest", "bitonic", (6, 1)),
+    (torch.int8, torch.int8, "default", "bitonic", (2, 1))])
+def test_instantiation_and_shared_memory_of_a_case(blocks, store, precision,
+                                                   merge, want):
     """A case's kernel instantiation (scoring mode, vector loads) and its
-    shared memory as the library computes it (a stand-in library here)."""
-    g = _meta_graph(blocks)
+    shared memory as the library computes it (a stand-in library here):
+    every store, the capacity ones included."""
+    g = _meta_graph(blocks, store)
     case = {"g": g, "args": (), "kw": dict(pool_size=192, max_hops=128,
                                            metric="cosine",
                                            precision=precision, expand=4,
@@ -162,7 +201,16 @@ def test_capture_cases_on_a_cpu_graph():
             "int8 blocks ef=192 (bench mode)": (192, "default", torch.int8),
             "float16 blocks ef=192 (bench mode)": (192, "default",
                                                    torch.float16),
-            "builder descent DEFAULT/sort ef=100": (100, "default", None)}
+            "builder descent DEFAULT/sort ef=100": (100, "default", None),
+            hs.CAPACITY_CASES[0]: (192, "highest", None),
+            hs.CAPACITY_CASES[1]: (192, "default", None),
+            hs.CAPACITY_CASES[2]: (64, "default", None)}
+    modes = dict.fromkeys(want, "rows")
+    modes.update({"int8 blocks ef=192 (bench mode)": "blocks",
+                  "float16 blocks ef=192 (bench mode)": "blocks",
+                  hs.CAPACITY_CASES[0]: "qrows",
+                  hs.CAPACITY_CASES[1]: "f16rows",
+                  hs.CAPACITY_CASES[2]: "bf16rows"})
     for label, case in cases.items():
         P, precision, blocks = want[label]
         kw = hs.case_kwargs(case)
@@ -172,7 +220,8 @@ def test_capture_cases_on_a_cpu_graph():
         assert (got is None if blocks is None else got.dtype == blocks)
         assert bs.layer_mode(case["g"], 0, kw["metric"], P,
                              max(1, min(kw["expand"], P)),
-                             kw["merge"]) == ("rows" if blocks is None
-                                              else "blocks")
+                             kw["merge"]) == modes[label]
+    assert g.hbm_mode == "full" and g.cfg.store_dtype == "float32"
+    assert g.device_graph().vectors.dtype == torch.float32
     assert hs.case_kwargs(cases["builder descent DEFAULT/sort ef=100"])[
         "merge"] == "sort"
