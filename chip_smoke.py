@@ -23,7 +23,16 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    exact tier's shape (Q=1024, N=1,048,576, D=128, k_sel=18, l2; both
    producers) and, for the cp.async producer, at glove-50's, each beside
    its bound, with the plain version and torch.topk(torch.cdist) as a
-   yardstick the port never calls;
+   yardstick the port never calls; then the capacity screen (the same
+   kernel over the capacity modes' tables, ops/exact_screen.
+   capacity_scan) against its plain version (ops/topk.
+   quantized_topk_candidates) for each store at the exact tier's shape
+   (int8 with per-row scales kk=26, bf16 and fp16 kk=14, L2, TMA; int8
+   also at kk=150, k=100's pool), below K1's 32,768-row switch (int8 and
+   fp16 at N 1,000 / 8,192 / 32,767, Q 1,024 and 8), and int8 and bf16
+   at glove-50's (cosine, rows of 50 and 100 bytes: the ordinary-load
+   producer), held to id overlap >= 0.999 and matched distances within
+   1e-5 relative, each timed beside its bound and the plain version;
 4. exact tier at SIFT1M's shape (1,000,000 x 128 f32, L2, k=10; synthetic
    data from a seed): recall@10 against the numpy oracle and QPS, with
    K1's launches by route from this phase; then the exact tier at
@@ -57,9 +66,16 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    k=10; synthetic rows from a seed): the float32 rung through the kernel,
    checked against a chunked numpy scan, then hbm_dtype int8, bf16 and
    fp16 with recall@10 against the float32 rung, QPS, and
-   batch_search_stream against sequential search;
+   batch_search_stream against sequential search; each reduced rung
+   launches the capacity screen once a batch (the warm-up, 8 sequential
+   and 8 streamed batches) and K1 never, and one batch through the plain
+   scan gives its QPS beside the kernel's; int8 also serves one batch at
+   k=100 (pool 150), held to recall@100 >= 0.99 against the float32
+   rung; no phase lets a capacity scan of a card table run the plain
+   version (ops/exact_screen.capacity_plain_on_cuda stays 0);
 7. hbm_dtype="auto" on 1,000,000 x 128 tight clusters (two widths): the
-   rung it resolves to, and the kernel's launches when that is float32;
+   rung it resolves to, and K1's launches when that is float32, the
+   capacity screen's when it is a reduced rung;
 8. the graph tier's serving modes on the same 100k graph: bench.py's
    configuration (fast_math, block_layout, entry_mode="pivots") at ef 192
    and 384 (and at ef 192 through the plain twin: QPS, recall within
@@ -98,7 +114,9 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    cosine rows of phase 5: warm(), 16 batches of 1,024 queries and 1,024
    single queries, recall@10 against the exact tier, the arms that
    served, K1's launches by the exact arm and the recall probes,
-   fallback_errors == 0; two batches served by the stream arm (measured
+   fallback_errors == 0, the int8 arm alone (one capacity screen launch,
+   recall@10 >= 0.99; the phase launches the screen on int8 only);
+   two batches served by the stream arm (measured
    recall >= 0.99, K1 on its one 100,000-row chunk); and the LSH arm's
    recall and candidate-set sizes;
 13. bench.py's configuration (10,000 x 128 cosine, k=10): HybridIndex with
@@ -110,7 +128,8 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    K1: ids equal to phase 6's float32 rung on its first batch (or a
    tie-aware recall of 1.0), QPS cold, warm (every chunk pinned on the
    card) and with a 2 GB budget, a warm batch beside the plain scan per
-   chunk, and one cold batch of each reduced rung (recall@10 >= 0.99);
+   chunk, and one cold batch of each reduced rung (recall@10 >= 0.99;
+   one capacity screen launch a chunk);
 15. DiskGraph on phase 5's graph (npz tables): persist without a rebuild,
    reopen with keys and distances equal to phase 5's at ef 64, 200 adds
    and 100 deletes through the WAL and an incremental reopen, then the
@@ -123,7 +142,8 @@ call real, and fails (non-zero exit, no result line) on any failed check:
 17. the parallel package on default_mesh(8), eight shards on the one card:
    phase 6's 10M rows row-sharded (sharded_exact_topk: K1 on every
    1.25M-row shard, ids equal to phase 6's float32 rung; int8 shards
-   with per-row scales + host rerank, recall@10 >= 0.99), phase 5's graph
+   with per-row scales + host rerank, recall@10 >= 0.99, one capacity
+   screen launch a shard a batch), phase 5's graph
    query-sharded (f32 and fp16 stores, overlap >= 0.99 with one search of
    the batch) and row-sharded (f32 and fp16 rows, overlap >= 0.9 with the
    pivot-seeded single-device search), a PartitionedGraph of 8 partitions
@@ -148,8 +168,12 @@ that no layer of a mode K2 covers went to the twin
 covered modes and check that no layer went to the twin at all, and the
 main path as a whole launched K2 in each of its five modes (f32 rows,
 blocks, int8 rows, fp16 rows, bf16 rows).
-The last two lines are the kernel table (one entry a K1 route and one for
-K2, each with its launches on the main path) and
+Phases 6, 7, 12, 14 and 17 each check the capacity screen's launches by
+store (ops/exact_screen.capacity_launches_by_store), and the main path as
+a whole launched it on all three stores.
+The last two lines are the kernel table (one entry a K1 route, one for
+K2 and one for the capacity screen, each with its launches on the main
+path) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card and no network; imports nothing of JAX.
 """
@@ -193,6 +217,19 @@ DEVICE = "cuda"
 KERNEL = {"route": "cuda",
           "source": "hnsw_tpu_torch/csrc/exact_screen.cu",
           "replaces": "hnsw_tpu/ops/pallas_exact.py:175"}
+#: the capacity screen (K3's port): the same kernel source over the
+#: capacity modes' int8 (with per-row scales), bf16 and fp16 tables, one
+#: launch a capacity scan (ops/exact_screen.capacity_scan)
+CAPACITY_KERNEL = {"route": "cuda",
+                   "source": "hnsw_tpu_torch/csrc/exact_screen.cu",
+                   "replaces": "hnsw_tpu/ops/topk.py:249"}
+#: the capacity screen's launches on the main path, by store, summed over
+#: the phases that drive a capacity scan (6, 7, 12, 14, 17; each resets
+#: the counts before it and reads them after)
+CAPACITY_LAUNCHES = dict.fromkeys(("int8", "bf16", "fp16"), 0)
+#: phase 3: the capacity screen's pool at k = 10 by store (ExactIndex's
+#: margins: k + 16 for int8, k + 4 for bf16 and fp16)
+CAPACITY_KK = {"int8": 26, "bf16": 14, "fp16": 14}
 #: K2, the beam-search kernel: one launch a graph layer searched
 BEAM_KERNEL = {"route": "cuda",
                "source": "hnsw_tpu_torch/csrc/beam_search.cu",
@@ -312,6 +349,30 @@ def _launches() -> dict:
     return dict(exact_screen.launches_by_route)
 
 
+def _cap_reset() -> None:
+    from hnsw_tpu_torch.ops import exact_screen
+    exact_screen.capacity_launches = exact_screen.capacity_plain_on_cuda = 0
+    exact_screen.capacity_launches_by_store.update(int8=0, bf16=0, fp16=0)
+
+
+def _cap_read(label: str, want: dict) -> dict:
+    """The capacity screen's launches by store since the last
+    _cap_reset(), added to CAPACITY_LAUNCHES. On the card, a failed check
+    unless they equal ``want`` (the stores it leaves out: 0) and no
+    capacity scan of a card table ran the plain version."""
+    from hnsw_tpu_torch.ops import exact_screen
+    by = dict(exact_screen.capacity_launches_by_store)
+    for st, n in by.items():
+        CAPACITY_LAUNCHES[st] += n
+    if DEVICE == "cuda":
+        full = {st: want.get(st, 0) for st in by}
+        plain = exact_screen.capacity_plain_on_cuda
+        check(by == full and plain == 0,
+              f"{label} launched the capacity screen {by} (want {full}); "
+              f"plain scans of a card table {plain} (want 0)")
+    return by
+
+
 def _beam_reset() -> None:
     from hnsw_tpu_torch.ops import beam_search
     beam_search.launches = 0
@@ -412,6 +473,80 @@ def _time_screen(label, q, v, sq, valid, k_sel, metric, routes) -> dict:
     lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "n/a"
     print(f"  plain (exact_screen_reference) {plain_ms:.3f} ms; library "
           f"yardstick torch.topk(torch.cdist) {lib}", flush=True)
+    return out
+
+
+def _cap_tables(v: torch.Tensor) -> dict:
+    """The capacity modes' tables of the f32 rows ``v``, made on the card
+    as ExactIndex makes them: {store: (table, scales or None)}."""
+    amax = v.abs().amax(dim=1)
+    s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    return {"int8": (torch.clamp(torch.round(v / s[:, None]), -127,
+                                 127).to(torch.int8), s),
+            "bf16": (v.to(torch.bfloat16), None),
+            "fp16": (v.to(torch.float16), None)}
+
+
+def _time_capacity(label, q, v, sq, valid, metric, stores,
+                   kk_by_store=CAPACITY_KK) -> dict:
+    """The capacity screen against its plain version at one shape: for
+    each store, capacity_scan (the kernel: capacity_applies holds) beside
+    ops/topk.quantized_topk_candidates on the same tensors, held to id
+    overlap >= 0.999 and matched distances within 1e-5 relative; then
+    each timed (median of 5 CUDA-event reps) beside its bound
+    (utils/roofline.screen_bound_s by store). ``kk_by_store``: the pool
+    a store's scan keeps (the k = 10 pools by default). Returns {store:
+    (ms, bound_ms, bound_by, max_abs_err, plain_ms)}."""
+    from hnsw_tpu_torch.ops import exact_screen as es
+    from hnsw_tpu_torch.ops.topk import quantized_topk_candidates
+    from hnsw_tpu_torch.utils import roofline
+    nq, d = q.shape
+    n = v.shape[0]
+    tables = _cap_tables(v)
+    out = {}
+    print(f"# capacity screen, {label}: Q={nq} N={n} D={d} {metric} "
+          f"({int(valid.sum())} valid rows; median of 5 CUDA-event reps)",
+          flush=True)
+    for store in stores:
+        t, s = tables[store]
+        kk = min(kk_by_store[store], n)
+        route = es.capacity_route(q, t)
+        check(es.capacity_applies(n, kk, metric, t, s),
+              f"{store}: capacity_applies at N={n}, kk={kk}")
+
+        def kern():
+            return es.capacity_scan(q, t, s, sq, valid, kk=kk, metric=metric)
+
+        def plain():
+            return quantized_topk_candidates(q, t, s, sq, valid, kk=kk,
+                                             metric=metric)
+        _cap_reset()
+        dk, ik = (x.cpu().numpy() for x in kern())
+        check(es.capacity_launches_by_store[store] == 1,
+              f"{store}: one launch of the capacity screen ({route})")
+        dp, ip = (x.cpu().numpy() for x in plain())
+        ov = _overlap(ik, ip)
+        err = _matched_err(dk, ik, dp, ip)
+        same = (ik == ip) & (ik >= 0)
+        rel = float(np.max(np.abs(dk[same] - dp[same])
+                           / np.maximum(np.abs(dp[same]), 1e-30)))
+        check(ik.shape == (nq, kk) and np.isfinite(dk).all()
+              and ov >= 0.999 and rel <= 1e-5,
+              f"{store} capacity screen ({route}) vs plain: finite [{nq}, "
+              f"{kk}], id overlap {ov:.5f} >= 0.999, matched dists within "
+              f"1e-5 relative ({rel:.2e}; {err:.2e} absolute)")
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain)
+        bound_s, by, peak = roofline.screen_bound_s(nq, n, d, kk,
+                                                    store=store)
+        bound = bound_s * 1e3
+        passes, _, how = roofline.CAPACITY_PRODUCT[store]
+        out[store] = (ms, bound, by, err, plain_ms)
+        print(f"  {store} ({route}, kk={kk}): {ms:.3f} ms, bound "
+              f"{bound:.3f} ms ({by}: {how}, {passes} pass(es) at "
+              f"{peak / 1e12:g} TFLOP/s), {bound / ms:.3f} of the bound; "
+              f"plain (quantized_topk_candidates) {plain_ms:.3f} ms",
+              flush=True)
     return out
 
 
@@ -571,6 +706,22 @@ def phase_kernel_vs_plain() -> dict:
     sift = _time_screen("SIFT1M shape", q, v, sq, valid, 18, "l2",
                         [("wgmma", False), ("wgmma", True),
                          ("wgmma_cp", False), ("wgmma_cp", True)])
+    # the capacity screen at the same shape: each store's table of the
+    # same rows (TMA); int8 also at k = 100 (pool k + k // 2 = 150)
+    cap = _time_capacity("SIFT1M shape", q, v, sq, valid, "l2",
+                         ("int8", "bf16", "fp16"))
+    cap100 = _time_capacity("SIFT1M shape, k = 100", q, v, sq, valid, "l2",
+                            ("int8",), {"int8": 150})
+    # below K1's 32,768-row switch, which the capacity screen does not
+    # have: a streaming chunk's tail, a small shard, a small index; a
+    # full batch and a batch of 8 queries
+    small = {}
+    for n_small in (1_000, 8_192, 32_767):
+        for nq_small in (1024, 8):
+            small[(n_small, nq_small)] = _time_capacity(
+                f"below the row switch, N={n_small}, Q={nq_small}",
+                q[:nq_small], v[:n_small], sq[:n_small], valid[:n_small],
+                "l2", ("int8", "fp16"))
     del big, v, sq, valid
     torch.cuda.empty_cache()
     # the cp.async producer where the main path sends it: GloVe-50's D = 50
@@ -578,6 +729,10 @@ def phase_kernel_vs_plain() -> dict:
     q = torch.randn((1024, D_GLOVE), generator=gen, device="cuda")
     glv = _time_screen("GloVe-50 shape", q, v, sq, valid, 18, "l2",
                        [("wgmma_cp", False), ("wgmma_cp", True)])
+    # int8 rows of 50 bytes and bf16 rows of 100: the ordinary-load
+    # producer
+    cap_glv = _time_capacity("GloVe-50 shape", q, v, sq, valid, "cosine",
+                             ("int8", "bf16"))
     del glove, v, sq, valid
     torch.cuda.empty_cache()
 
@@ -595,7 +750,26 @@ def phase_kernel_vs_plain() -> dict:
                           cp_same_shape_ms=sift["wgmma_cp"][0]),
             "wgmma_cp": dict(entry("exact_screen_wgmma_cp", glv, "wgmma_cp",
                                    max_err["wgmma_cp"]),
-                             fast_math_ms=glv["wgmma_cp_fast"][0])}
+                             fast_math_ms=glv["wgmma_cp_fast"][0]),
+            # the int8 rung's screen at the SIFT1M shape stands for the
+            # entry; every store's numbers beside it
+            "capacity": dict(
+                CAPACITY_KERNEL, name="capacity_screen", store="int8",
+                max_abs_err=max(t[3] for c in (cap, cap100, cap_glv,
+                                               *small.values())
+                                for t in c.values()),
+                ms=cap["int8"][0], plain_ms=cap["int8"][4],
+                bound_ms=cap["int8"][1], bound_by=cap["int8"][2],
+                library_ms=None,
+                ms_by_store={st: t[0] for st, t in cap.items()},
+                bound_ms_by_store={st: t[1] for st, t in cap.items()},
+                plain_ms_by_store={st: t[4] for st, t in cap.items()},
+                int8_k100_ms=cap100["int8"][0],
+                int8_k100_plain_ms=cap100["int8"][4],
+                glove50_ms_by_store={st: t[0] for st, t in cap_glv.items()},
+                small_ms={f"{st} N={n_} Q={q_}": [t[0], t[4]]
+                          for (n_, q_), c in small.items()
+                          for st, t in c.items()})}
 
 
 def _recall(found: np.ndarray, truth: np.ndarray, k: int) -> float:
@@ -1144,7 +1318,9 @@ def phase_capacity_ladder() -> tuple:
     holds itself to: the host rows, the first batch and the float32
     rung's (dists, ids) for it."""
     from hnsw_tpu_torch import ExactIndex
+    from hnsw_tpu_torch.index import exact as exact_mod
     from hnsw_tpu_torch.ops import exact_screen
+    from hnsw_tpu_torch.ops.topk import quantized_topk_candidates
     rng = np.random.default_rng(2)
     idx = ExactIndex(metric="l2", device=DEVICE)
     t0 = time.perf_counter()
@@ -1178,10 +1354,13 @@ def phase_capacity_ladder() -> tuple:
             "sq": idx.store.sq_norms[:N_CAPACITY], "queries": batches[0],
             "dists": truth[0][0], "ids": truth[0][1]}
     truth = np.concatenate([i for _, i in truth])
+    # k = 100 (K1 takes k <= 120): what the int8 rung is held to at k = 100
+    truth100 = idx.batch_search_slots(batches[0], 100)[1]
     launches = _launches()
-    check(launches == {"wgmma": N_BATCHES, "wgmma_cp": 0},
-          f"float32: {N_BATCHES} batches launched the wgmma kernel "
-          f"{launches['wgmma']} times, the wgmma_cp route {launches['wgmma_cp']}")
+    check(launches == {"wgmma": N_BATCHES + 1, "wgmma_cp": 0},
+          f"float32: {N_BATCHES} batches at k = 10 and one at k = 100 "
+          f"launched the wgmma kernel {launches['wgmma']} times, the "
+          f"wgmma_cp route {launches['wgmma_cp']}")
     d_np, i_np = _np_scan_topk(batches[0][:20],
                                idx.store.vectors[:N_CAPACITY],
                                idx.store.sq_norms[:N_CAPACITY], 10, "l2")
@@ -1201,6 +1380,7 @@ def phase_capacity_ladder() -> tuple:
         idx._sync()
         t_sync = time.perf_counter() - t0
         _check_table(idx, rung, N_CAPACITY)
+        _cap_reset()
         idx.batch_search_slots(batches[0], 10)             # warm-up
         _reset_launches()
         seq, t_seq = timed(serve)
@@ -1208,6 +1388,9 @@ def phase_capacity_ladder() -> tuple:
             lambda: list(idx.batch_search_stream(iter(batches), 10)))
         check(exact_screen.launches == 0,
               f"{rung}: the capacity scan runs without the float32 kernel")
+        _cap_read(f"{rung}: the warm-up, {N_BATCHES} sequential and "
+                  f"{N_BATCHES} streamed batches",
+                  {rung: 1 + 2 * N_BATCHES})
         found = np.concatenate([i for _, i in seq])
         check(found.shape == (n_q, 10) and np.isfinite(
             np.concatenate([d for d, _ in seq])).all(),
@@ -1220,10 +1403,58 @@ def phase_capacity_ladder() -> tuple:
         check(same and len(streamed) == N_BATCHES,
               f"{rung}: batch_search_stream equals batch_search_slots over "
               f"{N_BATCHES} batches")
+        # one batch with the plain scan in the kernel's place
+        real = exact_mod.capacity_scan
+        exact_mod.capacity_scan = (
+            lambda q, t, s, sq, ok, kk, metric: quantized_topk_candidates(
+                q, t, s, sq, ok, kk=kk, metric=metric))
+        try:
+            _cap_reset()
+            (dp, ip), t_plain = timed(
+                lambda: idx.batch_search_slots(batches[0], 10))
+            plain_launches = exact_screen.capacity_launches
+        finally:
+            exact_mod.capacity_scan = real
+        agree = float(np.mean(ip == seq[0][1]))
+        check(plain_launches == 0 and agree >= 0.999,
+              f"{rung}: one batch through the plain scan (no launch): ids "
+              f"equal the kernel's at {agree:.5f} of the positions")
         print(f"  capacity {rung}: {n_q / t_seq:.1f} QPS, recall@10 "
               f"{rec:.4f} vs float32; {N_BATCHES} batches sequential "
               f"{t_seq:.3f} s, stream {t_stream:.3f} s; upload "
-              f"{t_sync:.1f} s", flush=True)
+              f"{t_sync:.1f} s; one batch through the plain scan "
+              f"{BATCH / t_plain:.1f} QPS ({t_plain:.3f} s)", flush=True)
+        if rung == "int8":
+            # k = 100: the pool is k + k // 2 = 150, past K1's 128
+            _cap_reset()
+            (d100, i100), t100 = timed(
+                lambda: idx.batch_search_slots(batches[0], 100))
+            _cap_read("int8 at k = 100 (pool 150): one batch",
+                      {"int8": 1})
+            rec100 = _recall(i100, truth100, 100)
+            check(i100.shape == (BATCH, 100) and np.isfinite(d100).all()
+                  and rec100 >= 0.99,
+                  f"int8 at k = 100: finite [{BATCH}, 100], recall@100 "
+                  f"{rec100:.4f} >= 0.99 against the float32 rung")
+            print(f"  capacity int8, k = 100 (pool 150): one batch "
+                  f"{t100:.3f} s = {BATCH / t100:.1f} QPS, recall@100 "
+                  f"{rec100:.4f} vs float32", flush=True)
+        if DEVICE == "cuda":
+            # where a batch's time goes: the scan (queued, its candidates
+            # copied back) against the host rerank, then a device trace
+            qp = exact_mod._pad_queries(batches[1])
+            t0 = time.perf_counter()
+            scan = idx._dispatch_capacity_scan(qp, 10)
+            scan[2].synchronize()
+            t1 = time.perf_counter()
+            idx._finish_capacity_scan(qp, BATCH, 10, *scan)
+            t2 = time.perf_counter()
+            print(f"  capacity {rung}, one batch: scan + candidates back "
+                  f"{(t1 - t0) * 1e3:.3f} ms, host rerank "
+                  f"{(t2 - t1) * 1e3:.3f} ms ({(t2 - t1) / (t2 - t0):.3f} "
+                  f"of the batch)", flush=True)
+            _profile(f"capacity {rung}, one {BATCH}-query batch",
+                     lambda: idx.batch_search_slots(batches[1], 10))
     idx.close()
     del idx
     torch.cuda.empty_cache()
@@ -1247,6 +1478,7 @@ def phase_auto_ladder() -> dict:
         _fill(idx, N_CLUSTER, rows)
         q = rows(BATCH)
         _reset_launches()
+        _cap_reset()
         t0 = time.perf_counter()
         d, i = idx.batch_search_slots(q, 10)
         _sync_device()
@@ -1254,6 +1486,9 @@ def phase_auto_ladder() -> dict:
         rung = idx._resolved_hbm
         n_k = _launches()
         qps = _qps(lambda: idx.batch_search_slots(q, 10), BATCH)
+        # a reduced rung: the first batch and the 3 timed ones
+        _cap_read(f"auto -> {rung}: 4 batches",
+                  {} if rung == "float32" else {rung: 4})
         _check_table(idx, rung, N_CLUSTER)
         d_np, _ = _np_scan_topk(q[:100], idx.store.vectors[:N_CLUSTER],
                                 idx.store.sq_norms[:N_CLUSTER], 10,
@@ -1275,7 +1510,7 @@ def phase_auto_ladder() -> dict:
                   f"the wgmma_cp route {n_k['wgmma_cp']}")
         else:
             check(n_k == {"wgmma": 0, "wgmma_cp": 0},
-                  f"auto -> {rung}: the kernel was not launched")
+                  f"auto -> {rung}: K1 was not launched")
         launches = _add(launches, _launches())
         print(f"  auto, {N_CLUSTER} x {DIM} cosine in 40 clusters of width "
               f"{noise}: resolves to {rung}; {qps:.1f} QPS (1024-query "
@@ -2126,6 +2361,8 @@ def phase_adaptive(base: np.ndarray) -> dict:
           + ", ".join(f"{k} {v:.1f}" for k, v in watch.seconds.items())
           + " s", flush=True)
 
+    # the int8 arm's capacity scans, from warm() to the arm called alone
+    _cap_reset()
     _reset_launches()
     t0 = time.perf_counter()
     eng.warm(10)
@@ -2191,6 +2428,18 @@ def phase_adaptive(base: np.ndarray) -> dict:
               f"once: {by_direct}")
     check(_key_recall(probe, gt[0][:32], 10) == 1.0,
           "the probe oracle equals the exact tier on 32 queries")
+    # the int8 arm called alone: one capacity screen launch over its
+    # table of n rows (capacity_applies: a CUDA int8 table, kk = 26)
+    from hnsw_tpu_torch.ops import exact_screen
+    before = exact_screen.capacity_launches_by_store["int8"]
+    out8 = eng._run_batch("exact_int8", batches[0], 10)
+    arm8 = exact_screen.capacity_launches_by_store["int8"] - before
+    rec8 = _key_recall([[kk for kk, _ in r] for r in out8], gt[0], 10)
+    if DEVICE == "cuda":
+        check(arm8 == 1, f"the int8 arm alone launched the capacity screen "
+              f"once ({arm8})")
+    check(rec8 >= 0.99, f"the int8 arm alone: recall@10 {rec8:.4f} >= 0.99 "
+          f"against the exact tier")
     check(eng.fallback_errors == 0,
           f"fallback_errors == 0 (last: {eng.last_fallback_error!r})")
 
@@ -2233,6 +2482,11 @@ def phase_adaptive(base: np.ndarray) -> dict:
           f"{by_arm})", flush=True)
     for b in (by_batches, by_single, by_np, by_direct, by_stream, by_arm):
         launches = _add(launches, b)
+    cap = dict(exact_screen.capacity_launches_by_store)
+    _cap_read("the adaptive engine (warm(), batches, single queries, the "
+              "probes, the int8 arm alone)", {"int8": max(1, cap["int8"])})
+    print(f"  the int8 arm: recall@10 {rec8:.4f} alone; capacity screen "
+          f"launches in this phase {cap}", flush=True)
 
     # the LSH arm alone (4 tables x 8 bits): no bound, for the record
     lsh = eng.lsh
@@ -2497,6 +2751,7 @@ def phase_streaming(kept: dict) -> dict:
         idx._cache.clear()
         idx._cache_bytes = 0
         idx.hbm_cache_bytes = 0
+        _cap_reset()
         for rd in ("bf16", "fp16", "int8"):
             idx.stream_dtype = rd
             _reset_launches()
@@ -2510,6 +2765,9 @@ def phase_streaming(kept: dict) -> dict:
             print(f"  {rd}, one cold batch: {t_r:.3f} s = "
                   f"{len(q) / t_r:.1f} QPS, recall@10 {rec:.4f}",
                   flush=True)
+        _cap_read(f"one cold batch of each reduced rung ({n_chunks} chunks "
+                  f"of >= 32768 rows each)",
+                  dict.fromkeys(("bf16", "fp16", "int8"), n_chunks))
         idx.stream_dtype = "float32"
         print(f"  K1 launches in this phase: {launches}", flush=True)
         idx.close()
@@ -2795,6 +3053,7 @@ def _p17_exact(mesh, kept: dict) -> dict:
         return host_rerank(store, "l2", q_np, cand.cpu().numpy(), 10)
 
     _reset_launches()
+    _cap_reset()
     (_, i8), t_first = _timed(capacity)
     check(_launches() == {"wgmma": 0, "wgmma_cp": 0},
           "int8 shards scan without the float32 kernel")
@@ -2802,6 +3061,8 @@ def _p17_exact(mesh, kept: dict) -> dict:
     check(rec >= 0.99, f"row-sharded int8 + host rerank: recall@10 "
           f"{rec:.4f} >= 0.99 against the row-sharded exact ids")
     qps8 = _qps(capacity, len(q_np))
+    _cap_read(f"4 batches over {S} int8 shards of {n // S} rows (once a "
+              f"shard a batch)", {"int8": 4 * S})
     print(f"  row-sharded int8 (kk=26) + host rerank: {qps8:.1f} QPS (median "
           f"of 3; the first batch {t_first:.3f} s), recall@10 {rec:.4f}; "
           f"quantised on the card in {t_q:.1f} s, "
@@ -3201,17 +3462,21 @@ def main() -> int:
     launches = _add(launches, phase_drivers())
     print(f"# smoke: phase 18 took {time.perf_counter() - t_new:.1f} s",
           flush=True)
-    check(all(launches[r] > 0 for r in timing)
-          and all(n > 0 for n in BEAM_LAUNCHES.values()),
-          f"the main path launched every K1 route: {launches}, and K2 in "
-          f"every mode: {BEAM_LAUNCHES}")
+    check(all(launches[r] > 0 for r in ("wgmma", "wgmma_cp"))
+          and all(n > 0 for n in BEAM_LAUNCHES.values())
+          and all(n > 0 for n in CAPACITY_LAUNCHES.values()),
+          f"the main path launched every K1 route: {launches}, K2 in "
+          f"every mode: {BEAM_LAUNCHES}, and the capacity screen on every "
+          f"store: {CAPACITY_LAUNCHES}")
     print(f"# smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included", flush=True)
     print(smi)
     print(json.dumps({"kernels": [dict(timing[r], launches=launches[r])
                                   for r in ("wgmma", "wgmma_cp")] + [
         dict(beam, launches=sum(BEAM_LAUNCHES.values()),
-             launches_by_mode=dict(BEAM_LAUNCHES))]}))
+             launches_by_mode=dict(BEAM_LAUNCHES)),
+        dict(timing["capacity"], launches=sum(CAPACITY_LAUNCHES.values()),
+             launches_by_store=dict(CAPACITY_LAUNCHES))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

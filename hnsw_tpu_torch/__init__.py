@@ -18,8 +18,9 @@ public name of ``hnsw_tpu``.
                      neighbor blocks, pivot entry, compact upper layers)
   ExactIndex         brute-force k-NN; on CUDA at 32768+ rows the float32
                      table runs the hand-written screen kernel
-                     (csrc/exact_screen.cu); int8/bf16/fp16 capacity
-                     tables scan with plain torch and rerank on the host
+                     (csrc/exact_screen.cu), and so do the int8/bf16/fp16
+                     capacity tables (the capacity screen), which rerank
+                     on the host
   HybridIndex        tiered dispatch exact / graph / LSH or IVF, and
                      recall-aware routing (search(..., target_recall=))
   AdaptiveHybridIndex  every vector in every tier; a per-query bandit
@@ -42,10 +43,12 @@ public name of ``hnsw_tpu``.
   index.streaming.StreamingExactIndex  exact k-NN over a memory-mapped
                      row file streamed through the device in chunks (K1
                      on float32 chunks of 32768+ rows; bf16 / fp16 / int8
-                     chunks with an f32 host rerank); an arm of the
+                     chunks through the capacity screen,
+                     with an f32 host rerank); an arm of the
                      adaptive engine (attach_stream)
   parallel.sharded   Mesh / default_mesh and the sharded searches: row-
-                     sharded exact (K1 a shard), capacity, IVF, query- and
+                     sharded exact (K1 a shard), capacity (the capacity
+                     screen a shard), IVF, query- and
                      partition-sharded graphs; parallel.rowsharded (one
                      graph, rows over the mesh), parallel.partitioned
                      (PartitionedGraph), parallel.multihost / rpc

@@ -1,38 +1,67 @@
 // Fused exact k-NN screen for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel hnsw_tpu/ops/pallas_exact.py:pallas_exact_screen.
-// For every query it finds the k_sel smallest (distance, column id) pairs
-// over an [N, D] f32 table under one of the builtin metrics, with the
-// validity mask applied, and never writes the [Q, N] score matrix to
-// device memory.
+// Replaces two sites of the JAX package:
 //
-// One kernel, screen_wgmma_kernel, computes that contract with the Gram
-// product on the tensor cores. Its ring of shared-memory stages holds
-// [rows x 32] f32 boxes (128 bytes a row, in the 128-byte swizzle) of the
-// queries and the table, one mbarrier a stage. Two producers fill it,
-// chosen by shape in ops/exact_screen.py (screen_route):
+// * K1, the TPU kernel hnsw_tpu/ops/pallas_exact.py:pallas_exact_screen:
+//   for every query the k_sel smallest (distance, column id) pairs over an
+//   [N, D] f32 table under one of the builtin metrics, with the validity
+//   mask applied;
+// * K3, the capacity scan hnsw_tpu/ops/topk.py:quantized_topk_candidates
+//   (each chunk selected by the TPU's approx_min_k): the same contract
+//   over the capacity modes' reduced tables, int8 rows with a per-row
+//   scale (row ~= row_int8 * scale), bf16 rows or fp16 rows.
 //
-// * wgmma (TMA = true): one thread asks TMA for both boxes. TMA needs a
-//   row pitch that is a multiple of 16 bytes (D % 4 == 0) and 16-byte
-//   aligned base pointers.
-// * wgmma_cp (TMA = false): every float32 table else (D % 4 != 0, such
-//   as GloVe's D = 25 / 50 or lastfm's 65, and row views at any 4-byte
-//   offset). All 256 threads copy the boxes with cp.async, 8 bytes a copy
-//   where D is even and both base pointers are 8-byte aligned, else 4.
-//   Each value lands at the byte TMA's swizzle would give it, columns
-//   past D and rows past the matrix are zero-filled through the copy's
-//   src-size operand (as TMA's out-of-bounds fill), and each thread's
-//   copies arrive on the stage's mbarrier (cp.async.mbarrier.arrive.noinc,
-//   the barrier counting all 256). From the landed stage on, the two
-//   producers share every instruction.
+// Neither writes the [Q, N] score matrix to device memory.
 //
-// One elementwise pass over each landed stage rounds it in place: f32
-// mode splits x into hi = tf32_rna(x) (in place) and lo = tf32_rna(x - hi)
-// (a second buffer of the same swizzled layout), and the product is
-// 3xTF32, hi*lo + lo*hi + hi*hi with the small terms first (the dropped
-// lo*lo term is ~2^-22 of sum |q_i v_i|); fast_math rounds x to bf16 in
-// place, which is exact in TF32 (8 significand bits of TF32's 11), so one
-// TF32 pass gives exactly the bf16 x bf16 -> f32 products fast_math means.
+// One kernel, screen_wgmma_kernel<STORE, ROUTE>, computes that contract
+// with the Gram product on the tensor cores. STORE is the table's type and
+// the product's precision (Store below); ROUTE is who fills the ring of
+// shared-memory stages (ops/exact_screen.py screen_route and
+// capacity_route). A stage holds [rows x 32] f32 boxes (128 bytes a row,
+// in the 128-byte swizzle) of the queries and the table, one mbarrier a
+// stage:
+//
+// * WGMMA (TMA): one thread asks TMA for both boxes. TMA needs a row pitch
+//   that is a multiple of 16 bytes (f32: D % 4 == 0; int8: D % 16 == 0;
+//   16-bit: D % 8 == 0) and 16-byte aligned base pointers.
+// * WGMMA_CP (cp.async, float32 tables only): every float32 table else
+//   (D % 4 != 0, such as GloVe's D = 25 / 50 or lastfm's 65, and row
+//   views at any 4-byte offset). All 256 threads copy the boxes with
+//   cp.async, 8 bytes a copy where D is even and the base pointers are
+//   8-byte aligned, else 4. Each value lands at the byte TMA's swizzle
+//   would give it, columns past D and rows past the matrix are
+//   zero-filled through the copy's src-size operand (as TMA's
+//   out-of-bounds fill), and each thread's copies arrive on the stage's
+//   mbarrier (cp.async.mbarrier.arrive.noinc, the barrier counting all
+//   256).
+// * WGMMA_LD (reduced tables only, every pitch TMA cannot take, such as
+//   int8 rows of glove-25's 25 bytes or bf16 rows of glove-50's 100): the
+//   threads copy both boxes with ordinary loads and stores, then arrive
+//   on the barrier.
+// From the landed stage on, the producers share every instruction.
+//
+// One elementwise pass over each landed stage makes the operands the
+// product reads, in place in the swizzled boxes:
+//   F32       x -> hi = tf32_rna(x) (in place) and lo = tf32_rna(x - hi)
+//             (a second buffer of the same layout) for both operands; the
+//             product is 3xTF32, hi*lo + lo*hi + hi*hi, small terms first
+//             (the dropped lo*lo term is ~2^-22 of sum |q_i v_i|);
+//   F32_FAST  both operands rounded to bf16 in place, exact in TF32 (8
+//             significand bits of TF32's 11): one TF32 pass gives exactly
+//             the bf16 x bf16 -> f32 products fast_math means;
+//   I8, BF16  the query rounded to bf16 (round to nearest even, as
+//             ops/distance.bf16_round); the raw int8 / bf16 rows, landed
+//             in a box of their own, widened into the f32 table box. int8
+//             and bf16 values are exact in TF32, so one TF32 pass gives
+//             the exact products, summed in f32. I8 multiplies each
+//             column's Gram by its row's scale in the epilogue, before the
+//             metric; the norms are the exact f32 v_sq of the original
+//             rows (ops/topk.quantized_topk_candidates, its plain twin);
+//   F16       the fp16 rows widened exactly (11 significant bits fit TF32's
+//             11; fp16 subnormals are normal under TF32's 8-bit exponent),
+//             the f32 query split into hi and lo as in F32; the product is
+//             2xTF32, lo*v + hi*v, within ~2^-22 of sum |q_i v_i| of the
+//             f32 product of the plain twin.
 // Both operands are row-major [rows, D], i.e. K-major, the only layout
 // TF32 wgmma takes: nothing is transposed.
 //
@@ -40,9 +69,12 @@
 // Gram is 275 GFLOP. Done f32-accurate it takes at least 1.67 ms, as
 // 3xTF32 (3 passes at 495 TFLOP/s; the FMA pipe's 67 TFLOP/s would take
 // 4.10 ms). fast_math's bf16 operands could run at the bf16 rate (989
-// TFLOP/s): 0.28 ms. The table read once from HBM is 0.16 ms. So both
-// modes are bound by operations, not bytes, and both producers put the
-// product on the tensor cores.
+// TFLOP/s): 0.28 ms; so could the int8 and bf16 tables (int8 values are
+// exact in bf16), while fp16 at f32 fidelity needs two TF32 passes, 1.11
+// ms. The table read once from HBM is 0.16 ms in f32, 0.04 ms in int8. So
+// every store is bound by operations, not bytes, and every producer puts
+// the product on the tensor cores (TF32 here; bf16 wgmma for the stores
+// that allow it is later work).
 // The query tile is blockIdx.x, the fastest-varying grid index, so the
 // query tiles of one segment run together and meet its table boxes in L2.
 // Measured, the product itself hides behind the rest: the staging (the
@@ -59,19 +91,26 @@
 //
 // Shared memory (dynamic; 227 KB a block, 228 KB an SM on this card), for
 // TQ = 64 queries by TC = 128 columns a tile:
-//   ring   2 stages x (8 KiB query box + 16 KiB table box), twice that in
-//          f32 mode for the lo buffers: 96 KiB f32, 48 KiB fast_math
-//   lists  TQ x k_sel int64 keys: 9 KiB at k_sel = 18, 64 KiB at 128
+//   ring   2 stages: F32 2 x 48 KiB (8 KiB query box + 16 KiB table box,
+//          twice for the lo buffers); F32_FAST 2 x 24 KiB; I8 and BF16 2 x
+//          35 KiB (24 KiB of f32 boxes, the raw rows: 4 / 8 KiB, padded to
+//          hold the distance tile); F16 2 x 40 KiB (+ the query's lo box)
+//   lists  TQ x k_sel int64 keys: 9 KiB at k_sel = 18, 64 KiB at 128,
+//          128 KiB at 256 (the reduced stores' limit)
 //   dt     TQ x (TC + 8) f32 distance tile, 34 KiB: its own region in
-//          fast_math; in f32 mode the stage the tile's last k block used,
-//          whose refill waits until the selection is done
-//   qsq, thresholds, flags, the tile's norms and mask, mbarriers and the
-//          alignment slack: 3 KiB
-// f32 at k_sel = 18: 108 KiB, two blocks an SM (up to k_sel = 28); at
-// k_sel = 128: 163 KiB, one block. fast_math at k_sel = 18: 94 KiB, two
-// blocks. The query tile is not kept resident: it streams through the
-// ring beside the table boxes (8 KiB of L2 reads a stage), so the budget
-// does not grow with D (D = 960 fits as D = 128).
+//          F32_FAST; in every other store the stage the tile's last k
+//          block used, whose refill waits until the selection is done
+//   qsq, thresholds, flags, the tile's norms and mask (and I8's scales),
+//          mbarriers and the alignment slack: 3 KiB
+// F32 at k_sel = 18: 108 KiB, two blocks an SM (up to k_sel = 28); at
+// k_sel = 128: 163 KiB, one block. F32_FAST at k_sel = 18: 94 KiB, two
+// blocks. I8 at k_sel = 26 (the int8 rung's pool at k = 10): 86 KiB, BF16
+// at 14: 80 KiB, F16 at 14: 90 KiB, two blocks each; at k_sel = 256
+// (k = 170 on the int8 rung) I8 and BF16 take 201 KiB, F16 211 KiB, one
+// block. The query tile is
+// not kept resident: it streams through the ring beside the table boxes
+// (8 KiB of L2 reads a stage), so the budget does not grow with D (D =
+// 960 fits as D = 128).
 //
 // A block runs 2 warpgroups; each computes the m64 x n64 half of the
 // 64 x 128 tile with wgmma.m64n64k8.f32.tf32.tf32 from shared memory,
@@ -94,10 +133,12 @@
 
 #include <cuda.h>  // CUtensorMap and its enums (types only, no driver link)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -109,17 +150,50 @@ constexpr float INF_DIST = 3.0e38f;  // ops/distance.py INF_DIST
 constexpr long long EMPTY = LLONG_MAX;
 
 enum Metric { COSINE = 0, L2 = 1, SQEUCLIDEAN = 2, DOT = 3 };
-// The producer of the ring (ops/exact_screen.py ROUTES).
-enum Route { WGMMA = 1, WGMMA_CP = 2 };
+// The producer of the ring (ops/exact_screen.py ROUTES, CAPACITY_ROUTES).
+enum Route { WGMMA = 1, WGMMA_CP = 2, WGMMA_LD = 3 };
+// The table's store and the product's precision (ops/exact_screen.py
+// STORES): float32 at f32 accuracy or with fast_math's bf16 operands, and
+// the capacity modes' int8 (with per-row scales), bf16 and fp16 tables.
+enum Store { F32 = 0, F32_FAST = 1, I8 = 2, BF16 = 3, F16 = 4 };
 
 constexpr int WK = 32;                     // f32 per 128-byte swizzle row
 constexpr int STAGES = 2;                  // ring depth
 constexpr int Q_BOX = TQ * WK * 4;         // 8 KiB query box
 constexpr int V_BOX = TC * WK * 4;         // 16 KiB table box
-constexpr int X_BYTES = Q_BOX + V_BOX;     // what a producer lands a stage
+constexpr int X_BYTES = Q_BOX + V_BOX;     // what an f32 producer lands
 constexpr int V_HALF = V_BOX / 2;          // one warpgroup's 64 table rows
 constexpr int WCS = TC + 8;  // distance-tile stride: the epilogue's float2
                              // stores of a half-warp hit 32 distinct banks
+constexpr int DT_BYTES = TQ * WCS * 4;     // the distance tile
+
+__host__ __device__ constexpr bool reduced(int s) { return s >= I8; }
+// bytes of one table value as it lies in device memory
+__host__ __device__ constexpr int elem_bytes(int s) {
+  return s == I8 ? 1 : reduced(s) ? 2 : 4;
+}
+// the raw rows of a reduced stage: [TC][WK] values, row-major, unswizzled
+__host__ __device__ constexpr int raw_box(int s) {
+  return TC * WK * elem_bytes(s);
+}
+// where they land: past the f32 boxes (and F16's query lo box)
+__host__ __device__ constexpr int raw_offset(int s) {
+  return X_BYTES + (s == F16 ? Q_BOX : 0);
+}
+__host__ __device__ constexpr int round_1k(int b) {
+  return (b + 1023) / 1024 * 1024;
+}
+__host__ __device__ constexpr int max_int(int a, int b) { return a > b ? a : b; }
+// Every store but F32_FAST keeps the distance tile in the stage its last k
+// block used, so a stage holds at least the tile; stages stay 1024-byte
+// multiples (the swizzle atoms' alignment).
+__host__ __device__ constexpr int stage_bytes(int s) {
+  return s == F32        ? 2 * X_BYTES  // + the lo buffers
+         : s == F32_FAST ? X_BYTES
+                         : max_int(round_1k(raw_offset(s) + raw_box(s)),
+                                   round_1k(DT_BYTES));
+}
+__host__ __device__ constexpr bool dt_in_ring(int s) { return s != F32_FAST; }
 
 // fast_math rounds both Gram operands to bf16; products and sums stay f32,
 // which is bf16 x bf16 with f32 output.
@@ -137,25 +211,27 @@ __device__ __forceinline__ long long pack_key(float d, int col) {
 }
 
 // Insert c into the ascending list L[0, k) in shared memory, dropping the
-// last entry; c < L[k - 1] on entry. Called by a whole warp (k <= 128).
+// last entry; c < L[k - 1] on entry. Called by a whole warp (any k). The
+// shift runs 32 entries at a time from the top down to c's place: a
+// chunk reads the entry below each of its own before it writes them, and
+// the chunks below it are still untouched.
 __device__ __forceinline__ void warp_insert(long long* L, int k, long long c,
                                             int lane) {
-  long long prev[4];
+  const int chunks = (k + 31) / 32;
   int pos = 0;
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    int e = lane + 32 * s;
-    long long cur = e < k ? L[e] : EMPTY;
-    prev[s] = (e < k && e > 0) ? L[e - 1] : EMPTY;
-    pos += __popc(__ballot_sync(0xffffffffu, e < k && cur < c));
+  for (int s = 0; s < chunks; ++s) {
+    const int e = lane + 32 * s;
+    const unsigned below = __ballot_sync(0xffffffffu, e < k && L[e] < c);
+    pos += __popc(below);
+    if (below != 0xffffffffu) break;  // the list is sorted: c's place found
   }
-  __syncwarp();
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    int e = lane + 32 * s;
-    if (e < k && e >= pos) L[e] = e == pos ? c : prev[s];
+  for (int s = chunks - 1; s >= pos / 32; --s) {
+    const int e = lane + 32 * s;
+    const long long v = e > pos && e < k ? L[e - 1] : c;
+    __syncwarp();
+    if (e >= pos && e < k) L[e] = v;
+    __syncwarp();
   }
-  __syncwarp();
 }
 
 // Empty key lists and the f32 squared query norms (before any rounding).
@@ -226,10 +302,6 @@ __device__ __forceinline__ void write_partial(const long long* lists,
   }
 }
 
-__host__ __device__ constexpr int stage_bytes(bool fast) {
-  return fast ? X_BYTES : 2 * X_BYTES;     // f32: + the lo buffers
-}
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -252,6 +324,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// A plain arrival (release at the block's scope): the ordinary-load
+// producer's stores before it are seen by every thread whose wait ends.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -314,8 +394,8 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// TMA producer, one thread: arm the stage's barrier for X_BYTES and start
-// both boxes.
+// TMA producer of an f32 table, one thread: arm the stage's barrier for
+// X_BYTES and start both boxes.
 __device__ __forceinline__ void issue_stage(unsigned char* st, uint64_t* bar,
                                             const CUtensorMap* tq,
                                             const CUtensorMap* tv, int k0,
@@ -362,8 +442,16 @@ __device__ __forceinline__ void cp_box(unsigned char* dst, const float* src,
   }
 }
 
-// cp.async producer, every thread: both boxes of a stage, then an arrive
-// on its barrier (initialised with NT) once this thread's copies landed.
+__device__ __forceinline__ void cp_arrive(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// cp.async producer of an f32 table, every thread: both boxes of a stage,
+// then an arrive on its barrier (initialised with NT) once this thread's
+// copies landed.
 template <int E>
 __device__ __forceinline__ void cp_stage(unsigned char* st, uint64_t* bar,
                                          const float* queries,
@@ -372,35 +460,124 @@ __device__ __forceinline__ void cp_stage(unsigned char* st, uint64_t* bar,
                                          int tid) {
   cp_box<TQ, E>(st, queries, nq, d, q0, k0, tid);
   cp_box<TC, E>(st + Q_BOX, vectors, n, d, c0, k0, tid);
-  asm volatile(
-      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
-          smem_u32(bar))
-      : "memory");
+  cp_arrive(bar);
+}
+
+// Ordinary-load producer, every thread: the f32 query box in the swizzle
+// (a warp reads 32 consecutive values of a row), then the raw table box
+// row-major, zeros past d and past the matrices.
+template <int S>
+__device__ __forceinline__ void ld_stage(unsigned char* st,
+                                         const float* queries,
+                                         const unsigned char* table, int nq,
+                                         int n, int d, int k0, int q0, int c0,
+                                         int tid) {
+  {
+    const int kk = tid % WK, r = tid / WK;  // 8 rows a pass
+    const bool col_ok = k0 + kk < d;
+#pragma unroll
+    for (int i = 0; i < TQ / (NT / WK); ++i) {
+      const int row = r + i * (NT / WK);
+      const bool ok = col_ok && q0 + row < nq;
+      const float x = ok ? queries[(size_t)(q0 + row) * d + k0 + kk] : 0.f;
+      *reinterpret_cast<float*>(st + row * 128 +
+                                (((kk / 4) ^ (row % 8)) * 16) +
+                                (kk % 4) * 4) = x;
+    }
+  }
+  unsigned char* raw = st + raw_offset(S);
+#pragma unroll
+  for (int i = 0; i < TC * WK / NT; ++i) {
+    const int e = tid + i * NT;
+    const int row = e / WK, col = k0 + e % WK;
+    const bool ok = c0 + row < n && col < d;
+    const size_t at = (size_t)(c0 + row) * d + col;
+    if constexpr (elem_bytes(S) == 1) {
+      raw[e] = ok ? table[at] : 0;
+    } else {
+      reinterpret_cast<uint16_t*>(raw)[e] =
+          ok ? reinterpret_cast<const uint16_t*>(table)[at] : 0;
+    }
+  }
+}
+
+// Four raw table values (row-major in the raw box) widened to f32, each
+// exactly.
+template <int S>
+__device__ __forceinline__ float4 widen4(const unsigned char* p) {
+  if constexpr (S == I8) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    if constexpr (S == BF16) {  // a bf16 is the high half of its f32
+      return make_float4(__uint_as_float(u.x << 16),
+                         __uint_as_float(u.x & 0xffff0000u),
+                         __uint_as_float(u.y << 16),
+                         __uint_as_float(u.y & 0xffff0000u));
+    } else {
+      return make_float4(
+          __half2float(__ushort_as_half((unsigned short)(u.x & 0xffffu))),
+          __half2float(__ushort_as_half((unsigned short)(u.x >> 16))),
+          __half2float(__ushort_as_half((unsigned short)(u.y & 0xffffu))),
+          __half2float(__ushort_as_half((unsigned short)(u.y >> 16))));
+    }
+  }
 }
 
 // The landed stage's conversion pass, then its product into acc (this
 // warpgroup's 64 x 64 half). Every thread of the block calls it. The pass
 // rewrites each value at its own byte offset, so the swizzle stands;
 // first = overwrite acc instead of adding.
-template <bool FAST>
+template <int S>
 __device__ __forceinline__ void stage_product(float (&acc)[32],
                                               unsigned char* st, int tid,
                                               int wg, bool first) {
   float4* x = reinterpret_cast<float4*>(st);
   float4* lo = reinterpret_cast<float4*>(st + X_BYTES);
+  if constexpr (!reduced(S)) {  // both f32 boxes
 #pragma unroll
-  for (int r = 0; r < X_BYTES / 16 / NT; ++r) {
-    const int i = tid + r * NT;
-    float4 v = x[i];
-    if (FAST) {
-      x[i] = make_float4(bf16_value(v.x), bf16_value(v.y), bf16_value(v.z),
-                         bf16_value(v.w));
-    } else {
-      float4 h = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z),
-                             tf32_rna(v.w));
-      x[i] = h;
-      lo[i] = make_float4(tf32_rna(v.x - h.x), tf32_rna(v.y - h.y),
-                          tf32_rna(v.z - h.z), tf32_rna(v.w - h.w));
+    for (int r = 0; r < X_BYTES / 16 / NT; ++r) {
+      const int i = tid + r * NT;
+      float4 v = x[i];
+      if (S == F32_FAST) {
+        x[i] = make_float4(bf16_value(v.x), bf16_value(v.y),
+                           bf16_value(v.z), bf16_value(v.w));
+      } else {
+        float4 h = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z),
+                               tf32_rna(v.w));
+        x[i] = h;
+        lo[i] = make_float4(tf32_rna(v.x - h.x), tf32_rna(v.y - h.y),
+                            tf32_rna(v.z - h.z), tf32_rna(v.w - h.w));
+      }
+    }
+  } else {
+    // the query box: bf16-rounded (I8, BF16), or hi / lo (F16)
+#pragma unroll
+    for (int r = 0; r < Q_BOX / 16 / NT; ++r) {
+      const int i = tid + r * NT;
+      const float4 v = x[i];
+      if (S == F16) {
+        const float4 h = make_float4(tf32_rna(v.x), tf32_rna(v.y),
+                                     tf32_rna(v.z), tf32_rna(v.w));
+        x[i] = h;
+        lo[i] = make_float4(tf32_rna(v.x - h.x), tf32_rna(v.y - h.y),
+                            tf32_rna(v.z - h.z), tf32_rna(v.w - h.w));
+      } else {
+        x[i] = make_float4(bf16_value(v.x), bf16_value(v.y),
+                           bf16_value(v.z), bf16_value(v.w));
+      }
+    }
+    // the table: 16-byte chunk j of the swizzled f32 box is row j / 8's
+    // chunk (j % 8) ^ (row % 8), i.e. its values 4c .. 4c + 3 in the raw
+    // box; a warp reads 128 (int8) or 256 contiguous raw bytes
+    const unsigned char* raw = st + raw_offset(S);
+    float4* vbox = reinterpret_cast<float4*>(st + Q_BOX);
+#pragma unroll
+    for (int r = 0; r < V_BOX / 16 / NT; ++r) {
+      const int j = tid + r * NT;
+      const int row = j / 8, c = (j % 8) ^ (row % 8);
+      vbox[j] = widen4<S>(raw + (row * WK + 4 * c) * elem_bytes(S));
     }
   }
   // generic-proxy writes -> visible to wgmma's async-proxy reads
@@ -419,12 +596,15 @@ __device__ __forceinline__ void stage_product(float (&acc)[32],
   for (int k = 0; k < WK / 8; ++k) {
     const int off = 2 * k;  // 8 tf32 = 32 bytes, in 16-byte units
     const int keep = (first && k == 0) ? 0 : 1;
-    if (FAST) {
-      mma_tf32(acc, a_hi + off, b_hi + off, keep);
-    } else {  // 3xTF32, small terms first
+    if (S == F32) {  // 3xTF32, small terms first
       mma_tf32(acc, a_hi + off, b_lo + off, keep);
       mma_tf32(acc, a_lo + off, b_hi + off, 1);
       mma_tf32(acc, a_hi + off, b_hi + off, 1);
+    } else if (S == F16) {  // 2xTF32: the exact table, the query split
+      mma_tf32(acc, a_lo + off, b_hi + off, keep);
+      mma_tf32(acc, a_hi + off, b_hi + off, 1);
+    } else {  // one pass: F32_FAST, I8, BF16
+      mma_tf32(acc, a_hi + off, b_hi + off, keep);
     }
   }
 #endif  // SPLIT_NO_PRODUCT
@@ -442,17 +622,29 @@ __device__ __forceinline__ float select_dist(float g, float qq, float vq) {
   return fmaxf(qq + vq - 2.f * g, 0.f);
 }
 
+// The Gram's factor a column: none (f32, bf16 and fp16 tables), or the
+// int8 rows' scales, s[c] for column c of the tile.
+struct NoScale {
+  static constexpr bool on = false;
+  const float* s;
+};
+struct RowScale {
+  static constexpr bool on = true;
+  const float* s;
+};
+
 // Metric epilogue of this warpgroup's 64 x 64 accumulator into the
 // distance tile dt (stride WCS): register 4j + 2h + e holds row r0 + 8h,
-// column 8j + 2(lane % 4) + e of the half. pen[c] is 0, or +inf for a
-// masked column (so its distance is +inf, never selected); a row with a
-// distance below its threshold is flagged for the selection.
-template <int M>
+// column 8j + 2(lane % 4) + e of the half. The Gram is scaled first (int8
+// rows), then the metric; pen[c] is 0, or +inf for a masked column (so
+// its distance is +inf, never selected); a row with a distance below its
+// threshold is flagged for the selection.
+template <int M, class SC>
 __device__ __forceinline__ void epilogue(const float (&acc)[32], float* dt,
                                          const float* qsq, const float* thr,
                                          int* hit, const float* vqs,
-                                         const float* pen, int r0, int wg,
-                                         int lane) {
+                                         const float* pen, SC scale, int r0,
+                                         int wg, int lane) {
   const float qq0 = qsq[r0], qq1 = qsq[r0 + 8];
   const float t0 = thr[r0], t1 = thr[r0 + 8];
   bool beats0 = false, beats1 = false;
@@ -461,12 +653,19 @@ __device__ __forceinline__ void epilogue(const float (&acc)[32], float* dt,
     const int cc = wg * 64 + 8 * j + 2 * (lane % 4);
     const float2 vq = *reinterpret_cast<const float2*>(vqs + cc);
     const float2 p = *reinterpret_cast<const float2*>(pen + cc);
-    const float2 d0 =
-        make_float2(select_dist<M>(acc[4 * j], qq0, vq.x) + p.x,
-                    select_dist<M>(acc[4 * j + 1], qq0, vq.y) + p.y);
-    const float2 d1 =
-        make_float2(select_dist<M>(acc[4 * j + 2], qq1, vq.x) + p.x,
-                    select_dist<M>(acc[4 * j + 3], qq1, vq.y) + p.y);
+    float g0 = acc[4 * j], g1 = acc[4 * j + 1];
+    float g2 = acc[4 * j + 2], g3 = acc[4 * j + 3];
+    if constexpr (SC::on) {
+      const float2 s = *reinterpret_cast<const float2*>(scale.s + cc);
+      g0 *= s.x;
+      g1 *= s.y;
+      g2 *= s.x;
+      g3 *= s.y;
+    }
+    const float2 d0 = make_float2(select_dist<M>(g0, qq0, vq.x) + p.x,
+                                  select_dist<M>(g1, qq0, vq.y) + p.y);
+    const float2 d1 = make_float2(select_dist<M>(g2, qq1, vq.x) + p.x,
+                                  select_dist<M>(g3, qq1, vq.y) + p.y);
     beats0 |= d0.x < t0 || d0.y < t0;
     beats1 |= d1.x < t1 || d1.y < t1;
     *reinterpret_cast<float2*>(dt + r0 * WCS + cc) = d0;
@@ -482,27 +681,33 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
 
 // partial[q, seg, :] = ascending k_sel smallest keys of query q over
 // columns [seg * seg_len, min(n, (seg + 1) * seg_len)); EMPTY pads.
-// TMA: tm_q / tm_v are TMA maps of the queries [nq, d] (box 32 x TQ) and
-// the table [n, d] (box 32 x TC), 128B swizzle, zero fill past the edges
-// (the ragged end of N, D past a multiple of 32). cp.async (TMA = false):
-// the maps are unused and the threads copy from queries / vectors, two f32
-// a copy when pair is set.
-template <bool FAST, bool TMA>
+// TMA: tm_q / tm_v are TMA maps of the queries [nq, d] (box 32 x TQ, 128B
+// swizzle) and the table [n, d] (box 32 x TC; f32 in the 128B swizzle, a
+// reduced table unswizzled into its raw box), zero fill past the edges
+// (the ragged end of N, D past a multiple of 32). cp.async and ordinary
+// loads: the maps are unused and the threads copy from queries / table,
+// f32 two a copy when pair is set. scales: the int8 rows' [n] scales (I8
+// only).
+template <int S, int R>
 __global__ void __launch_bounds__(NT, 2)
     screen_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_v,
                         const float* __restrict__ queries,
-                        const float* __restrict__ vectors,
+                        const void* __restrict__ table,
+                        const float* __restrict__ scales,
                         const float* __restrict__ v_sq,
                         const unsigned char* __restrict__ valid, int nq,
                         int n, int d, int k_sel, int seg_len, int metric,
                         int pair, long long* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int SB = stage_bytes(FAST);
-  // f32: the distance tile lives in the stage the tile's last k block
-  // used (48 KiB, free until its refill, which waits for the selection),
-  // so that two blocks fit an SM at the usual k_sel
-  constexpr bool DT_IN_RING = !FAST;
+  constexpr int SB = stage_bytes(S);
+  // the distance tile lives in the stage the tile's last k block used
+  // (free until its refill, which waits for the selection), so that two
+  // blocks fit an SM at the usual k_sel; F32_FAST keeps its own
+  constexpr bool DT_IN_RING = dt_in_ring(S);
+  constexpr bool TMA = R == WGMMA;
+  const float* vectors = static_cast<const float*>(table);
+  const unsigned char* rows = static_cast<const unsigned char*>(table);
   unsigned char* ring = align_1024(smem_raw);                  // [STAGES][SB]
   long long* lists = reinterpret_cast<long long*>(ring + STAGES * SB);
   float* dt_own = reinterpret_cast<float*>(lists + TQ * k_sel);  // [TQ][WCS]
@@ -511,7 +716,9 @@ __global__ void __launch_bounds__(NT, 2)
   int* hit = reinterpret_cast<int*>(thr + TQ);  // [TQ] row beats thr
   float* vqs = reinterpret_cast<float*>(hit + TQ);  // [TC] the tile's v_sq
   float* pen = vqs + TC;        // [TC] 0, or +inf for a masked column
-  uint64_t* bars = reinterpret_cast<uint64_t*>(pen + TC);      // [STAGES]
+  float* scl = pen + TC;        // [TC] the tile's int8 row scales (I8)
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(scl + (S == I8 ? TC : 0));   // [STAGES]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wg = tid / 128;               // warpgroup: column half
@@ -523,7 +730,7 @@ __global__ void __launch_bounds__(NT, 2)
   const int n_kb = (d + WK - 1) / WK;
   const int n_tiles = (c_end - c_begin + TC - 1) / TC;
   const int total = n_tiles * n_kb;  // stage loads, in (tile, k block) order
-  // who issues a stage's loads: one thread asks TMA, all threads cp.async
+  // who issues a stage's loads: one thread asks TMA, all threads copy
   const bool issuer = !TMA || tid == 0;
 
   init_block(lists, qsq, queries, q0, nq, d, k_sel, tid);
@@ -544,12 +751,21 @@ __global__ void __launch_bounds__(NT, 2)
     unsigned char* st = ring + l % STAGES * SB;
     uint64_t* bar = &bars[l % STAGES];
     const int k0 = (l % n_kb) * WK, c0 = c_begin + (l / n_kb) * TC;
-    if constexpr (TMA) {
-      issue_stage(st, bar, pq, pv, k0, q0, c0);
-    } else if (pair) {
-      cp_stage<2>(st, bar, queries, vectors, nq, n, d, k0, q0, c0, tid);
+    if constexpr (!reduced(S)) {
+      if constexpr (TMA) {
+        issue_stage(st, bar, pq, pv, k0, q0, c0);
+      } else if (pair) {
+        cp_stage<2>(st, bar, queries, vectors, nq, n, d, k0, q0, c0, tid);
+      } else {
+        cp_stage<1>(st, bar, queries, vectors, nq, n, d, k0, q0, c0, tid);
+      }
+    } else if constexpr (TMA) {
+      mbar_expect_tx(bar, Q_BOX + raw_box(S));
+      tma_load_2d(st, pq, k0, q0, bar);
+      tma_load_2d(st + raw_offset(S), pv, k0, c0, bar);
     } else {
-      cp_stage<1>(st, bar, queries, vectors, nq, n, d, k0, q0, c0, tid);
+      ld_stage<S>(st, queries, rows, nq, n, d, k0, q0, c0, tid);
+      mbar_arrive(bar);
     }
   };
   if (issuer)
@@ -558,18 +774,20 @@ __global__ void __launch_bounds__(NT, 2)
   float acc[32] = {};
   for (int t = 0, l = 0; t < n_tiles; ++t) {
     const int c0 = c_begin + t * TC;
-    // the tile's column norms and mask, loaded while the product runs
-    // (unconditionally, so that nothing waits on them before the epilogue)
-    float vq_mine = 0.f;
+    // the tile's column norms, mask (and scales), loaded while the product
+    // runs (unconditionally, so that nothing waits on them before the
+    // epilogue)
+    float vq_mine = 0.f, sc_mine = 0.f;
     unsigned char ok_mine = 0;
     if (tid < TC && c0 + tid < c_end) {  // rows past the segment: masked
       vq_mine = v_sq[c0 + tid];
       ok_mine = valid[c0 + tid];
+      if (S == I8) sc_mine = scales[c0 + tid];
     }
     for (int kb = 0; kb < n_kb; ++kb, ++l) {
       const int s = l % STAGES;
       mbar_wait(&bars[s], (l / STAGES) & 1);
-      stage_product<FAST>(acc, ring + s * SB, tid, wg, kb == 0);
+      stage_product<S>(acc, ring + s * SB, tid, wg, kb == 0);
       __syncthreads();  // every warpgroup's wgmma has read stage s
       if (issuer && !(DT_IN_RING && kb == n_kb - 1)) load(l + STAGES);
     }
@@ -580,20 +798,24 @@ __global__ void __launch_bounds__(NT, 2)
     if (tid < TC) {
       vqs[tid] = vq_mine;
       pen[tid] = ok_mine ? 0.f : __int_as_float(0x7f800000);
+      if (S == I8) scl[tid] = sc_mine;
     }
     __syncthreads();
 
+    using Scale = typename std::conditional<S == I8, RowScale, NoScale>::type;
+    const Scale scale{scl};
 #ifndef SPLIT_NO_EPILOGUE
     switch (metric) {  // one branch a tile, none a value
       case COSINE:
-        epilogue<COSINE>(acc, dt, qsq, thr, hit, vqs, pen, r0, wg, lane);
+        epilogue<COSINE>(acc, dt, qsq, thr, hit, vqs, pen, scale, r0, wg,
+                         lane);
         break;
       case DOT:
-        epilogue<DOT>(acc, dt, qsq, thr, hit, vqs, pen, r0, wg, lane);
+        epilogue<DOT>(acc, dt, qsq, thr, hit, vqs, pen, scale, r0, wg, lane);
         break;
       default:  // l2 selects on the squared distance, as sqeuclidean
-        epilogue<SQEUCLIDEAN>(acc, dt, qsq, thr, hit, vqs, pen, r0, wg,
-                              lane);
+        epilogue<SQEUCLIDEAN>(acc, dt, qsq, thr, hit, vqs, pen, scale, r0,
+                              wg, lane);
     }
 #endif  // SPLIT_NO_EPILOGUE
     __syncthreads();
@@ -608,12 +830,17 @@ __global__ void __launch_bounds__(NT, 2)
   write_partial(lists, partial, q0, nq, seg, n_seg, k_sel, tid);
 }
 
-size_t wgmma_smem_bytes(int k_sel, bool fast) {
-  static_assert(TQ * WCS * sizeof(float) <= stage_bytes(false),
-                "the f32 distance tile fits one stage");
-  return 1024 + (size_t)STAGES * stage_bytes(fast) +
+static_assert(DT_BYTES <= stage_bytes(F32) && DT_BYTES <= stage_bytes(I8) &&
+                  DT_BYTES <= stage_bytes(BF16) &&
+                  DT_BYTES <= stage_bytes(F16),
+              "the distance tile fits one stage wherever it lives there");
+
+size_t wgmma_smem_bytes(int k_sel, int store) {
+  return 1024 + (size_t)STAGES * stage_bytes(store) +
          (size_t)TQ * k_sel * sizeof(long long) +
-         (size_t)((fast ? TQ * WCS : 0) + 3 * TQ + 2 * TC) * sizeof(float) +
+         (size_t)((dt_in_ring(store) ? 0 : TQ * WCS) + 3 * TQ + 2 * TC +
+                  (store == I8 ? TC : 0)) *
+             sizeof(float) +
          STAGES * sizeof(uint64_t);
 }
 
@@ -648,18 +875,25 @@ EncodeTiled encode_tiled() {
 // could not be made.
 constexpr int ERR_TMA = 100000;
 
-// TMA map of a row-major [rows, d] f32 matrix in [box_rows x 32] boxes.
+// TMA map of a row-major [rows, d] matrix of `store`'s values in
+// [box_rows x 32] boxes: f32 in the 128-byte swizzle, the reduced rows
+// (copied as raw 8- or 16-bit values) unswizzled.
 int encode_rows(CUtensorMap* map, const void* ptr, int rows, int d,
-                int box_rows) {
+                int box_rows, int store) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ERR_TMA + CUDA_ERROR_NOT_FOUND;
+  const int eb = elem_bytes(store);
   cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(float)};
+  cuuint64_t strides[1] = {(cuuint64_t)d * eb};
   cuuint32_t box[2] = {(cuuint32_t)WK, (cuuint32_t)box_rows};
   cuuint32_t elem[2] = {1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                  const_cast<void*>(ptr), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUtensorMapDataType type = eb == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : eb == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
+                                             : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
+                  elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  eb == 4 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_TMA + (int)r;
@@ -704,17 +938,22 @@ __global__ void __launch_bounds__(MERGE_THREADS)
     out[q * k_sel + i] = buf[i];
 }
 
-// The screen kernel of a route and mode; nullptr for an unknown route.
-const void* screen_fn(int route, int fast) {
-  if (route == WGMMA)
-    return fast ? reinterpret_cast<const void*>(screen_wgmma_kernel<true, true>)
-                : reinterpret_cast<const void*>(
-                      screen_wgmma_kernel<false, true>);
-  if (route == WGMMA_CP)
-    return fast ? reinterpret_cast<const void*>(
-                      screen_wgmma_kernel<true, false>)
-                : reinterpret_cast<const void*>(
-                      screen_wgmma_kernel<false, false>);
+// The (store, route) pairs the library holds: both f32 stores take TMA or
+// cp.async (4-byte copies take any f32 table); the reduced stores TMA or
+// the ordinary loads (any pitch).
+#define SCREEN_KERNELS(X)                                                   \
+  X(F32, WGMMA) X(F32, WGMMA_CP) X(F32_FAST, WGMMA) X(F32_FAST, WGMMA_CP)   \
+  X(I8, WGMMA) X(I8, WGMMA_LD) X(BF16, WGMMA) X(BF16, WGMMA_LD)             \
+  X(F16, WGMMA) X(F16, WGMMA_LD)
+
+// The screen kernel of a route and store; nullptr for a pair the library
+// does not hold.
+const void* screen_fn(int route, int store) {
+#define SCREEN_FN(S, R)                                         \
+  if (store == S && route == R)                                 \
+    return reinterpret_cast<const void*>(screen_wgmma_kernel<S, R>);
+  SCREEN_KERNELS(SCREEN_FN)
+#undef SCREEN_FN
   return nullptr;
 }
 
@@ -727,12 +966,13 @@ extern "C" {
 int exact_screen_tile_queries() { return TQ; }
 int exact_screen_tile_columns() { return TC; }
 
-// Resident screen blocks per SM for this route, k_sel and mode; negative
-// cudaError_t on failure.
-int exact_screen_blocks_per_sm(int route, int k_sel, int fast) {
-  const void* fn = screen_fn(route, fast);
+// Resident screen blocks per SM for this route, k_sel and store (0 f32,
+// 1 f32 fast_math, 2 int8, 3 bf16, 4 fp16); negative cudaError_t on
+// failure.
+int exact_screen_blocks_per_sm(int route, int k_sel, int store) {
+  const void* fn = screen_fn(route, store);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
-  size_t smem = wgmma_smem_bytes(k_sel, fast);
+  size_t smem = wgmma_smem_bytes(k_sel, store);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -(int)e;
@@ -741,56 +981,54 @@ int exact_screen_blocks_per_sm(int route, int k_sel, int fast) {
   return e != cudaSuccess ? -(int)e : blocks;
 }
 
-// Screen (route: 1 wgmma = TMA producer, 2 wgmma_cp = cp.async producer)
-// + merge on `stream`. partial: [nq, n_seg, k_sel] int64 scratch; out:
-// [nq, k_sel] int64 keys. Returns the cudaError_t of the launches, or
-// ERR_TMA + CUresult when a TMA map fails.
+// Screen (route: 1 wgmma = TMA producer, 2 wgmma_cp = cp.async producer,
+// f32 stores only, 3 wgmma_ld = ordinary loads, reduced stores only) +
+// merge on `stream`.
+// vectors: the [n, d] table of `store` (f32, int8, bf16 or fp16 values);
+// scales: its [n] f32 row scales for int8, else unused. partial: [nq,
+// n_seg, k_sel] int64 scratch; out: [nq, k_sel] int64 keys. Returns the
+// cudaError_t of the launches, or ERR_TMA + CUresult when a TMA map fails.
 int exact_screen_launch(int route, const void* queries, const void* vectors,
-                        const void* v_sq, const void* valid, int nq, int n,
-                        int d, int k_sel, int n_seg, int seg_len, int metric,
-                        int fast, void* partial, void* out, void* stream) {
+                        const void* scales, const void* v_sq,
+                        const void* valid, int nq, int n, int d, int k_sel,
+                        int n_seg, int seg_len, int metric, int store,
+                        void* partial, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const void* fn = screen_fn(route, fast);
+  const void* fn = screen_fn(route, store);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  size_t smem = wgmma_smem_bytes(k_sel, fast);
+  size_t smem = wgmma_smem_bytes(k_sel, store);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((nq + TQ - 1) / TQ, n_seg);
   const float* qp = static_cast<const float*>(queries);
-  const float* vp = static_cast<const float*>(vectors);
+  const float* scp = static_cast<const float*>(scales);
   const float* sqp = static_cast<const float*>(v_sq);
   const unsigned char* okp = static_cast<const unsigned char*>(valid);
   long long* pp = static_cast<long long*>(partial);
   CUtensorMap tq = {}, tv = {};
   if (route == WGMMA) {
-    int rc = encode_rows(&tq, queries, nq, d, TQ);
-    if (rc == 0) rc = encode_rows(&tv, vectors, n, d, TC);
+    int rc = encode_rows(&tq, queries, nq, d, TQ, F32);
+    if (rc == 0) rc = encode_rows(&tv, vectors, n, d, TC, store);
     if (rc != 0) return rc;
   }
   // cp.async: 8-byte copies where a row is a whole number of them and
   // both base pointers are 8-byte aligned; 4-byte copies take any f32
-  const int pair =
-      d % 2 == 0 &&
-      ((reinterpret_cast<uintptr_t>(queries) |
-        reinterpret_cast<uintptr_t>(vectors)) % 8) == 0;
-  if (route == WGMMA && fast)
-    screen_wgmma_kernel<true, true><<<grid, NT, smem, st>>>(
-        tq, tv, qp, vp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pair, pp);
-  else if (route == WGMMA)
-    screen_wgmma_kernel<false, true><<<grid, NT, smem, st>>>(
-        tq, tv, qp, vp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pair, pp);
-  else if (fast)
-    screen_wgmma_kernel<true, false><<<grid, NT, smem, st>>>(
-        tq, tv, qp, vp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pair, pp);
-  else
-    screen_wgmma_kernel<false, false><<<grid, NT, smem, st>>>(
-        tq, tv, qp, vp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pair, pp);
+  const int pair = d % 2 == 0 && (reinterpret_cast<uintptr_t>(queries) |
+                                  reinterpret_cast<uintptr_t>(vectors)) %
+                                         8 == 0;
+#define SCREEN_LAUNCH(S, R)                                               \
+  if (store == S && route == R)                                           \
+    screen_wgmma_kernel<S, R><<<grid, NT, smem, st>>>(                    \
+        tq, tv, qp, vectors, scp, sqp, okp, nq, n, d, k_sel, seg_len,     \
+        metric, pair, pp);
+  SCREEN_KERNELS(SCREEN_LAUNCH)
+#undef SCREEN_LAUNCH
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   int width = n_seg * k_sel, p2 = 1;
   while (p2 < width) p2 <<= 1;
-  // both producers select l2 on the squared distance
+  // every producer selects l2 on the squared distance
   merge_kernel<<<nq, MERGE_THREADS, p2 * sizeof(long long), st>>>(
       pp, width, p2, k_sel, metric == L2, static_cast<long long*>(out));
   return (int)cudaGetLastError();

@@ -8,10 +8,11 @@ recall ground-truth oracle.
 
 The device table is float32 by default. The capacity modes keep a
 reduced-precision table instead (``hbm_dtype`` int8 with per-row scales,
-bf16, fp16, or "auto", which walks that ladder down to float32): a plain
-torch scan nominates k + margin candidates (ops/topk.
-quantized_topk_candidates) and one batched host fetch restores exact f32
-ordering (utils/rerank.host_rerank).
+bf16, fp16, or "auto", which walks that ladder down to float32): a scan
+nominates k + margin candidates (ops/exact_screen.capacity_scan: on a
+CUDA table the capacity screen, the fused CUDA kernel with the table's
+store; else the plain ops/topk.quantized_topk_candidates) and one
+batched host fetch restores exact f32 ordering (utils/rerank.host_rerank).
 """
 
 from __future__ import annotations
@@ -25,8 +26,7 @@ from hnsw_tpu_torch.config import canonical_dtype, canonical_metric
 from hnsw_tpu_torch.core.state import bucket_pow2, default_device, upload
 from hnsw_tpu_torch.ops.distance import (INF_DIST, np_bf16_round,
                                          np_gram_epilogue)
-from hnsw_tpu_torch.ops.exact_screen import exact_scan
-from hnsw_tpu_torch.ops.topk import quantized_topk_candidates
+from hnsw_tpu_torch.ops.exact_screen import capacity_scan, exact_scan
 from hnsw_tpu_torch.utils.keystore import HostVectorStore, SlotMap
 
 
@@ -294,7 +294,7 @@ class ExactIndex:
         q = torch.from_numpy(queries_padded)
         if dev.type == "cuda":
             q = q.pin_memory().to(dev, non_blocking=True)
-        d, i = quantized_topk_candidates(
+        d, i = capacity_scan(
             q, v[:n], None if scales is None else scales[:n], sq[:n],
             alive[:n], kk=kk, metric=self.metric)
         if dev.type != "cuda":

@@ -24,9 +24,12 @@ call graph, whose streaming scan calls ``exact_topk`` (XLA) at every
 size: the function and the result are the same (f32-exact distances and
 order, ties to the lower id), and K1 is the large-N path for the reason
 hnsw_tpu/index/exact.py gives (the [Q, N] scores never reach device
-memory). Reduced chunks (``stream_dtype``) are scanned by the plain
-``ops/topk.quantized_topk_candidates`` and reranked in f32 on the host
-against the mmap store (``utils/rerank.host_rerank``).
+memory). Reduced chunks (``stream_dtype``) are scanned by
+``ops/exact_screen.capacity_scan``: the capacity screen (K1's kernel
+with the chunk's store) on every CUDA chunk up to 256 candidates, the
+plain ``ops/topk.quantized_topk_candidates`` elsewhere. They are
+reranked in f32 on the host against the mmap store
+(``utils/rerank.host_rerank``).
 
 Upload: on CUDA each chunk is cast (on the reduced rungs) and copied from
 the memmap into one of two pinned host buffers, then to the device with
@@ -47,8 +50,8 @@ from hnsw_tpu_torch.config import canonical_dtype, canonical_metric
 from hnsw_tpu_torch.core.state import default_device
 from hnsw_tpu_torch.io.mmap_store import MmapVectorStore
 from hnsw_tpu_torch.ops.distance import INF_DIST
-from hnsw_tpu_torch.ops.exact_screen import exact_scan
-from hnsw_tpu_torch.ops.topk import merge_topk, quantized_topk_candidates
+from hnsw_tpu_torch.ops.exact_screen import capacity_scan, exact_scan
+from hnsw_tpu_torch.ops.topk import merge_topk
 from hnsw_tpu_torch.utils.keystore import SlotMap
 
 #: chunk element type of each stream_dtype
@@ -309,7 +312,7 @@ class StreamingExactIndex:
                     self._cache[c0 // step] = (vd, sd, ad, scd, nbytes)
                     self._cache_bytes += nbytes
             if reduced:
-                d, i = quantized_topk_candidates(
+                d, i = capacity_scan(
                     qd, vd, scd, sd, ad, kk=min(width, rows),
                     metric=self.metric)
             else:

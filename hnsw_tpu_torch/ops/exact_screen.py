@@ -1,21 +1,32 @@
-"""Fused exact k-NN screen: the hand-written CUDA kernel and its plain twin.
+"""Fused exact k-NN screen: the hand-written CUDA kernel and its plain twins.
 
-Port of hnsw_tpu/ops/pallas_exact.py. The kernel
+Port of hnsw_tpu/ops/pallas_exact.py (K1) and of the capacity scan
+hnsw_tpu/ops/topk.py:quantized_topk_candidates (K3). The kernel
 (``csrc/exact_screen.cu``) scores a query batch against the whole table
 and keeps each query's k_sel best (distance, id) pairs on chip; the
-[Q, N] score matrix never reaches device memory. ``exact_topk_fused``
-then reranks that pool in f32, as the JAX wrapper does.
+[Q, N] score matrix never reaches device memory.
 
-Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
-takes ``exact_screen_reference``, the plain torch version of the same
-contract. On CUDA every float32 table runs the Gram product on the
-tensor cores (TF32 ``wgmma``); the shape picks only who fills the
-kernel's shared-memory ring (``screen_route``): TMA (``"wgmma"``) where
-it can take both operands, else the threads' own ``cp.async`` copies
-(``"wgmma_cp"``: D % 4 != 0, or a row view off 16-byte alignment). The
-kernel's keys are int64 (distance bits high, column id low), so unlike
-the TPU's packed int32 keys they lose no distance bits and cannot
-collide; ties go to the lower id in both versions.
+K1, float32 tables: ``exact_topk_fused`` screens, then reranks the pool
+in f32, as the JAX wrapper does. A CUDA tensor launches the kernel (or
+raises); a CPU tensor takes ``exact_screen_reference``, the plain torch
+version of the same contract. On CUDA every float32 table runs the Gram
+product on the tensor cores (TF32 ``wgmma``); the shape picks only who
+fills the kernel's shared-memory ring (``screen_route``): TMA
+(``"wgmma"``) where it can take both operands, else the threads' own
+``cp.async`` copies (``"wgmma_cp"``: D % 4 != 0, or a row view off
+16-byte alignment).
+
+K3, the capacity modes' reduced tables (int8 rows with per-row scales,
+bf16, fp16): ``capacity_scan`` launches the same kernel with the table's
+store where ``capacity_applies`` (``capacity_route``: TMA, or ordinary
+loads for the row pitches TMA cannot take), else runs the plain
+``ops/topk.quantized_topk_candidates``. Its launches are counted by store
+(``capacity_launches_by_store``), apart from K1's; the plain scans it
+runs on a CUDA table are counted too (``capacity_plain_on_cuda``).
+
+The kernel's keys are int64 (distance bits high, column id low), so
+unlike the TPU's packed int32 keys they lose no distance bits and cannot
+collide; ties go to the lower id in every version.
 
 The library is compiled with nvcc at first use into ``build/hnsw_tpu_torch``
 beside the package (rebuilt when the source is newer) and bound with
@@ -36,7 +47,8 @@ import torch
 from hnsw_tpu_torch.config import canonical_metric
 from hnsw_tpu_torch.ops.distance import (HIGHEST, INF_DIST, _epilogue,
                                          bf16_round, gathered_dist)
-from hnsw_tpu_torch.ops.topk import exact_topk, topk_smallest
+from hnsw_tpu_torch.ops.topk import (exact_topk, quantized_topk_candidates,
+                                     topk_smallest)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "exact_screen.cu")
@@ -47,16 +59,34 @@ _EMPTY_KEY = (1 << 63) - 1
 _ERR_TMA = 100000
 #: most candidates the merge kernel sorts per query (n_seg * k_sel)
 _MERGE_MAX = 4096
+#: largest k_sel of K1 (the JAX kernel's limit) and of the capacity screen
+#: (k = 170 on the int8 rung, whose pool is k + k // 2)
 K_SEL_MAX = 128
+CAPACITY_K_MAX = 256
 #: table rows per matmul + sort step of the plain version
 _REF_CHUNK = 65536
 
-#: the producers of the library's one screen kernel, by route code
+#: the producers of the library's one screen kernel for a float32 table,
+#: by route code
 ROUTES = {"wgmma": 1, "wgmma_cp": 2}
-#: kernel launches so far (one per screen call on a CUDA tensor), in all
-#: and by route
+#: the producers for a reduced table: TMA or ordinary loads ("wgmma_ld")
+CAPACITY_ROUTES = {"wgmma": 1, "wgmma_ld": 3}
+#: the library's store codes: float32 (f32-accurate or fast_math) and the
+#: capacity modes' reduced tables, by torch dtype
+STORES = {"float32": 0, "fast_math": 1, "int8": 2, "bf16": 3, "fp16": 4}
+_REDUCED = {torch.int8: "int8", torch.bfloat16: "bf16",
+            torch.float16: "fp16"}
+#: K1's launches so far (one per screen call on a float32 CUDA table), in
+#: all and by route
 launches = 0
 launches_by_route = {"wgmma": 0, "wgmma_cp": 0}
+#: the capacity screen's launches so far (one per capacity_scan call that
+#: takes the kernel), in all and by store
+capacity_launches = 0
+capacity_launches_by_store = {"int8": 0, "bf16": 0, "fp16": 0}
+#: capacity scans of a CUDA table that ran the plain version (off
+#: capacity_applies: kk past CAPACITY_K_MAX, or a custom metric)
+capacity_plain_on_cuda = 0
 
 _lock = threading.Lock()
 _lib = None
@@ -101,7 +131,7 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.exact_screen_launch.argtypes = [ci] + [vp] * 4 + [ci] * 8 \
+            lib.exact_screen_launch.argtypes = [ci] + [vp] * 5 + [ci] * 8 \
                 + [vp, vp, vp]
             lib.exact_screen_launch.restype = ci
             lib.exact_screen_blocks_per_sm.argtypes = [ci, ci, ci]
@@ -115,12 +145,13 @@ def _load():
 
 
 def _plan_segments(lib, device, route: int, nq: int, n: int, k_sel: int,
-                   fast: bool) -> Tuple[int, int]:
+                   store: int) -> Tuple[int, int]:
     """(n_seg, seg_len): cut N so that the (query tiles x segments) grid
-    of ``route``'s kernel fills about two waves of resident blocks."""
+    of the kernel of ``route`` and ``store`` (codes) fills about two waves
+    of resident blocks."""
     tq = lib.exact_screen_tile_queries()
     tc = lib.exact_screen_tile_columns()
-    per_sm = lib.exact_screen_blocks_per_sm(route, k_sel, int(fast))
+    per_sm = lib.exact_screen_blocks_per_sm(route, k_sel, store)
     if per_sm <= 0:
         raise RuntimeError(f"exact_screen occupancy query failed "
                            f"(cudaError {-per_sm})")
@@ -155,63 +186,124 @@ def screen_route(queries: torch.Tensor, vectors: torch.Tensor) -> str:
     return "wgmma_cp"
 
 
-def _screen_cuda(queries, vectors, v_sq, valid, k_sel, metric, fast_math,
-                 route):
-    """Checks, then one launch of ``route``'s screen + merge."""
-    global launches
+def capacity_route(queries: torch.Tensor, table: torch.Tensor) -> str:
+    """The producer a capacity screen of this reduced ``table`` takes, by
+    its row pitch (D times the value's bytes) and base pointers: "wgmma"
+    (TMA) at a pitch and pointers that are multiples of 16 bytes (int8 D %
+    16 == 0, bf16 / fp16 D % 8 == 0), else "wgmma_ld" (ordinary loads, any
+    D and any offset)."""
+    pitch = table.shape[-1] * table.element_size()
+    if (pitch % 16 == 0 and table.data_ptr() % 16 == 0
+            and queries.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "wgmma_ld"
+
+
+def _check_args(queries, table, scales, v_sq, valid, k_sel, metric,
+                table_dtypes, k_max):
+    """The wrapper's checks of what the kernel takes: device, types (the
+    table one of ``table_dtypes``), shapes, contiguity, k_sel (at most
+    ``k_max``) and metric."""
     dev = queries.device
-    for name, t, dt in (("queries", queries, torch.float32),
-                        ("vectors", vectors, torch.float32),
-                        ("v_sq", v_sq, torch.float32),
-                        ("valid", valid, torch.bool)):
+    args = [("queries", queries, (torch.float32,)),
+            ("vectors", table, table_dtypes),
+            ("v_sq", v_sq, (torch.float32,)),
+            ("valid", valid, (torch.bool,))]
+    if table.dtype == torch.int8:
+        if scales is None:
+            raise ValueError("an int8 table needs its per-row scales")
+        args.append(("scales", scales, (torch.float32,)))
+    elif scales is not None:
+        raise ValueError(f"scales go with an int8 table, not "
+                         f"{table.dtype}")
+    for name, t, dts in args:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, queries on {dev}")
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if t.dtype not in dts:
+            raise TypeError(f"{name} must be {' or '.join(map(str, dts))}, "
+                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if queries.ndim != 2 or vectors.ndim != 2:
+    if queries.ndim != 2 or table.ndim != 2:
         raise ValueError("queries and vectors must be 2-D")
     nq, d = queries.shape
-    n = vectors.shape[0]
-    if d < 1 or vectors.shape[1] != d:
+    n = table.shape[0]
+    if d < 1 or table.shape[1] != d:
         raise ValueError(f"dimension mismatch: queries {tuple(queries.shape)}"
-                         f", vectors {tuple(vectors.shape)}")
-    if v_sq.shape != (n,) or valid.shape != (n,):
-        raise ValueError("v_sq and valid must be [N]")
-    if not 1 <= k_sel <= min(K_SEL_MAX, n):
-        raise ValueError(f"k_sel must be in [1, min({K_SEL_MAX}, N)], "
+                         f", vectors {tuple(table.shape)}")
+    if v_sq.shape != (n,) or valid.shape != (n,) or (
+            scales is not None and scales.shape != (n,)):
+        raise ValueError("v_sq, valid and scales must be [N]")
+    if not 1 <= k_sel <= min(k_max, n):
+        raise ValueError(f"k_sel must be in [1, min({k_max}, N)], "
                          f"got {k_sel}")
     if n >= 2 ** 31 or nq >= 2 ** 31:
         raise ValueError("N and Q must be < 2^31")
     if metric not in _METRIC_CODE:
         raise ValueError(f"the CUDA screen takes builtin metrics only, "
                          f"got {metric!r}")
+
+
+def _launch(queries, table, scales, v_sq, valid, k_sel, metric, store,
+            route, label) -> torch.Tensor:
+    """One launch of the screen + merge of ``store`` fed by ``route``
+    (codes); returns the [Q, k_sel] int64 keys. Raises on any error."""
+    dev = queries.device
+    nq, n, d = queries.shape[0], table.shape[0], queries.shape[1]
     keys = torch.empty((nq, k_sel), dtype=torch.int64, device=dev)
     if nq == 0:
-        return _decode(keys)
+        return keys
     lib = _load()
-    code = ROUTES[route]
     with torch.cuda.device(dev):
-        n_seg, seg_len = _plan_segments(lib, dev, code, nq, n, k_sel,
-                                        fast_math)
+        n_seg, seg_len = _plan_segments(lib, dev, route, nq, n, k_sel,
+                                        store)
         partial = torch.empty((nq, n_seg, k_sel), dtype=torch.int64,
                               device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.exact_screen_launch(
-            code, queries.data_ptr(), vectors.data_ptr(), v_sq.data_ptr(),
+            route, queries.data_ptr(), table.data_ptr(),
+            None if scales is None else scales.data_ptr(), v_sq.data_ptr(),
             valid.data_ptr(), nq, n, d, k_sel, n_seg, seg_len,
-            _METRIC_CODE[metric], int(fast_math), partial.data_ptr(),
+            _METRIC_CODE[metric], store, partial.data_ptr(),
             keys.data_ptr(), stream)
     if rc >= _ERR_TMA:
-        raise RuntimeError(f"exact_screen ({route}): no TMA map, CUresult "
+        raise RuntimeError(f"exact_screen ({label}): no TMA map, CUresult "
                            f"{rc - _ERR_TMA}")
     if rc != 0:
-        raise RuntimeError(f"exact_screen ({route}) launch failed: "
+        raise RuntimeError(f"exact_screen ({label}) launch failed: "
                            f"cudaError {rc}")
-    with _lock:                  # slices on one card launch from threads
-        launches += 1
-        launches_by_route[route] += 1
+    return keys
+
+
+def _screen_cuda(queries, vectors, v_sq, valid, k_sel, metric, fast_math,
+                 route):
+    """Checks, then one launch of ``route``'s float32 screen + merge."""
+    global launches
+    _check_args(queries, vectors, None, v_sq, valid, k_sel, metric,
+                (torch.float32,), K_SEL_MAX)
+    keys = _launch(queries, vectors, None, v_sq, valid, k_sel, metric,
+                   int(fast_math), ROUTES[route], route)
+    if queries.shape[0]:
+        with _lock:              # slices on one card launch from threads
+            launches += 1
+            launches_by_route[route] += 1
+    return _decode(keys)
+
+
+def _capacity_cuda(queries, table, scales, v_sq, valid, kk, metric, route):
+    """Checks, then one launch of the capacity screen of ``table``'s store
+    fed by ``route``."""
+    global capacity_launches
+    _check_args(queries, table, scales, v_sq, valid, kk, metric,
+                tuple(_REDUCED), CAPACITY_K_MAX)
+    store = _REDUCED[table.dtype]
+    keys = _launch(queries, table, scales, v_sq, valid, kk, metric,
+                   STORES[store], CAPACITY_ROUTES[route],
+                   f"capacity {store}, {route}")
+    if queries.shape[0]:
+        with _lock:
+            capacity_launches += 1
+            capacity_launches_by_store[store] += 1
     return _decode(keys)
 
 
@@ -344,3 +436,49 @@ def exact_topk_fused(queries: torch.Tensor, vectors: torch.Tensor,
     _, ids = exact_screen(queries, vectors, v_sq, valid, k_sel=k_sel,
                           metric=metric, fast_math=fast_math)
     return rerank_pool(queries, vectors, v_sq, ids, k=k, metric=metric)
+
+
+def capacity_applies(n: int, kk: int, metric: str, table: torch.Tensor,
+                     scales) -> bool:
+    """Whether a capacity scan of ``n`` rows for ``kk`` candidates goes
+    through the capacity screen (K3's kernel): any table of at least one
+    row, min(kk, n) <= CAPACITY_K_MAX, a built-in metric, and a CUDA
+    ``table`` that is int8 with float32 per-row ``scales``, or bf16 or
+    fp16 (no scales). Unlike K1 there is no row switch: the kernel is
+    ahead of the plain scan at every table size measured (the smoke's
+    phase 3). Elsewhere (a larger kk, custom metrics, the CPU) the plain
+    ``ops/topk.quantized_topk_candidates`` runs; both give the same
+    candidates, ties to the lower id."""
+    if table.dtype == torch.int8:
+        store_ok = scales is not None and scales.dtype == torch.float32
+    else:
+        store_ok = table.dtype in _REDUCED and scales is None
+    return (n >= 1 and 1 <= min(kk, n) <= CAPACITY_K_MAX
+            and canonical_metric(metric) in _METRIC_CODE
+            and table.is_cuda and store_ok)
+
+
+def capacity_scan(queries: torch.Tensor, table: torch.Tensor, scales,
+                  v_sq: torch.Tensor, valid: torch.Tensor, *, kk: int,
+                  metric: str = "cosine"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The capacity modes' candidate scan over a reduced table (int8 with
+    per-row ``scales``, bf16 or fp16): the kk smallest reduced-precision
+    distances per query. The capacity screen where ``capacity_applies``
+    (a build or launch error raises; nothing falls back), else the plain
+    ``ops/topk.quantized_topk_candidates``. Returns (dists [Q, kk'], ids
+    [Q, kk'] int64), kk' = min(kk, N), ascending, ties to the lower id,
+    masked or missing slots (INF_DIST, -1); callers restore exact order
+    with an f32 host rerank."""
+    global capacity_plain_on_cuda
+    metric = canonical_metric(metric)
+    n = table.shape[0]
+    if capacity_applies(n, kk, metric, table, scales):
+        q = queries.to(torch.float32).contiguous()
+        return _capacity_cuda(q, table, scales, v_sq, valid, min(kk, n),
+                              metric, capacity_route(q, table))
+    if table.is_cuda:
+        with _lock:
+            capacity_plain_on_cuda += 1
+    return quantized_topk_candidates(queries, table, scales, v_sq, valid,
+                                     kk=kk, metric=metric)

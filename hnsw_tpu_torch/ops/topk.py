@@ -2,9 +2,10 @@
 
 Tie order: the JAX package relies on ``lax.top_k`` returning the lower
 index first among equal values. ``torch.topk`` promises no tie order, so
-every selection here is a stable ascending ``torch.sort`` — except the
-per-chunk selection of ``quantized_topk_candidates``, whose candidates
-are reranked in f32 on the host afterwards.
+every selection here is a stable ascending ``torch.sort``, a
+``torch.topk`` over unique int64 keys (``topk_keyed``), or a float32
+``torch.topk`` whose boundary ties are settled by those keys
+(``topk_lowest_ids``).
 
 Exact search over large N streams the score matrix in chunks with a
 running top-k merge (O(Q*(k+chunk)) memory instead of O(Q*N)).
@@ -28,6 +29,50 @@ def topk_smallest(dists: torch.Tensor, k: int
     Returns (dists [.., k], idx [.., k])."""
     d, idx = torch.sort(dists, dim=-1, stable=True)
     return d[..., :k], idx[..., :k]
+
+
+def topk_keyed(dists: torch.Tensor, ids: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Smallest-k of float32 ``dists`` [Q, C] along the last axis, ties to
+    the lower id: ``torch.topk`` over unique int64 keys (order-preserving
+    int32 of the distance high, the id low, as the CUDA screen packs
+    them), so the selection costs a top-k, not a sort. ``ids`` [C] or
+    [Q, C], each in [0, 2^32). Returns (dists [Q, k], ids [Q, k] int64),
+    ascending."""
+    bits = dists.contiguous().view(torch.int32)
+    mono = torch.where(bits >= 0, bits, torch.iinfo(torch.int32).min - bits)
+    keys = (mono.to(torch.int64) << 32) | ids.to(torch.int64)
+    top = torch.topk(keys, k, dim=-1, largest=False, sorted=True).values
+    low = top & 0xFFFFFFFF
+    hi = (top >> 32).to(torch.int32)
+    d = torch.where(hi >= 0, hi, torch.iinfo(torch.int32).min - hi)
+    return d.view(torch.float32), low
+
+
+def topk_lowest_ids(dists: torch.Tensor, ids: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``topk_keyed``'s result at about the cost of a float32
+    ``torch.topk``: the k + 1 smallest distances; a row whose (k+1)-th
+    equals its k-th has a tie that the top-k may cut either way, and only
+    such rows are selected again by ``topk_keyed``. The winners are
+    ordered by (distance, id). Syncs with the device once, to find those
+    rows."""
+    c = dists.shape[-1]
+    d, pos = torch.topk(dists, min(k + 1, c), dim=-1, largest=False,
+                        sorted=True)
+    cut = d[:, k] == d[:, k - 1] if c > k else torch.zeros_like(d[:, 0],
+                                                               dtype=bool)
+    d, pos = d[:, :k], pos[:, :k]
+    i = ids[pos] if ids.dim() == 1 else torch.gather(ids, 1, pos)
+    if bool(cut.any()):
+        rows = cut.nonzero()[:, 0]
+        rd, ri = topk_keyed(dists[rows], ids if ids.dim() == 1 else ids[rows],
+                            k)
+        d = d.index_copy(0, rows, rd)
+        i = i.index_copy(0, rows, ri)
+    i, o = torch.sort(i, dim=-1)
+    d, o2 = torch.sort(torch.gather(d, 1, o), dim=-1, stable=True)
+    return d, torch.gather(i, 1, o2)
 
 
 def merge_topk(d_a, i_a, d_b, i_b, k: int):
@@ -112,7 +157,10 @@ def quantized_topk_candidates(queries: torch.Tensor, table: torch.Tensor,
                               chunk: int = 65536
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-kk candidate scan over a reduced-precision table — the exact
-    tier's capacity mode (ExactIndex hbm_dtype).
+    tier's capacity mode (ExactIndex hbm_dtype) — in plain torch: the
+    plain version of the capacity screen (``ops/exact_screen.
+    capacity_scan``), which runs it on the CPU, in the tests and off
+    ``capacity_applies``.
 
     ``table`` is [N, D] bfloat16 or float16 (scales=None), or int8 with
     per-row ``scales`` [N] f32 such that row ~= row_int8 * scale. Per
@@ -125,15 +173,18 @@ def quantized_topk_candidates(queries: torch.Tensor, table: torch.Tensor,
       products and sums; queries stay f32);
     * bfloat16: both operands bf16-rounded, f32 sums.
 
-    ``v_sq`` holds the exact f32 squared norms. Each chunk's selection is
-    exact (``torch.topk``) and so is the final selection over the stacked
-    winners: the JAX package selects per chunk with the TPU's
-    ``approx_min_k`` and a ``recall_target``, which has no meaning here.
+    ``v_sq`` holds the exact f32 squared norms. The selection is exact
+    and deterministic: a float32 top-k of each chunk with its boundary
+    ties settled by id (``topk_lowest_ids``), then a top-k over unique
+    (distance, id) keys of the stacked winners (``topk_keyed``), so
+    equal distances go to the lower id, as in the kernel and in the JAX
+    package's CPU path (``lax.top_k``; on a TPU it selects each chunk
+    with ``approx_min_k``, which has no counterpart here).
     Chunks are views of the table, never padded copies of it.
 
     Returns (dists [Q, kk'], indices [Q, kk'] int64), kk' = min(kk, N),
-    ascending; callers restore exact ordering with a host f32 rerank
-    (utils/rerank.host_rerank). Masked rows carry INF_DIST.
+    ascending, masked or missing slots (INF_DIST, -1); callers restore
+    exact ordering with a host f32 rerank (utils/rerank.host_rerank).
     """
     n = table.shape[0]
     q = queries.to(torch.float32)
@@ -141,7 +192,6 @@ def quantized_topk_candidates(queries: torch.Tensor, table: torch.Tensor,
     fp16 = scales is None and table.dtype == torch.float16
     q_op = q if fp16 else bf16_round(q)
     kk = min(kk, n)
-    m = min(kk, chunk)
     dks, iks = [], []
     for c0 in range(0, n, chunk):
         tab = table[c0:c0 + chunk].to(torch.float32)
@@ -150,14 +200,12 @@ def quantized_topk_candidates(queries: torch.Tensor, table: torch.Tensor,
             gram = gram * scales[c0:c0 + chunk][None, :]
         d = _epilogue(metric, gram, q_sq, v_sq[c0:c0 + chunk])
         d = torch.where(valid[c0:c0 + chunk][None, :], d, float(INF_DIST))
-        dm, im = torch.topk(d, min(m, d.shape[1]), dim=1, largest=False,
-                            sorted=True)
+        ids = torch.arange(c0, c0 + d.shape[1], device=d.device)
+        dm, im = topk_lowest_ids(d, ids, min(kk, d.shape[1]))
         dks.append(dm)
-        iks.append(im + c0)
-    if len(dks) == 1:
-        return dks[0], iks[0]
-    dk, pos = topk_smallest(torch.cat(dks, dim=1), kk)
-    return dk, torch.gather(torch.cat(iks, dim=1), 1, pos)
+        iks.append(im)
+    dk, ik = topk_keyed(torch.cat(dks, dim=1), torch.cat(iks, dim=1), kk)
+    return dk, torch.where(dk >= INF_DIST, -1, ik)
 
 
 def np_exact_topk(queries: np.ndarray, vectors: np.ndarray, k: int,

@@ -24,7 +24,8 @@ Two axes of scale, as in JAX:
 A shard of a row-sharded table is a row view of the caller's tensor, not
 a copy, when it lives on the shard's device. Each shard's exact scan is
 ``ops/exact_screen.exact_scan``: K1 (csrc/exact_screen.cu) on a float32
-CUDA shard of at least 32,768 rows, the plain chunked scan elsewhere.
+CUDA shard of at least 32,768 rows, the plain chunked scan elsewhere;
+each shard's capacity scan is ``ops/exact_screen.capacity_scan``.
 (The JAX function calls XLA's ``exact_topk`` per shard; the function and
 its result are the same.)
 
@@ -42,9 +43,8 @@ from hnsw_tpu_torch.config import canonical_metric
 from hnsw_tpu_torch.core.search import search_graph
 from hnsw_tpu_torch.core.state import DeviceGraph, default_device
 from hnsw_tpu_torch.ops.distance import INF_DIST, pairwise_dist
-from hnsw_tpu_torch.ops.exact_screen import exact_scan
-from hnsw_tpu_torch.ops.topk import (merge_topk, quantized_topk_candidates,
-                                     topk_smallest)
+from hnsw_tpu_torch.ops.exact_screen import capacity_scan, exact_scan
+from hnsw_tpu_torch.ops.topk import merge_topk, topk_smallest
 
 _INF = float(INF_DIST)
 #: score bytes per step of a shard's probe-masked IVF scan
@@ -179,7 +179,8 @@ def sharded_quantized_candidates(queries, table, scales, v_sq, valid, *,
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-sharded CAPACITY-mode scan: each shard scans its own
     reduced-precision rows (bf16 / fp16 table with scales=None, or int8
-    with per-row scales: ops/topk.quantized_topk_candidates), nominates kk
+    with per-row scales: ops/exact_screen.capacity_scan, the capacity
+    screen on every CUDA shard), nominates kk
     local candidates, and a gather + exact merge returns the global kk.
     The caller restores exact f32 ordering with one host rerank of the
     merged pool (utils/rerank.host_rerank), as in the single-table mode.
@@ -201,8 +202,8 @@ def sharded_quantized_candidates(queries, table, scales, v_sq, valid, *,
     q = queries.to(home).to(torch.float32)
     ds, is_ = [], []
     for s, dev in enumerate(mesh.devices):
-        d, i = quantized_topk_candidates(q.to(dev), ts[s], scs[s], sqs[s],
-                                         vds[s], kk=kk, metric=metric)
+        d, i = capacity_scan(q.to(dev), ts[s], scs[s], sqs[s], vds[s],
+                             kk=kk, metric=metric)
         ds.append(d)
         is_.append(torch.where(i >= 0, i + s * n_local, -1))
     return _merge(_all_gather(ds, home), _all_gather(is_, home), kk)

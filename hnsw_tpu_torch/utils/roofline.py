@@ -16,9 +16,10 @@ Two ratio fields for an exact-scan row:
     beat the bare full-f32 product, and a value above 1 is reported as
     it is.
 
-``screen_bound_s`` is the least time of one exact screen (K1's work) on
-the card, the bound ``chip_smoke.py`` and ``tools/screen_split.py`` put
-beside K1's times.
+``screen_bound_s`` is the least time of one exact screen on the card, for
+a float32 table (K1's work) or a capacity table (int8, bf16, fp16: the
+capacity screen's), the bound ``chip_smoke.py`` and
+``tools/screen_split.py`` put beside the kernel's times.
 """
 
 from __future__ import annotations
@@ -47,6 +48,15 @@ PEAKS = {H100_SXM: {"bf16": 989.4e12, "tf32": 494.7e12, "int8": 1979e12,
 #: peak key, name). An f32-accurate product takes at least three TF32
 #: passes (3xTF32); fast_math's bf16 operands one pass at the bf16 rate.
 SCREEN_PRODUCT = {False: (3, "tf32", "3xTF32"), True: (1, "bf16", "bf16")}
+#: the capacity screen's cheapest product, by the table's store: int8
+#: values are exact in bf16, so int8 and bf16 rows against a bf16-rounded
+#: query take one bf16 pass; fp16 rows against the f32 query, at f32
+#: fidelity, two TF32 passes (the query split hi + lo, the fp16 values
+#: exact in TF32)
+CAPACITY_PRODUCT = {"int8": (1, "bf16", "bf16"), "bf16": (1, "bf16", "bf16"),
+                    "fp16": (2, "tf32", "2xTF32")}
+#: bytes of one table value, by store
+STORE_BYTES = {"float32": 4, "int8": 1, "bf16": 2, "fp16": 2}
 
 
 def peak_flops(device_name: Optional[str] = None) -> Optional[float]:
@@ -70,18 +80,26 @@ def scan_flops(n_q: int, n: int, d: int) -> float:
     return 2.0 * n_q * n * d
 
 
-def screen_bound_s(nq: int, n: int, d: int, k_sel: int, fast_math: bool
+def screen_bound_s(nq: int, n: int, d: int, k_sel: int,
+                   fast_math: bool = False, store: str = "float32"
                    ) -> Tuple[float, str, float]:
     """(seconds, "bytes" | "operations", peak FLOP/s): the least time on
     the H100 SXM (``PEAKS[H100_SXM]``) of one exact screen of ``nq``
-    queries over an [n, d] f32 table for ``k_sel`` winners each: the
-    larger of the bytes it must move (queries, table, norms and validity
-    read once, int64 keys written once) over the HBM rate, and 2 nq n d
-    flops a product pass (``SCREEN_PRODUCT``) over the tensor cores' peak
-    for that pass's type, which is the third value."""
+    queries over an [n, d] table of ``store`` ("float32", or a capacity
+    table: "int8", "bf16", "fp16") for ``k_sel`` winners each: the larger
+    of the bytes it must move (queries, the table at ``STORE_BYTES`` a
+    value, norms, validity and int8's f32 scales read once, int64 keys
+    written once) over the HBM rate, and 2 nq n d flops a product pass
+    (``SCREEN_PRODUCT`` by ``fast_math`` for float32, ``CAPACITY_PRODUCT``
+    by store) over the tensor cores' peak for that pass's type, which is
+    the third value."""
     peaks = PEAKS[H100_SXM]
-    passes, kind, _ = SCREEN_PRODUCT[fast_math]
-    moved = 4 * (nq * d + n * d + n) + n + 8 * nq * k_sel
+    if store == "float32":
+        passes, kind, _ = SCREEN_PRODUCT[fast_math]
+    else:
+        passes, kind, _ = CAPACITY_PRODUCT[store]
+    moved = (4 * nq * d + STORE_BYTES[store] * n * d + 4 * n + n
+             + (4 * n if store == "int8" else 0) + 8 * nq * k_sel)
     t_bytes = moved / peaks["hbm_bytes_s"]
     t_ops = passes * scan_flops(nq, n, d) / peaks[kind]
     if t_ops >= t_bytes:

@@ -12,6 +12,20 @@ Each case also checks which producer fed the TF32 ``wgmma`` screen
 (``launches_by_route``): TMA (``"wgmma"``) where D % 4 == 0 and the rows
 are 16-byte aligned, the threads' cp.async copies (``"wgmma_cp"``)
 elsewhere.
+
+The capacity screen (the same kernel over the capacity modes' int8, bf16
+and fp16 tables, ``capacity_scan``) is held to its plain version,
+``ops/topk.quantized_topk_candidates``, on the same tensors: id overlap
+>= 0.999 and matched distances within 1e-5 of max(1, |d|) (the products
+are exact, or within 2^-22 of sum |q_i v_i| for fp16; f32 sums run in
+another order; an absolute 1e-5 below |d| = 1, because fp16's 2xTF32
+product leaves ~2^-22 of sum |q_i v_i|, which is a larger share of a
+small distance), at every store x metric x D in {7, 25, 50, 65, 128} x
+kk in {1, 14, 26, 128, 150, 256}, through each producer, on unaligned
+views, tables of 1 to 5,000 rows, an all-masked table and zero rows;
+its one-tile Gram against float64 within 1e-5 of sum |q_i v_i|; its
+launch counts by store (and the plain scans of a CUDA table past kk
+256, counted apart); a broken build raises.
 """
 
 import numpy as np
@@ -258,3 +272,248 @@ def test_wrapper_raises_when_the_library_fails_to_load(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         es.exact_screen(q, v, sq, valid, k_sel=8)
     assert es.launches == 0
+
+
+# ---- the capacity screen (K3's port): int8 with per-row scales, bf16, fp16
+
+CAP_STORES = ["int8", "bf16", "fp16"]
+
+
+def _cap_reset():
+    es.launches = es.capacity_launches = es.capacity_plain_on_cuda = 0
+    es.launches_by_route.update(wgmma=0, wgmma_cp=0)
+    es.capacity_launches_by_store.update(int8=0, bf16=0, fp16=0)
+
+
+def _cap_table(v, store):
+    """The capacity modes' table of f32 rows ``v``: ExactIndex's per-row
+    int8 quantisation (a zero row gets scale 1), or a bf16 / fp16 cast."""
+    if store == "int8":
+        amax = v.abs().amax(dim=1)
+        s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        t = torch.clamp(torch.round(v / s[:, None]), -127, 127)
+        return t.to(torch.int8), s
+    return v.to({"bf16": torch.bfloat16, "fp16": torch.float16}[store]), None
+
+
+def _cap_hold(dk, ik, dp, ip):
+    """Id overlap >= 0.999; matched distances within 1e-5 of max(1, |d|)
+    (products exact or within 2^-22 of sum |q_i v_i|, f32 sums in
+    another order: near-zero distances are held absolutely)."""
+    ik, ip = ik.cpu().numpy(), ip.cpu().numpy()
+    dk, dp = dk.cpu().numpy(), dp.cpu().numpy()
+    assert ik.shape == ip.shape
+    hits = sum(len(set(a[a >= 0].tolist()) & set(b[b >= 0].tolist()))
+               for a, b in zip(ik, ip))
+    assert hits >= 0.999 * max(1, int((ip >= 0).sum()))
+    assert np.array_equal(ik < 0, ip < 0)
+    same = (ik == ip) & (ik >= 0)
+    assert np.all(np.abs(dk[same] - dp[same])
+                  <= 1e-5 * np.maximum(1.0, np.abs(dp[same])))
+    assert np.all(dk[ik < 0] == es.INF_DIST)
+
+
+def _cap_case(device, store, n, d, nq=77, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    v = torch.randn((n, d), generator=g, device=device)
+    q = torch.randn((nq, d), generator=g, device=device)
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    valid[::5] = False
+    t, s = _cap_table(v, store)
+    return q, t, s, (v * v).sum(-1), valid
+
+
+@pytest.mark.parametrize("kk", [1, 14, 26, 128, 150, 256])
+@pytest.mark.parametrize("d", [7, 25, 50, 65, 128])
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sqeuclidean", "dot"])
+@pytest.mark.parametrize("store", CAP_STORES)
+def test_capacity_screen_matches_plain(cuda, store, metric, d, kk):
+    """capacity_scan on a CUDA table of 33,001 rows (not a multiple of the
+    128-column tile, every 5th masked) launches the screen once, on the
+    producer its pitch gives, and agrees with the plain version (kk 150:
+    the int8 rung's pool at k = 100; 256: the screen's limit)."""
+    q, t, s, sq, valid = _cap_case(cuda, store, 33_001, d, seed=d + kk)
+    assert es.capacity_applies(33_001, kk, metric, t, s)
+    _cap_reset()
+    dk, ik = es.capacity_scan(q, t, s, sq, valid, kk=kk, metric=metric)
+    assert es.capacity_launches_by_store[store] == 1
+    assert es.capacity_launches == 1 and es.launches == 0
+    assert es.capacity_plain_on_cuda == 0
+    dp, ip = es.quantized_topk_candidates(q, t, s, sq, valid, kk=kk,
+                                          metric=metric)
+    _cap_hold(dk, ik, dp, ip)
+    assert not torch.isin(ik, torch.arange(0, 33_001, 5,
+                                           device=cuda)).any()
+
+
+@pytest.mark.parametrize("route", ["wgmma", "wgmma_ld"])
+@pytest.mark.parametrize("store", CAP_STORES)
+def test_capacity_screen_every_producer_at_d128(cuda, monkeypatch, store,
+                                                route):
+    """The same table through each producer (TMA, ordinary loads): each
+    agrees with the plain version."""
+    q, t, s, sq, valid = _cap_case(cuda, store, 40_000, 128, seed=5)
+    assert es.capacity_route(q, t) == "wgmma"
+    monkeypatch.setattr(es, "capacity_route", lambda q, t: route)
+    _cap_reset()
+    dk, ik = es.capacity_scan(q, t, s, sq, valid, kk=26, metric="l2")
+    assert es.capacity_launches_by_store[store] == 1
+    _cap_hold(dk, ik, *es.quantized_topk_candidates(q, t, s, sq, valid,
+                                                    kk=26, metric="l2"))
+
+
+@pytest.mark.parametrize("store,off,route", [
+    ("int8", 4, "wgmma_ld"), ("int8", 1, "wgmma_ld"), ("int8", 3, "wgmma_ld"),
+    ("bf16", 4, "wgmma_ld"), ("bf16", 2, "wgmma_ld"), ("fp16", 8, "wgmma_ld"),
+    ("fp16", 6, "wgmma_ld")])
+def test_capacity_screen_unaligned_row_views(cuda, store, off, route):
+    """A D = 64 table whose base lies ``off`` bytes past 16-byte
+    alignment takes the ordinary loads."""
+    n, d = 35_000, 64
+    q, t, s, sq, valid = _cap_case(cuda, store, n, d, seed=off)
+    size = t.element_size()
+    buf = torch.empty(n * d + 64, dtype=t.dtype, device=cuda)
+    skip = ((-buf.data_ptr()) % 16 + off) // size
+    view = buf[skip:skip + n * d].view(n, d)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == off
+    assert es.capacity_route(q, view) == route
+    _cap_reset()
+    dk, ik = es.capacity_scan(q, view, s, sq, valid, kk=14, metric="cosine")
+    assert es.capacity_launches_by_store[store] == 1
+    _cap_hold(dk, ik, *es.quantized_topk_candidates(q, t, s, sq, valid,
+                                                    kk=14, metric="cosine"))
+
+
+@pytest.mark.parametrize("store", CAP_STORES)
+def test_capacity_screen_all_masked_and_zero_rows(cuda, store):
+    """An all-masked table gives (INF_DIST, -1) in every slot; zero rows
+    (int8 scale 1.0) score as the plain version scores them, and are the
+    nearest rows of a near-zero query under l2."""
+    q, t, s, sq, valid = _cap_case(cuda, store, 33_000, 32, nq=40, seed=9)
+    _cap_reset()
+    dk, ik = es.capacity_scan(q, t, s, sq, torch.zeros_like(valid), kk=26,
+                              metric="l2")
+    assert (ik == -1).all() and (dk == es.INF_DIST).all()
+    assert es.capacity_launches_by_store[store] == 1
+    v = torch.randn((33_000, 32), generator=torch.Generator(
+        device=cuda).manual_seed(10), device=cuda)
+    v[[7, 1000, 32_999]] = 0.0
+    t, s = _cap_table(v, store)
+    if s is not None:
+        assert (s[[7, 1000, 32_999]] == 1.0).all()
+    q[0] = 1e-3
+    valid = torch.ones(33_000, dtype=torch.bool, device=cuda)
+    for metric in ("l2", "cosine", "dot"):
+        dk, ik = es.capacity_scan(q, t, s, (v * v).sum(-1), valid, kk=26,
+                                  metric=metric)
+        dp, ip = es.quantized_topk_candidates(q, t, s, (v * v).sum(-1),
+                                              valid, kk=26, metric=metric)
+        _cap_hold(dk, ik, dp, ip)
+        if metric == "l2":
+            assert sorted(ik[0, :3].tolist()) == [7, 1000, 32_999]
+
+
+@pytest.mark.parametrize("route,d", [("wgmma", 32), ("wgmma", 128),
+                                     ("wgmma_ld", 4), ("wgmma_ld", 36),
+                                     ("wgmma_ld", 7), ("wgmma_ld", 50)])
+@pytest.mark.parametrize("store", CAP_STORES)
+def test_capacity_tile_product_matches_float64(cuda, store, route, d):
+    """One 64 x 128 tile with the dot metric and kk = N = 128 returns every
+    column, so -dist is the kernel's (scaled) Gram. Held against a float64
+    product of the operands it should multiply (the bf16-rounded query and
+    the int8 rows times their scale, the bf16 rows; the f32 query and the
+    fp16 rows) within 1e-5 of sum |q_i v_i|: the int8 and bf16 products
+    are exact, fp16's 2xTF32 drops ~2^-22 and f32 sums add ~D 2^-24,
+    while a wrong swizzle, widening or zero fill is off by O(1) and a
+    dropped lo pass by ~2^-11."""
+    q, t, s, sq, valid = _cap_case(cuda, store, 128, d, nq=64, seed=d)
+    valid[:] = True
+    _cap_reset()
+    dist, ids = es._capacity_cuda(q, t, s, sq, valid, 128, "dot", route)
+    assert es.capacity_launches_by_store[store] == 1
+    assert (torch.sort(ids, dim=1).values
+            == torch.arange(128, device=cuda)).all()
+    gram = torch.empty_like(dist).scatter_(1, ids, -dist).double()
+    vv = t.double() * (s.double()[:, None] if s is not None else 1.0)
+    qq = q.double() if store == "fp16" else q.bfloat16().double()
+    want = qq @ vv.T
+    scale = qq.abs() @ vv.abs().T
+    err = ((gram - want).abs() / scale).max().item()
+    assert err <= 1e-5, err
+
+
+def test_capacity_launches_count_by_store_apart_from_k1(cuda):
+    """Each capacity_scan that takes the kernel adds one to its store's
+    count and to capacity_launches, never to K1's counts; past kk 256 the
+    plain version runs, counted in capacity_plain_on_cuda only."""
+    _cap_reset()
+    want = {"int8": 0, "bf16": 0, "fp16": 0}
+    for store, reps in (("int8", 2), ("bf16", 1), ("fp16", 3)):
+        q, t, s, sq, valid = _cap_case(cuda, store, 32_768, 16, nq=8)
+        for _ in range(reps):
+            es.capacity_scan(q, t, s, sq, valid, kk=14, metric="l2")
+        want[store] += reps
+        es.capacity_scan(q, t, s, sq, valid, kk=257, metric="l2")
+        assert es.capacity_launches_by_store == want
+    assert es.capacity_launches == 6 and es.capacity_plain_on_cuda == 3
+    assert es.launches == 0 and es.launches_by_route == {"wgmma": 0,
+                                                         "wgmma_cp": 0}
+
+
+@pytest.mark.parametrize("n", [1, 30, 128, 1000, 5000])
+@pytest.mark.parametrize("store", CAP_STORES)
+def test_capacity_screen_small_tables(cuda, store, n):
+    """There is no row switch: a table of any size takes the screen, and
+    a kk past N gives N candidates, as the plain version does."""
+    q, t, s, sq, valid = _cap_case(cuda, store, n, 48, nq=70, seed=n)
+    valid = torch.ones_like(valid)
+    valid[3::5] = False                   # row 0 stays valid at N = 1
+    _cap_reset()
+    dk, ik = es.capacity_scan(q, t, s, sq, valid, kk=150, metric="l2")
+    assert es.capacity_launches_by_store[store] == 1
+    assert es.capacity_plain_on_cuda == 0
+    dp, ip = es.quantized_topk_candidates(q, t, s, sq, valid, kk=150,
+                                          metric="l2")
+    assert ik.shape == ip.shape == (70, min(n, 150))
+    _cap_hold(dk, ik, dp, ip)
+
+
+def test_capacity_scan_raises_on_a_broken_build(cuda, monkeypatch):
+    """A build that fails raises from capacity_scan; the plain scan is not
+    run in its place and no launch is counted."""
+    def broken():
+        raise RuntimeError("nvcc failed (1): simulated")
+    q, t, s, sq, valid = _cap_case(cuda, "int8", 33_000, 32, nq=4)
+    monkeypatch.setattr(es, "_lib", None)
+    monkeypatch.setattr(es, "build", broken)
+    monkeypatch.setattr(es, "quantized_topk_candidates",
+                        lambda *a, **kw: pytest.fail("the plain scan ran"))
+    _cap_reset()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        es.capacity_scan(q, t, s, sq, valid, kk=26, metric="l2")
+    assert es.capacity_launches == 0
+
+
+@pytest.mark.parametrize("store", CAP_STORES)
+def test_exact_index_capacity_rung_on_card_matches_cpu(cuda, store):
+    """ExactIndex's capacity rung at 40,000 rows takes the screen on the
+    card; after the host rerank its ids equal the CPU's (the plain scan),
+    distances within 1e-5 (both reranked by the same numpy code)."""
+    from hnsw_tpu_torch import ExactIndex
+    r = np.random.default_rng(11)
+    v = r.standard_normal((40_000, 48)).astype(np.float32)
+    q = r.standard_normal((30, 48)).astype(np.float32)
+    out = []
+    for dev in (cuda, "cpu"):
+        idx = ExactIndex(metric="l2", hbm_dtype=store, device=dev)
+        idx.host_serve_max_batch = 0
+        idx.batch_add(list(range(len(v))), v)
+        _cap_reset()
+        out.append(idx.batch_search_slots(q, 10))
+        assert es.capacity_launches_by_store[store] == (dev == cuda)
+    hits = sum(len(set(a) & set(b)) for a, b in zip(out[0][1], out[1][1]))
+    assert hits >= 0.999 * out[1][1].size
+    same = out[0][1] == out[1][1]
+    np.testing.assert_allclose(out[0][0][same], out[1][0][same], atol=1e-5,
+                               rtol=0)

@@ -127,3 +127,38 @@ def test_screen_bound_of_a_single_query_is_the_bytes():
     s, by, _ = roofline.screen_bound_s(1, n, d, 18, False)
     moved = 4 * (d + n * d + n) + n + 8 * 18
     assert by == "bytes" and s == moved / 3.35e12
+
+
+@pytest.mark.parametrize("store,passes,kind,ms", [
+    ("int8", 1, "bf16", 0.278),    # one bf16 pass (int8 exact in bf16)
+    ("bf16", 1, "bf16", 0.278),
+    ("fp16", 2, "tf32", 1.111),    # 2xTF32: the f32 query split hi + lo
+])
+def test_capacity_screen_bound_by_store(store, passes, kind, ms):
+    """The capacity screen's bound at the exact tier's shape (Q=1024,
+    N=2^20, D=128; kk 26 for int8, 14 for the 16-bit tables): operations,
+    its product's passes at the peak of their type; fast_math and f32
+    keep their bounds whatever the store argument's default."""
+    nq, n, d = 1024, 1 << 20, 128
+    kk = 26 if store == "int8" else 14
+    s, by, peak = roofline.screen_bound_s(nq, n, d, kk, store=store)
+    assert roofline.CAPACITY_PRODUCT[store][:2] == (passes, kind)
+    assert by == "operations" and peak == roofline.PEAKS[H100][kind]
+    assert s == passes * 2.0 * nq * n * d / peak
+    assert s * 1e3 == pytest.approx(ms, abs=1e-3)
+    assert roofline.screen_bound_s(nq, n, d, 18, False) == \
+        roofline.screen_bound_s(nq, n, d, 18, False, "float32")
+
+
+@pytest.mark.parametrize("store,value_bytes,scale_bytes", [
+    ("float32", 4, 0), ("int8", 1, 4), ("bf16", 2, 0), ("fp16", 2, 0)])
+def test_screen_bound_bytes_by_store(store, value_bytes, scale_bytes):
+    """One query: the bytes bound. The table at its value's bytes, the
+    f32 norms, the mask, int8's f32 scales, the query and the keys, each
+    moved once."""
+    n, d, kk = 1 << 20, 128, 26
+    s, by, _ = roofline.screen_bound_s(1, n, d, kk, store=store)
+    moved = 4 * d + value_bytes * n * d + 4 * n + n + scale_bytes * n \
+        + 8 * kk
+    assert by == "bytes" and s == moved / 3.35e12
+    assert roofline.STORE_BYTES[store] == value_bytes
