@@ -12,7 +12,8 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    wgmma screen, fed by TMA, route "wgmma", or by cp.async, route
    "wgmma_cp"; csrc/beam_search.cu: K2, one graph layer's beam search a
    launch, and the same source with -DBEAM_PHASE_CLOCKS for phase 5b's
-   hop split), and the native host engine;
+   hop split; csrc/diverse_select.cu: K4, one call of the wave builder's
+   neighbour selection a launch), and the native host engine;
 3. kernel vs plain: exact_topk_fused through each K1 route against the
    same wrapper with the plain torch screen in its place, on the card;
    (the exact tier's shapes, and the adaptive engine's: a 131,072-row
@@ -85,12 +86,20 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    with the host rerank's share), the bf16 store at ef 64 (and through
    the twin), and compact upper layers at ef 64 (ids equal to the dense
    layout's);
+8b. K4 against its twin (core/build._diverse_select_reference) on the
+   card at a layer-0 call of phase 10's build (a wave of 2,048 of
+   262,144 x 128 L2 rows, C = 96 candidates: 64 of the other rows, 32 of
+   the wave; deg 32): rows equal on integer-valued rows, >= 0.999 of
+   them on Gaussian rows, equal without diversify, the same at the
+   reverse update's C = 64 and at m = 42's C = 252; the kernel's ms
+   beside its bound (utils/roofline.select_bound_s) and the twin's;
 9. the device wave builder on the first 50,000 of the same vectors (wave
    2048): a build held to the recall of the native build of the same
    50,000 (phase 5's graph, measured when it held only them) and
-   served on the card and the CPU, the same build through the plain twin
-   (nodes/s, recall within 0.005) and one more wave traced each way
-   (launches, device ms, idle share), the int8-block fp16
+   served on the card and the CPU, the same build through K2's plain twin
+   and through K4's (nodes/s, recall within 0.005) and one more wave
+   traced each way (launches, wall and device ms, idle share), the
+   int8-block fp16
    descent (its upper layers on K2's fp16 rows, layer 0 on its int8
    blocks), batch_delete of every 10th key with refine=True, and a build
    aborted at its deadline, served as its inserted prefix and finished by
@@ -170,10 +179,13 @@ main path as a whole launched K2 in each of its five modes (f32 rows,
 blocks, int8 rows, fp16 rows, bf16 rows).
 Phases 6, 7, 12, 14 and 17 each check the capacity screen's launches by
 store (ops/exact_screen.capacity_launches_by_store), and the main path as
-a whole launched it on all three stores.
+a whole launched it on all three stores. Phases 9 and 10 each check that
+K4 launched and that no selection went to its twin
+(ops/diverse_select.plain_on_cuda; the build that forces the twin is
+left out of the count).
 The last two lines are the kernel table (one entry a K1 route, one for
-K2 and one for the capacity screen, each with its launches on the main
-path) and
+K2, one for the capacity screen and one for K4, each with its launches on
+the main path) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card and no network; imports nothing of JAX.
 """
@@ -245,6 +257,18 @@ BEAM_LAUNCHES = dict.fromkeys(("rows", "blocks", "qrows", "f16rows",
 #: the k2-capacity-8m probe: rows of its int8 and fp16 stores, their width
 #: and the out-degree of its random layer-0 table
 N_PROBE, PROBE_M = 8_388_608, 32
+#: K4, the wave builder's neighbour selection: one launch a call of
+#: core/build._diverse_select_dev
+SELECT_KERNEL = {"route": "cuda",
+                 "source": "hnsw_tpu_torch/csrc/diverse_select.cu",
+                 "replaces": "hnsw_tpu/core/build.py:113"}
+#: K4's launches on the main path, summed over phases 9 and 10 (each resets
+#: the count before it and reads it after)
+SELECT_LAUNCHES = {"diverse_select": 0}
+#: phase 8b: a layer-0 call of phase 10's build (P = WAVE rows, C = n_cand
+#: 64 + intra_k 32 candidates, deg = 2 m = 32), and the reverse update's
+#: width (C = Wd 32 + deg 32)
+SELECT_C, SELECT_DEG, SELECT_C_REVERSE = 96, 32, 64
 
 
 def check(ok: bool, what: str) -> None:
@@ -284,12 +308,12 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Builds the two CUDA libraries (one nvcc each, started together) and
-    the native host engine."""
+    """Builds the three CUDA libraries and K2's clocked variant (one nvcc
+    each, started together) and the native host engine."""
     import threading
 
     from hnsw_tpu_torch import native
-    from hnsw_tpu_torch.ops import beam_search, exact_screen
+    from hnsw_tpu_torch.ops import beam_search, diverse_select, exact_screen
     from hnsw_tpu_torch.tools import hop_split
     took, errors = {}, []
 
@@ -305,6 +329,7 @@ def phase_build() -> None:
     threads = [threading.Thread(target=load, args=a) for a in
                (("exact_screen.cu", exact_screen._load),
                 ("beam_search.cu", beam_search._load),
+                ("diverse_select.cu", diverse_select._load),
                 ("beam_search.cu -DBEAM_PHASE_CLOCKS",
                  lambda: hop_split.clocks_library(HOP_SPLIT_DIR)))]
     for t in threads:
@@ -418,6 +443,46 @@ def _twin():
     finally:
         beam_search.hop_kernel_applies = real
         beam_search.twin_layers_on_cuda.update(counts)
+
+
+def _select_reset() -> None:
+    from hnsw_tpu_torch.ops import diverse_select
+    diverse_select.launches = 0
+    diverse_select.plain_on_cuda.update(mode=0, size=0, other=0)
+
+
+def _select_read(label: str) -> int:
+    """K4's launches since the last _select_reset(), added to
+    SELECT_LAUNCHES. On the card, a failed check unless it launched and no
+    call went to the twin (every call of phases 9 and 10 is one K4
+    covers: ops/diverse_select.plain_on_cuda all 0; the build that forces
+    the twin restores the counts, _select_twin)."""
+    from hnsw_tpu_torch.ops import diverse_select
+    n = diverse_select.launches
+    plain = dict(diverse_select.plain_on_cuda)
+    SELECT_LAUNCHES["diverse_select"] += n
+    if DEVICE == "cuda":
+        check(n > 0 and not any(plain.values()),
+              f"{label} launched the selection kernel {n} times; calls the "
+              f"twin ran on the card {plain} (want none)")
+    return n
+
+
+@contextlib.contextmanager
+def _select_twin():
+    """Inside the block every neighbour selection runs the plain twin
+    (core/build._diverse_select_reference): ops/diverse_select's predicate
+    is patched to say no, and the calls it so sends to the twin are left
+    out of plain_on_cuda."""
+    from hnsw_tpu_torch.ops import diverse_select
+    real = diverse_select.select_kernel_applies
+    counts = dict(diverse_select.plain_on_cuda)
+    diverse_select.select_kernel_applies = lambda *a, **kw: False
+    try:
+        yield
+    finally:
+        diverse_select.select_kernel_applies = real
+        diverse_select.plain_on_cuda.update(counts)
 
 
 def _add(a: dict, b: dict) -> dict:
@@ -1664,6 +1729,167 @@ def phase_graph_modes(st: dict) -> None:
                need=tuple(BEAM_LAUNCHES), covered_only=True)
 
 
+def _select_slate(vectors, sq, P: int, n_cand: int, intra_k: int,
+                  metric: str):
+    """A wave builder's candidate slate for the first ``P`` rows of
+    ``vectors`` (the wave): each one's ``n_cand`` nearest of the other rows
+    (the snapshot's candidates) and its ``intra_k`` nearest of the wave,
+    scored at HIGHEST by build_device._row_dist_dense, as
+    _assemble_wave_rows hands them to the selection."""
+    from hnsw_tpu_torch.core import build_device
+    wave = vectors[:P].to(torch.float32)
+    snap = vectors[P:].to(torch.float32)
+    near = torch.cat([torch.topk(torch.cdist(wave[c:c + 256], snap),
+                                 n_cand, largest=False).indices + P
+                      for c in range(0, P, 256)])
+    intra = torch.cdist(wave, wave)
+    intra.fill_diagonal_(float("inf"))
+    iw = torch.topk(intra, intra_k, largest=False).indices
+    ci = torch.cat([near, iw], dim=1).to(torch.int32).contiguous()
+    anchors = torch.arange(P, dtype=torch.int32, device=vectors.device)
+    cd = build_device._row_dist_dense(vectors, sq, anchors, ci, metric)
+    return ci, cd.contiguous()
+
+
+def _select_case(label: str, ci, cd, vectors, sq, deg: int, metric: str,
+                 diversify: bool, need_equal: float, timed: bool = False):
+    """One call of K4 (ops/diverse_select.diverse_select_cuda) and of its
+    twin (core/build._diverse_select_reference) on the same tensors: a
+    failed check unless at least ``need_equal`` of the rows are equal.
+    Its error is the largest difference, slot by slot, of the distances of
+    the ids the two keep (0 where the rows are equal). ``timed``: both
+    timed (median of 5 CUDA-event reps), the kernel beside its bound
+    (utils/roofline.select_bound_s over the distinct valid rows and the
+    valid candidates' pairs; and every slot's row, every pair)."""
+    from hnsw_tpu_torch.core import build
+    from hnsw_tpu_torch.ops import diverse_select
+    from hnsw_tpu_torch.utils import roofline
+    kw = dict(deg=deg, metric=metric, diversify=diversify)
+
+    def kern():
+        return diverse_select.diverse_select_cuda(ci, cd, vectors, sq, **kw)
+
+    def twin():
+        return build._diverse_select_reference(ci, cd, vectors, sq, **kw)
+
+    n0 = diverse_select.launches
+    got = kern()
+    torch.cuda.synchronize()
+    check(diverse_select.launches == n0 + 1, f"{label}: one launch")
+    got, want = got.cpu().numpy(), twin().cpu().numpy()
+    equal = (got == want).all(axis=1)
+    ci_h, cd_h = ci.cpu().numpy(), cd.cpu().numpy()
+
+    def dist_of(rows):
+        out = np.full(rows.shape, np.nan)
+        for p in np.flatnonzero(~equal):
+            where = {int(i): float(d) for i, d in zip(ci_h[p], cd_h[p])
+                     if i >= 0}
+            out[p] = [where.get(int(i), np.nan) for i in rows[p]]
+        return out
+
+    diff = np.abs(dist_of(got) - dist_of(want))
+    err = float(np.nanmax(diff)) if np.isfinite(diff).any() else 0.0
+    share = float(equal.mean())
+    P, C = ci_h.shape
+    check(got.shape == want.shape == (P, min(C, deg)) and share >= need_equal,
+          f"{label} (P={P}, C={C}, deg={deg}, D={vectors.shape[1]}, "
+          f"{metric}, diversify={diversify}): {int(equal.sum())} of {P} "
+          f"rows equal the twin's ({share:.5f} >= {need_equal}), max "
+          f"|d| difference of the kept {err:.3g}")
+    out = {"equal": share, "max_abs_err": err}
+    if not timed:
+        return out
+    ms, twin_ms = cuda_ms(kern), cuda_ms(twin)
+    valid = [{int(i) for i, d in zip(ci_h[p], cd_h[p])
+              if i >= 0 and d < 3.0e38} for p in range(P)]
+    rows = len(set().union(*valid))
+    pairs = sum(len(v) * (len(v) - 1) // 2 for v in valid)
+    D = vectors.shape[1]
+    bound_s, by = roofline.select_bound_s(P, C, D, deg, rows=rows,
+                                          pairs=pairs, diversify=diversify)
+    flat_s, flat_by = roofline.select_bound_s(P, C, D, deg,
+                                              diversify=diversify)
+    bound, flat = bound_s * 1e3, flat_s * 1e3
+    per_sm = diverse_select._load().diverse_select_blocks_per_sm(
+        C, diverse_select.STORES[vectors.dtype])
+    print(f"    kernel {ms:.4f} ms ({per_sm} blocks an SM), bound "
+          f"{bound:.4f} ms ({by}; {rows} distinct rows, {pairs} valid "
+          f"pairs), {bound / ms:.4f} of the bound (every slot's row and "
+          f"pair: {flat:.4f} ms, {flat_by}, {flat / ms:.4f}); twin "
+          f"{twin_ms:.3f} ms ({twin_ms / ms:.1f}x)", flush=True)
+    out.update(ms=ms, plain_ms=twin_ms, bound_ms=bound, bound_by=by,
+               no_reuse_bound_ms=flat, blocks_per_sm=per_sm)
+    return out
+
+
+def phase_select_kernel(smi: str) -> dict:
+    """Phase 8b: K4 against its twin on the card at the shape of a layer-0
+    call of phase 10's build (a wave of P = 2,048 rows, C = 96 candidates:
+    each row's 64 nearest of 260,096 other rows and 32 nearest of the
+    wave, deg 32, D = 128, L2), on integer-valued rows (|x| <= 4: every
+    operand, product and sum exact, rows equal) and Gaussian rows (the
+    kernel's f32 sums run in another order than the twin's matmul: >=
+    0.999 of the rows equal); without diversify (equal); at the reverse
+    update's C = 64 both ways; and at m = 42's C = 252 (6 m). Returns the
+    kernels-line entry (the Gaussian layer-0 call is the headline)."""
+    from hnsw_tpu_torch.ops import diverse_select
+    n, P = N_SIFT, WAVE
+    print(f"# K4 neighbour selection vs its twin, one launch, a wave of {P} "
+          f"of {n} x {DIM} rows, C={SELECT_C}, deg={SELECT_DEG}, l2 "
+          f"(median of 5 CUDA-event reps; {smi})", flush=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    out = {}
+    for kind in ("integer", "gaussian"):
+        if kind == "integer":
+            vectors = torch.randint(-4, 5, (n, DIM), generator=gen,
+                                    device=DEVICE).to(torch.float32)
+        else:
+            vectors = torch.randn((n, DIM), generator=gen, device=DEVICE)
+        sq = (vectors * vectors).sum(-1)
+        need = 1.0 if kind == "integer" else 0.999
+        ci, cd = _select_slate(vectors, sq, P, SELECT_C - 32, 32, "l2")
+        print(f"  {kind} rows, layer 0:", flush=True)
+        out[kind] = _select_case(f"{kind} layer 0", ci, cd, vectors, sq,
+                                 SELECT_DEG, "l2", True, need, timed=True)
+        out[kind, "plain"] = _select_case(
+            f"{kind} layer 0", ci, cd, vectors, sq, SELECT_DEG, "l2",
+            False, 1.0)
+        ci64, cd64 = ci[:, :SELECT_C_REVERSE].contiguous(), \
+            cd[:, :SELECT_C_REVERSE].contiguous()
+        for diversify in (True, False):
+            print(f"  {kind} rows, C={SELECT_C_REVERSE}, diversify="
+                  f"{diversify}:", flush=True)
+            out[kind, SELECT_C_REVERSE, diversify] = _select_case(
+                f"{kind} reverse width", ci64, cd64, vectors, sq,
+                SELECT_DEG, "l2", diversify,
+                need if diversify else 1.0, timed=True)
+        if kind == "gaussian":
+            ci_w, cd_w = _select_slate(vectors, sq, 512, 168, 84, "l2")
+            print("  gaussian rows, m = 42's width C=252, deg 84:",
+                  flush=True)
+            out["wide"] = _select_case("C=252", ci_w, cd_w, vectors, sq, 84,
+                                       "l2", True, 0.999, timed=True)
+        del vectors, sq, ci, cd
+        torch.cuda.empty_cache()
+    with open(os.path.join(diverse_select.BUILD_DIR,
+                           "diverse_select.ptxas.txt")) as f:
+        for line in f:
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
+    head = out["gaussian"]
+    return dict(SELECT_KERNEL, name="diverse_select",
+                max_abs_err=max(v["max_abs_err"] for v in out.values()),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                no_reuse_bound_ms=head["no_reuse_bound_ms"], library_ms=None,
+                blocks_per_sm=head["blocks_per_sm"],
+                rows_equal={str(k): v["equal"] for k, v in out.items()},
+                cases={str(k): {kk: v[kk] for kk in (
+                    "ms", "plain_ms", "bound_ms", "no_reuse_bound_ms")}
+                       for k, v in out.items() if "ms" in v})
+
+
 class _NativeInserts:
     """Counts calls of the native sequential builder while installed."""
 
@@ -1781,6 +2007,7 @@ def phase_device_builds(st: dict) -> int:
     host_rec = st["prefix_recall"]
 
     _beam_reset()
+    _select_reset()
     with _NativeInserts() as nat:
         gd, t_build = _device_build(keys, base, "cosine", method="device")
     check(nat.calls == 0 and _all_inserted(gd, n),
@@ -1822,6 +2049,19 @@ def phase_device_builds(st: dict) -> int:
     print(f"  the same build through the twin: {t_twin:.1f} s "
           f"({n / t_twin:.1f} nodes/s; the kernel's {n / t_build:.1f}, "
           f"{t_twin / t_build:.2f}x)", flush=True)
+    # and with K4's twin forced (K2 stays on): the selection's share of
+    # the build, its recall beside the kernel's, one more wave traced
+    with _select_twin():
+        gs, t_sel = _device_build(keys, base, "cosine", method="device")
+        rec_s = _graph_recalls(gs, queries, gt, "K4-twin device build")
+        wave_s = _wave_trace(gs, st["base"], n, "the K4 twin's build")
+    del gs
+    check(all(abs(rec[ef] - rec_s[ef]) <= 0.005 for ef in rec),
+          f"device build: recall@10 through K4 {rec} within 0.005 of the "
+          f"build through K4's twin {rec_s}")
+    print(f"  the same build through K4's twin: {t_sel:.1f} s "
+          f"({n / t_sel:.1f} nodes/s; through K4 {n / t_build:.1f}, "
+          f"{t_sel / t_build:.2f}x)", flush=True)
 
     from hnsw_tpu_torch.ops import beam_search
     by0 = dict(beam_search.launches_by_mode)
@@ -1913,16 +2153,20 @@ def phase_device_builds(st: dict) -> int:
           f"{t_res:.1f} s, recall@10 {rec_r[64]:.4f} / {rec_r[192]:.4f}",
           flush=True)
     wave_k = _wave_trace(gr, st["base"], n, "the resumed build")
-    if wave_k and wave_t:
-        print(f"  one more wave, kernel / twin: {wave_k['launches']} / "
-              f"{wave_t['launches']} launches, device "
-              f"{wave_k['device_ms']:.3f} / {wave_t['device_ms']:.3f} ms, "
-              f"idle share {wave_k['idle_share']:.3f} / "
-              f"{wave_t['idle_share']:.3f}", flush=True)
+    for label, other in (("twin", wave_t), ("K4 twin", wave_s)):
+        if wave_k and other:
+            print(f"  one more wave, kernels / {label}: {wave_k['launches']} "
+                  f"/ {other['launches']} launches, wall "
+                  f"{wave_k['wall_ms']:.1f} / {other['wall_ms']:.1f} ms, "
+                  f"device {wave_k['device_ms']:.3f} / "
+                  f"{other['device_ms']:.3f} ms, idle share "
+                  f"{wave_k['idle_share']:.3f} / {other['idle_share']:.3f}",
+                  flush=True)
     del gr
     torch.cuda.empty_cache()
     _beam_read("phase 9 (wave builds, refine, serving)",
                need=("rows", "blocks", "f16rows"), covered_only=True)
+    _select_read("phase 9 (wave builds, the fp16 descent, refine, resume)")
     launches = _launches()
     check(launches["wgmma"] >= 2 and launches["wgmma_cp"] == 0,
           f"the exact-tier oracle launched the wgmma kernel "
@@ -1951,20 +2195,38 @@ class _WaveProbe:
     """Counts the device builder's waves and profiles one of them with
     torch.profiler: the wave's descent, row assembly, diversity selection
     (inside assembly and reverse update) and reverse update each run
-    under a record_function label."""
+    under a record_function label.
+
+    The hand kernels (K2's beam_search_kernel, K4's diverse_select_kernel)
+    are launched through ctypes, so the profiler ties none of them to a
+    label. Each wrapped call records the hand launches it made (the
+    wrappers' counters) with the labels open at the time, and the n-th
+    such launch is matched to the n-th device event of that kernel in the
+    trace (one stream: trace order is launch order). The wave's totals
+    count every device event of the trace."""
 
     LABELS = {"construction_descent": "build.descent",
               "_assemble_wave_rows": "build.assemble",
               "_reverse_update": "build.reverse",
               "_diverse_select_dev": "build.select"}
+    #: hand kernels: (name in the trace, module whose ``launches`` counts
+    #: them)
+    HAND = (("beam_search_kernel", "beam_search"),
+            ("diverse_select_kernel", "diverse_select"))
 
     def __init__(self, profile_wave: int):
         from hnsw_tpu_torch.core import build_device
+        from hnsw_tpu_torch.ops import beam_search, diverse_select
+        self.mods = {"beam_search": beam_search,
+                     "diverse_select": diverse_select}
         self.mod, self.profile_wave = build_device, profile_wave
         self.orig = {k: getattr(build_device, k) for k in self.LABELS}
         self.waves, self.prof, self.summary = 0, None, None
         #: seconds the padding slept (inside the build's wall time)
         self.paused_s = 0.0
+        #: labels of the wrapped calls in progress; hand launches recorded
+        #: so far in the profiled wave, by kernel: a list of label tuples
+        self.stack, self.hand = [], {}
 
     def __enter__(self):
         for name, label in self.LABELS.items():
@@ -1977,6 +2239,9 @@ class _WaveProbe:
         if self.prof is not None:
             self._stop()
 
+    def _counts(self) -> dict:
+        return {k: self.mods[m].launches for k, m in self.HAND}
+
     def _wrap(self, name, label):
         fn = self.orig[name]
 
@@ -1985,8 +2250,18 @@ class _WaveProbe:
                 self._wave_boundary()
             if self.prof is None:
                 return fn(*a, **kw)
-            with torch.profiler.record_function(label):
-                return fn(*a, **kw)
+            self.stack.append(label)
+            try:
+                with torch.profiler.record_function(label):
+                    return fn(*a, **kw)
+            finally:
+                labels = tuple(self.stack)
+                self.stack.pop()
+                for k, n in self._counts().items():
+                    mine = self.hand.setdefault(k, [])
+                    # launches since the wave began that no inner call
+                    # recorded are this call's own
+                    mine += [labels] * (n - self.base[k] - len(mine))
         return wrapped
 
     def _wave_boundary(self):
@@ -2004,15 +2279,22 @@ class _WaveProbe:
             # short session loses its kernel records
             time.sleep(PAD_S)
             self.paused_s += PAD_S
+            self.base, self.hand = self._counts(), {}
             self.t0 = time.perf_counter()
 
     def _stop(self):
-        from hnsw_tpu_torch.utils.profiling import PAD_S
+        import tempfile
+
+        from hnsw_tpu_torch.utils.profiling import PAD_S, device_events
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - self.t0) * 1e6
         time.sleep(PAD_S)
         self.paused_s += PAD_S
         self.prof.stop()
+        with tempfile.TemporaryDirectory() as td:
+            path = os.path.join(td, "wave.json")
+            self.prof.export_chrome_trace(path)
+            device = device_events(path)
         events = [e for e in self.prof.events()
                   if e.device_type == torch.autograd.DeviceType.CPU]
 
@@ -2026,12 +2308,23 @@ class _WaveProbe:
                             "launches": sum(n_kernels(e) for e in top),
                             "device_ms": sum(e.device_time_total
                                              for e in top) / 1e3}
-        dev_us = sum(k.duration for e in events for k in e.kernels)
+        matched = {}
+        for k, _ in self.HAND:
+            us = [t for cat, name, t in device
+                  if cat == "kernel" and k in name]
+            recs = self.hand.get(k, [])
+            matched[k] = (len(recs), len(us))
+            for labels, t in zip(recs, us):
+                for label in set(labels):
+                    parts[label]["launches"] += 1
+                    parts[label]["device_ms"] += t / 1e3
+        dev_us = sum(t for _, _, t in device)
         self.summary = {
             "wave": self.waves, "wall_ms": wall_us / 1e3,
             "device_ms": dev_us / 1e3,
-            "launches": sum(len(e.kernels) for e in events),
-            "idle_share": max(0.0, 1.0 - dev_us / wall_us), "parts": parts}
+            "launches": sum(cat == "kernel" for cat, _, _ in device),
+            "idle_share": max(0.0, 1.0 - dev_us / wall_us), "parts": parts,
+            "hand": matched}
         self.prof = None
 
 
@@ -2053,6 +2346,7 @@ def phase_sift_shape_build() -> int:
           f"{N_SIFT} to the native one")
     torch.cuda.reset_peak_memory_stats()
     _beam_reset()
+    _select_reset()
     with _NativeInserts() as nat, _WaveProbe(PROFILE_WAVE) as probe:
         g, t_build = _device_build(keys, base, "l2", method="device")
     # the probe's padding sleeps inside the build: not build time
@@ -2109,12 +2403,14 @@ def phase_sift_shape_build() -> int:
     _beam_read("phase 10 (the 262,144-row wave build and its serving in "
                "every hbm_mode)", need=("rows", "qrows", "f16rows"),
                covered_only=True)
+    _select_read("phase 10 (the 262,144-row wave build)")
     s = probe.summary
     check(s is not None and s["launches"] > 0,
           f"wave {PROFILE_WAVE} profiled")
     print(f"  wave {s['wave']} profile: wall {s['wall_ms']:.1f} ms, device "
           f"{s['device_ms']:.1f} ms, idle share {s['idle_share']:.3f}, "
-          f"{s['launches']} launches", flush=True)
+          f"{s['launches']} launches (hand kernels recorded / in the trace: "
+          f"{s['hand']})", flush=True)
     for label, p in s["parts"].items():
         print(f"    {label}: {p['calls']} calls, {p['launches']} launches, "
               f"device {p['device_ms']:.1f} ms", flush=True)
@@ -3438,6 +3734,7 @@ def main() -> int:
     launches = _add(launches, by)
     launches = _add(launches, phase_auto_ladder())
     phase_graph_modes(graph)
+    select = phase_select_kernel(smi)
     launches = _add(launches, phase_device_builds(graph))
     launches = _add(launches, phase_sift_shape_build())
     print(f"# smoke: phases 1-10 took {time.perf_counter() - t_start:.1f} s",
@@ -3464,10 +3761,11 @@ def main() -> int:
           flush=True)
     check(all(launches[r] > 0 for r in ("wgmma", "wgmma_cp"))
           and all(n > 0 for n in BEAM_LAUNCHES.values())
-          and all(n > 0 for n in CAPACITY_LAUNCHES.values()),
+          and all(n > 0 for n in CAPACITY_LAUNCHES.values())
+          and SELECT_LAUNCHES["diverse_select"] > 0,
           f"the main path launched every K1 route: {launches}, K2 in "
-          f"every mode: {BEAM_LAUNCHES}, and the capacity screen on every "
-          f"store: {CAPACITY_LAUNCHES}")
+          f"every mode: {BEAM_LAUNCHES}, the capacity screen on every "
+          f"store: {CAPACITY_LAUNCHES}, and K4: {SELECT_LAUNCHES}")
     print(f"# smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included", flush=True)
     print(smi)
@@ -3476,7 +3774,8 @@ def main() -> int:
         dict(beam, launches=sum(BEAM_LAUNCHES.values()),
              launches_by_mode=dict(BEAM_LAUNCHES)),
         dict(timing["capacity"], launches=sum(CAPACITY_LAUNCHES.values()),
-             launches_by_store=dict(CAPACITY_LAUNCHES))]}))
+             launches_by_store=dict(CAPACITY_LAUNCHES)),
+        dict(select, launches=SELECT_LAUNCHES["diverse_select"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

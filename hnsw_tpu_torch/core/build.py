@@ -21,7 +21,9 @@ not replenished during bulk build (delete repair still replenishes).
 The device functions take torch tensors and run on the tensors' device.
 ``construction_descent`` scores at DEFAULT (bf16-rounded operands, f32
 sums: ops/distance.py) like the JAX package; the candidate distances
-that rank edge selection are computed at HIGHEST. ``bulk_insert`` and
+that rank edge selection are computed at HIGHEST. The selection itself
+(``_diverse_select_dev``) is one launch of the CUDA kernel K4
+(ops/diverse_select) on the card. ``bulk_insert`` and
 ``batch_reverse_insert`` are the host-authoritative wave builder (numpy
 glue around the same device functions); core/build_device.py is the
 device-resident one that Graph.build uses.
@@ -39,6 +41,7 @@ from hnsw_tpu_torch.core import host_build
 from hnsw_tpu_torch.core.search import beam_search_layer
 from hnsw_tpu_torch.core.state import (DeviceGraph, bucket_pow2,
                                       default_device, from_host)
+from hnsw_tpu_torch.ops import diverse_select as _select
 from hnsw_tpu_torch.ops.distance import (DEFAULT, HIGHEST, INF_DIST,
                                          bf16_round, gathered_dist,
                                          pairwise_dist)
@@ -112,11 +115,36 @@ def _diverse_select_dev(cand_i: torch.Tensor, cand_d: torch.Tensor,
     distance, dedup, Malkov-heuristic scan, pruned backfill, compact.
 
     cand_i [P, C] int32 (-1 pad), cand_d [P, C] f32 (INF_DIST on pads)
-    -> rows [P, min(C, deg)] int32, -1 padded. The [P, C, C] candidate
-    Gram runs at DEFAULT (bf16-rounded operands, f32 sums). The
-    heuristic scan is C serial steps (each depends on what the earlier
-    ones kept); the backfill is an exclusive cumsum: it takes valid,
-    unselected candidates in distance order while the row has room."""
+    -> rows [P, min(C, deg)] int32, -1 padded. One launch of the CUDA
+    kernel K4 (ops/diverse_select) where
+    ``ops/diverse_select.select_kernel_applies``; every other call (the
+    CPU, a registered metric) runs the twin ``_diverse_select_reference``
+    (same arguments, same rows), counted by reason on CUDA."""
+    kw = dict(metric=metric, diversify=diversify)
+    if cand_i.is_cuda:
+        if _select.select_kernel_applies(cand_i, cand_d, vectors, sq, **kw):
+            return _select.diverse_select_cuda(cand_i, cand_d, vectors, sq,
+                                               deg=deg, **kw)
+        _select.count_plain(cand_i, vectors, **kw)
+    return _diverse_select_reference(cand_i, cand_d, vectors, sq, deg=deg,
+                                     **kw)
+
+
+def _diverse_select_reference(cand_i: torch.Tensor, cand_d: torch.Tensor,
+                              vectors: torch.Tensor, sq: torch.Tensor, *,
+                              deg: int, metric: str,
+                              diversify: bool) -> torch.Tensor:
+    """The plain twin of ``_diverse_select_dev`` (K4): sort by distance,
+    dedup, Malkov-heuristic scan, pruned backfill, compact, as eager
+    PyTorch.
+
+    The [P, C, C] candidate Gram runs at DEFAULT (bf16-rounded operands,
+    f32 sums). The heuristic scan is C serial steps (each depends on what
+    the earlier ones kept); the backfill is an exclusive cumsum: it takes
+    valid, unselected candidates in distance order while the row has
+    room. No NaN may reach it: pads are INF_DIST, and a NaN sorts apart
+    from where the JAX package and the kernel would put it."""
+    assert not torch.isnan(cand_d).any(), "NaN candidate distance"
     P, C = cand_i.shape
     cd, order = torch.sort(cand_d, dim=1, stable=True)
     ci = torch.gather(cand_i, 1, order)

@@ -13,8 +13,8 @@ Per wave the only host<->device traffic is the wave's slot ids and
 levels. Edge assembly runs fully on the device:
 
   * wave rows: candidate slate (descent pool + intra-wave top-k) ->
-    diversity-heuristic selection (core/build._diverse_select_dev) ->
-    row write;
+    diversity-heuristic selection (core/build._diverse_select_dev, one
+    launch of the K4 kernel on the card) -> row write;
   * reverse edges: sort-based segmentation — rank incoming edges per
     target with two stable sorts and a cummax, keep the best m, then one
     masked top-m merge of (existing row ∪ incoming) per touched target

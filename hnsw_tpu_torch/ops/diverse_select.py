@@ -1,0 +1,184 @@
+"""The wave builder's neighbour selection: the hand-written CUDA kernel (K4).
+
+The kernel (``csrc/diverse_select.cu``) runs one call of
+``core/build._diverse_select_dev`` as one launch, one block a row: the
+stable sort and dedup of the row's candidates, the bf16-operand Gram of
+its candidates turned into conflict bits in shared memory, Malkov's
+diversity scan, the backfill to ``deg`` and the compaction. Its plain twin
+is ``core/build._diverse_select_reference``, which returns the same rows
+(the kernel's f32 Gram sums run in another order).
+
+Which calls take the kernel is decided here, in ``select_kernel_applies``:
+CUDA tensors on one device, at most ``SELECT_MAX_C`` candidates a row and,
+with ``diversify``, a built-in metric and a float32, float16 or bfloat16
+row store. Every other call (a CPU tensor, a registered custom metric)
+runs the twin; on CUDA each such call is counted in ``plain_on_cuda``, by
+reason, so a caller can see that a covered call never reached the twin.
+
+The library is compiled with nvcc at first use into ``build/hnsw_tpu_torch``
+beside the package (rebuilt when the source is newer) and bound with
+ctypes; nothing is built when this module is imported. A build or launch
+that fails raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import torch
+
+from hnsw_tpu_torch.ops.exact_screen import BUILD_DIR, _nvcc
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "diverse_select.cu")
+_METRIC_CODE = {"cosine": 0, "l2": 1, "sqeuclidean": 2, "dot": 3}
+#: the row stores the kernel reads (csrc/diverse_select.cu ST_*)
+STORES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+#: most candidates a row the kernel takes (its scan keeps one 32-bit kept
+#: mask a lane of one warp; 164,864 bytes of shared memory a block)
+SELECT_MAX_C = 1024
+
+#: kernel launches so far (one per call on CUDA)
+launches = 0
+#: calls on CUDA tensors that ran the twin, by reason: "mode" (a registered
+#: metric or a row store the kernel lacks), "size" (more than SELECT_MAX_C
+#: candidates a row) or "other" (a covered call within its limits: tensors
+#: on different devices, or the twin forced)
+plain_on_cuda = {"mode": 0, "size": 0, "other": 0}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def build() -> str:
+    """Compile ``csrc/diverse_select.cu`` into ``BUILD_DIR`` if the
+    library is missing or older than the source; returns its path. ptxas's
+    report goes to ``diverse_select.ptxas.txt`` beside it."""
+    so = os.path.join(BUILD_DIR, "libdiverse_select.so")
+    if (os.path.exists(so)
+            and os.path.getmtime(so) >= os.path.getmtime(SOURCE)):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", SOURCE, "-o", tmp]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    with open(os.path.join(BUILD_DIR, "diverse_select.ptxas.txt"), "w") as f:
+        f.write(res.stderr)
+    os.replace(tmp, so)
+    return so
+
+
+def bind(path: str):
+    """The library at ``path`` loaded with ctypes, its entry points
+    typed."""
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.diverse_select_launch.argtypes = [vp] * 4 + [ci] * 9 + [vp, vp]
+    lib.diverse_select_launch.restype = ci
+    lib.diverse_select_smem_bytes.argtypes = [ci]
+    lib.diverse_select_smem_bytes.restype = ci
+    lib.diverse_select_blocks_per_sm.argtypes = [ci, ci]
+    lib.diverse_select_blocks_per_sm.restype = ci
+    return lib
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = bind(build())
+        return _lib
+
+
+def _covered(vectors: torch.Tensor, metric: str, diversify: bool) -> bool:
+    """Whether the kernel computes this call at some size: any call
+    without ``diversify``, else a built-in metric over a row store it
+    reads."""
+    return not diversify or (metric in _METRIC_CODE
+                             and vectors.dtype in STORES)
+
+
+def _fits(cand_i: torch.Tensor) -> bool:
+    return cand_i.ndim == 2 and 1 <= cand_i.shape[1] <= SELECT_MAX_C
+
+
+def select_kernel_applies(cand_i: torch.Tensor, cand_d: torch.Tensor,
+                          vectors: torch.Tensor, sq: torch.Tensor, *,
+                          metric: str, diversify: bool) -> bool:
+    """Whether ``core/build._diverse_select_dev`` runs this call through
+    the kernel: CUDA tensors on one device, a covered call (``_covered``)
+    of at most ``SELECT_MAX_C`` candidates a row. The one place that
+    decides; every other call runs ``_diverse_select_reference``."""
+    dev = cand_i.device
+    return (cand_i.is_cuda
+            and all(t.device == dev for t in (cand_d, vectors, sq))
+            and _covered(vectors, metric, diversify) and _fits(cand_i))
+
+
+def count_plain(cand_i: torch.Tensor, vectors: torch.Tensor, *, metric: str,
+                diversify: bool) -> str:
+    """Counts one call that ran the twin on CUDA in ``plain_on_cuda``, by
+    reason: "mode" where the kernel lacks the metric or the row store,
+    "size" past ``SELECT_MAX_C``, else "other" (tensors on different
+    devices, the twin forced). Returns the reason."""
+    if not _covered(vectors, metric, diversify):
+        reason = "mode"
+    elif not _fits(cand_i):
+        reason = "size"
+    else:
+        reason = "other"
+    with _lock:
+        plain_on_cuda[reason] += 1
+    return reason
+
+
+def diverse_select_cuda(cand_i: torch.Tensor, cand_d: torch.Tensor,
+                        vectors: torch.Tensor, sq: torch.Tensor, *, deg: int,
+                        metric: str, diversify: bool) -> torch.Tensor:
+    """One launch of the kernel: rows [P, min(C, deg)] int32, -1 padded,
+    as the twin returns them. Raises on what the kernel does not take."""
+    global launches
+    if not select_kernel_applies(cand_i, cand_d, vectors, sq, metric=metric,
+                                 diversify=diversify):
+        raise ValueError(f"the selection kernel does not take this call "
+                         f"({metric}, diversify={diversify}, candidates "
+                         f"{tuple(cand_i.shape)} on {cand_i.device}, store "
+                         f"{vectors.dtype} on {vectors.device})")
+    P, C = cand_i.shape
+    N, D = vectors.shape
+    if (cand_d.shape != (P, C) or sq.ndim != 1 or sq.shape[0] < N or N < 1
+            or deg < 1):
+        raise ValueError(f"candidates {tuple(cand_i.shape)} / "
+                         f"{tuple(cand_d.shape)}, store {tuple(vectors.shape)}"
+                         f", norms {tuple(sq.shape)}, deg {deg}: shapes the "
+                         f"kernel does not take")
+    dev = cand_i.device
+    cand_i = cand_i.to(torch.int32).contiguous()
+    cand_d = cand_d.to(torch.float32).contiguous()
+    vectors = vectors.contiguous()
+    sq = sq.to(torch.float32).contiguous()
+    out_w = min(C, deg)
+    out = torch.empty((P, out_w), dtype=torch.int32, device=dev)
+    if P == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.diverse_select_launch(
+            cand_i.data_ptr(), cand_d.data_ptr(), vectors.data_ptr(),
+            sq.data_ptr(), P, C, N, D, deg, out_w,
+            _METRIC_CODE.get(metric, 0), STORES.get(vectors.dtype, 0),
+            int(bool(diversify)), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"diverse_select launch failed: cudaError {rc}")
+    with _lock:                  # slices on one card launch from threads
+        launches += 1
+    return out

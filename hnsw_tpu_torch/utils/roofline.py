@@ -19,7 +19,9 @@ Two ratio fields for an exact-scan row:
 ``screen_bound_s`` is the least time of one exact screen on the card, for
 a float32 table (K1's work) or a capacity table (int8, bf16, fp16: the
 capacity screen's), the bound ``chip_smoke.py`` and
-``tools/screen_split.py`` put beside the kernel's times.
+``tools/screen_split.py`` put beside the kernel's times; ``hop_bound_s``
+is K2's (one layer of beam search) and ``select_bound_s`` K4's (one call
+of the wave builder's neighbour selection).
 """
 
 from __future__ import annotations
@@ -128,6 +130,37 @@ def hop_bound_s(n_queries: int, d: int, pool: int, starts: int, width: int,
              + 4 * width * nodes + row_bytes * rows)
     t_bytes = moved / peaks["hbm_bytes_s"]
     t_ops = 2.0 * d * scored / peaks[kind]
+    if t_ops >= t_bytes:
+        return t_ops, "operations"
+    return t_bytes, "bytes"
+
+
+def select_bound_s(P: int, C: int, D: int, deg: int, *,
+                   rows: Optional[int] = None, pairs: Optional[int] = None,
+                   diversify: bool = True) -> Tuple[float, str]:
+    """(seconds, "bytes" | "operations"): the least time on the H100 SXM of
+    one call of the wave builder's neighbour selection (the K4 kernel,
+    ops/diverse_select) over ``P`` rows of ``C`` candidates, ``D`` wide,
+    keeping min(C, deg) a row. It is the larger of the bytes it must move
+    over the HBM rate (the [P, C] ids and distances read once, ``rows``
+    float32 candidate rows and a squared norm each, the [P, min(C, deg)]
+    ids written once) and 2 D operations a candidate pair of the Gram over
+    the bf16 tensor peak (DEFAULT rounds the operands to bf16). ``pairs``
+    defaults to every pair e < j of every row, P C (C - 1) / 2, and
+    ``rows`` to P C: every row read again for each candidate slot it
+    fills, the bound without reuse across rows; the distinct rows and the
+    valid candidates' pairs of a call give the bound of its data. Without
+    ``diversify`` no row is read and no pair scored."""
+    peaks = PEAKS[H100_SXM]
+    if rows is None:
+        rows = P * C
+    if pairs is None:
+        pairs = P * C * (C - 1) // 2
+    if not diversify:
+        rows = pairs = 0
+    moved = 8 * P * C + (4 * D + 4) * rows + 4 * P * min(C, deg)
+    t_bytes = moved / peaks["hbm_bytes_s"]
+    t_ops = 2.0 * D * pairs / peaks["bf16"]
     if t_ops >= t_bytes:
         return t_ops, "operations"
     return t_bytes, "bytes"
