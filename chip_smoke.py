@@ -24,16 +24,21 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    exact tier's shape (Q=1024, N=1,048,576, D=128, k_sel=18, l2; both
    producers) and, for the cp.async producer, at glove-50's, each beside
    its bound, with the plain version and torch.topk(torch.cdist) as a
-   yardstick the port never calls; then the capacity screen (the same
-   kernel over the capacity modes' tables, ops/exact_screen.
-   capacity_scan) against its plain version (ops/topk.
-   quantized_topk_candidates) for each store at the exact tier's shape
-   (int8 with per-row scales kk=26, bf16 and fp16 kk=14, L2, TMA; int8
-   also at kk=150, k=100's pool), below K1's 32,768-row switch (int8 and
-   fp16 at N 1,000 / 8,192 / 32,767, Q 1,024 and 8), and int8 and bf16
-   at glove-50's (cosine, rows of 50 and 100 bytes: the ordinary-load
-   producer), held to id overlap >= 0.999 and matched distances within
-   1e-5 relative, each timed beside its bound and the plain version;
+   yardstick the port never calls; then the capacity screen
+   (ops/exact_screen.capacity_scan: int8 and bf16 tables on its own
+   warp-specialised bf16 kernel, route "bf16_ws", where it fits; fp16,
+   the larger kk and the other pitches on K1's kernel with the table's
+   store) against its plain version (ops/topk.quantized_topk_candidates)
+   for each store at the exact tier's shape (int8 with per-row scales
+   kk=26, bf16 and fp16 kk=14, L2, TMA, with the library yardstick
+   torch.topk(torch.cdist(q, table.float() * scales)); int8 and bf16
+   also at kk 150, k=100's pool on the int8 rung, and 256, the screen's
+   limit), below K1's 32,768-row switch (every store at N 1,000 / 8,192
+   / 32,767, Q 1,024 and 8), and int8 and bf16 at glove-50's (cosine,
+   rows of 50 and 100 bytes: the ordinary-load producer), held to id
+   overlap >= 0.999 and matched distances within 1e-5 relative, each
+   timed beside its bound and the plain version, and where "bf16_ws"
+   runs, K1's kernel on the same table held and timed beside it;
 4. exact tier at SIFT1M's shape (1,000,000 x 128 f32, L2, k=10; synthetic
    data from a seed): recall@10 against the numpy oracle and QPS, with
    K1's launches by route from this phase; then the exact tier at
@@ -178,14 +183,17 @@ covered modes and check that no layer went to the twin at all, and the
 main path as a whole launched K2 in each of its five modes (f32 rows,
 blocks, int8 rows, fp16 rows, bf16 rows).
 Phases 6, 7, 12, 14 and 17 each check the capacity screen's launches by
-store (ops/exact_screen.capacity_launches_by_store), and the main path as
-a whole launched it on all three stores. Phases 9 and 10 each check that
-K4 launched and that no selection went to its twin
+store and by route (ops/exact_screen.capacity_launches_by_store,
+capacity_launches_by_route: int8 and bf16 on "bf16_ws" but int8 at
+k = 100, fp16 on "wgmma"), and the main path as a whole launched it on
+all three stores and through both its kernels. Phases 9 and 10 each
+check that K4 launched and that no selection went to its twin
 (ops/diverse_select.plain_on_cuda; the build that forces the twin is
 left out of the count).
 The last two lines are the kernel table (one entry a K1 route, one for
-K2, one for the capacity screen and one for K4, each with its launches on
-the main path) and
+K2, two for the capacity screen: K1's kernel with the table's store and
+the warp-specialised bf16 kernel, and one for K4, each with its launches
+on the main path) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card and no network; imports nothing of JAX.
 """
@@ -235,10 +243,18 @@ KERNEL = {"route": "cuda",
 CAPACITY_KERNEL = {"route": "cuda",
                    "source": "hnsw_tpu_torch/csrc/exact_screen.cu",
                    "replaces": "hnsw_tpu/ops/topk.py:249"}
-#: the capacity screen's launches on the main path, by store, summed over
-#: the phases that drive a capacity scan (6, 7, 12, 14, 17; each resets
-#: the counts before it and reads them after)
+#: the capacity screen's launches on the main path, by store and by route
+#: (ops/exact_screen.CAPACITY_ROUTES), summed over the phases that drive a
+#: capacity scan (6, 7, 12, 14, 17; each resets the counts before it and
+#: reads them after)
 CAPACITY_LAUNCHES = dict.fromkeys(("int8", "bf16", "fp16"), 0)
+CAPACITY_ROUTE_LAUNCHES = dict.fromkeys(("wgmma", "wgmma_ld", "bf16_ws"), 0)
+#: the capacity screen's warp-specialised bf16 kernel (route "bf16_ws":
+#: int8 and bf16 tables where its block fits), its own entry of the
+#: kernels line; "capacity_screen" is K1's kernel with the table's store
+CAPACITY_WS_KERNEL = {"route": "cuda",
+                      "source": "hnsw_tpu_torch/csrc/exact_screen.cu",
+                      "replaces": "hnsw_tpu/ops/topk.py:249"}
 #: phase 3: the capacity screen's pool at k = 10 by store (ExactIndex's
 #: margins: k + 16 for int8, k + 4 for bf16 and fp16)
 CAPACITY_KK = {"int8": 26, "bf16": 14, "fp16": 14}
@@ -378,23 +394,36 @@ def _cap_reset() -> None:
     from hnsw_tpu_torch.ops import exact_screen
     exact_screen.capacity_launches = exact_screen.capacity_plain_on_cuda = 0
     exact_screen.capacity_launches_by_store.update(int8=0, bf16=0, fp16=0)
+    exact_screen.capacity_launches_by_route.update(wgmma=0, wgmma_ld=0,
+                                                   bf16_ws=0)
 
 
-def _cap_read(label: str, want: dict) -> dict:
-    """The capacity screen's launches by store since the last
-    _cap_reset(), added to CAPACITY_LAUNCHES. On the card, a failed check
-    unless they equal ``want`` (the stores it leaves out: 0) and no
-    capacity scan of a card table ran the plain version."""
+def _cap_read(label: str, want: dict, routes: dict = None) -> dict:
+    """The capacity screen's launches by store and by route since the
+    last _cap_reset(), added to CAPACITY_LAUNCHES and
+    CAPACITY_ROUTE_LAUNCHES. On the card, a failed check unless they
+    equal ``want`` (the stores it leaves out: 0) and ``routes`` (by
+    default the D = 128 tables' at a k = 10 pool: int8 and bf16 on
+    "bf16_ws", fp16 on "wgmma"), and no capacity scan of a card table ran
+    the plain version."""
     from hnsw_tpu_torch.ops import exact_screen
     by = dict(exact_screen.capacity_launches_by_store)
+    by_route = dict(exact_screen.capacity_launches_by_route)
     for st, n in by.items():
         CAPACITY_LAUNCHES[st] += n
+    for r, n in by_route.items():
+        CAPACITY_ROUTE_LAUNCHES[r] += n
     if DEVICE == "cuda":
         full = {st: want.get(st, 0) for st in by}
+        if routes is None:
+            routes = {"bf16_ws": full["int8"] + full["bf16"],
+                      "wgmma": full["fp16"]}
+        full_routes = {r: routes.get(r, 0) for r in by_route}
         plain = exact_screen.capacity_plain_on_cuda
-        check(by == full and plain == 0,
-              f"{label} launched the capacity screen {by} (want {full}); "
-              f"plain scans of a card table {plain} (want 0)")
+        check(by == full and by_route == full_routes and plain == 0,
+              f"{label} launched the capacity screen {by} (want {full}), "
+              f"by route {by_route} (want {full_routes}); plain scans of a "
+              f"card table {plain} (want 0)")
     return by
 
 
@@ -553,15 +582,20 @@ def _cap_tables(v: torch.Tensor) -> dict:
 
 
 def _time_capacity(label, q, v, sq, valid, metric, stores,
-                   kk_by_store=CAPACITY_KK) -> dict:
+                   kk_by_store=CAPACITY_KK, library=False) -> dict:
     """The capacity screen against its plain version at one shape: for
-    each store, capacity_scan (the kernel: capacity_applies holds) beside
-    ops/topk.quantized_topk_candidates on the same tensors, held to id
-    overlap >= 0.999 and matched distances within 1e-5 relative; then
-    each timed (median of 5 CUDA-event reps) beside its bound
-    (utils/roofline.screen_bound_s by store). ``kk_by_store``: the pool
-    a store's scan keeps (the k = 10 pools by default). Returns {store:
-    (ms, bound_ms, bound_by, max_abs_err, plain_ms)}."""
+    each store, capacity_scan (the kernel of the route capacity_route
+    picks: capacity_applies holds) beside ops/topk.
+    quantized_topk_candidates on the same tensors, held to id overlap >=
+    0.999 and matched distances within 1e-5 relative; where that route is
+    "bf16_ws", K1's kernel with the table's store ("wgmma", the route
+    before it) is held and timed beside it. Each timed (median of 5
+    CUDA-event reps) beside its bound (utils/roofline.screen_bound_s by
+    store). ``kk_by_store``: the pool a store's scan keeps (the k = 10
+    pools by default). ``library``: also time the yardstick
+    torch.topk(torch.cdist(q, table.float() (* scales))), which the port
+    never calls. Returns {store: {"route", "ms", "bound_ms", "bound_by",
+    "err", "plain_ms", "old_ms" (or None), "old_err", "library_ms"}}."""
     from hnsw_tpu_torch.ops import exact_screen as es
     from hnsw_tpu_torch.ops.topk import quantized_topk_candidates
     from hnsw_tpu_torch.utils import roofline
@@ -575,42 +609,67 @@ def _time_capacity(label, q, v, sq, valid, metric, stores,
     for store in stores:
         t, s = tables[store]
         kk = min(kk_by_store[store], n)
-        route = es.capacity_route(q, t)
+        route = es.capacity_route(q, t, kk)
         check(es.capacity_applies(n, kk, metric, t, s),
               f"{store}: capacity_applies at N={n}, kk={kk}")
 
         def kern():
             return es.capacity_scan(q, t, s, sq, valid, kk=kk, metric=metric)
 
+        def old():
+            return es._capacity_cuda(q, t, s, sq, valid, kk, metric, "wgmma")
+
         def plain():
             return quantized_topk_candidates(q, t, s, sq, valid, kk=kk,
                                              metric=metric)
-        _cap_reset()
-        dk, ik = (x.cpu().numpy() for x in kern())
-        check(es.capacity_launches_by_store[store] == 1,
-              f"{store}: one launch of the capacity screen ({route})")
         dp, ip = (x.cpu().numpy() for x in plain())
-        ov = _overlap(ik, ip)
-        err = _matched_err(dk, ik, dp, ip)
-        same = (ik == ip) & (ik >= 0)
-        rel = float(np.max(np.abs(dk[same] - dp[same])
-                           / np.maximum(np.abs(dp[same]), 1e-30)))
-        check(ik.shape == (nq, kk) and np.isfinite(dk).all()
-              and ov >= 0.999 and rel <= 1e-5,
-              f"{store} capacity screen ({route}) vs plain: finite [{nq}, "
-              f"{kk}], id overlap {ov:.5f} >= 0.999, matched dists within "
-              f"1e-5 relative ({rel:.2e}; {err:.2e} absolute)")
+
+        def hold(run, name):
+            _cap_reset()
+            dk, ik = (x.cpu().numpy() for x in run())
+            check(es.capacity_launches_by_store[store] == 1
+                  and es.capacity_launches_by_route[name] == 1,
+                  f"{store}: one launch of the capacity screen ({name})")
+            ov = _overlap(ik, ip)
+            err = _matched_err(dk, ik, dp, ip)
+            same = (ik == ip) & (ik >= 0)
+            rel = float(np.max(np.abs(dk[same] - dp[same])
+                               / np.maximum(np.abs(dp[same]), 1e-30)))
+            check(ik.shape == (nq, kk) and np.isfinite(dk).all()
+                  and ov >= 0.999 and rel <= 1e-5,
+                  f"{store} capacity screen ({name}) vs plain: finite "
+                  f"[{nq}, {kk}], id overlap {ov:.5f} >= 0.999, matched "
+                  f"dists within 1e-5 relative ({rel:.2e}; {err:.2e} "
+                  f"absolute)")
+            return err
+        err = hold(kern, route)
         ms = cuda_ms(kern)
+        old_ms = old_err = None
+        if route == "bf16_ws":
+            old_err = hold(old, "wgmma")
+            old_ms = cuda_ms(old)
         plain_ms = cuda_ms(plain)
+        lib_ms = None
+        if library:
+            vf = t.float() * (s[:, None] if s is not None else 1.0)
+            lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(q, vf), kk,
+                                                largest=False))
+            del vf
         bound_s, by, peak = roofline.screen_bound_s(nq, n, d, kk,
                                                     store=store)
         bound = bound_s * 1e3
         passes, _, how = roofline.CAPACITY_PRODUCT[store]
-        out[store] = (ms, bound, by, err, plain_ms)
+        out[store] = dict(route=route, ms=ms, bound_ms=bound, bound_by=by,
+                          err=err, plain_ms=plain_ms, old_ms=old_ms,
+                          old_err=old_err, library_ms=lib_ms)
+        was = (f"; K1's kernel (wgmma) {old_ms:.3f} ms"
+               if old_ms is not None else "")
+        lib = (f"; library torch.topk(torch.cdist) {lib_ms:.3f} ms"
+               if lib_ms is not None else "")
         print(f"  {store} ({route}, kk={kk}): {ms:.3f} ms, bound "
               f"{bound:.3f} ms ({by}: {how}, {passes} pass(es) at "
-              f"{peak / 1e12:g} TFLOP/s), {bound / ms:.3f} of the bound; "
-              f"plain (quantized_topk_candidates) {plain_ms:.3f} ms",
+              f"{peak / 1e12:g} TFLOP/s), {bound / ms:.3f} of the bound{was};"
+              f" plain (quantized_topk_candidates) {plain_ms:.3f} ms{lib}",
               flush=True)
     return out
 
@@ -772,11 +831,15 @@ def phase_kernel_vs_plain() -> dict:
                         [("wgmma", False), ("wgmma", True),
                          ("wgmma_cp", False), ("wgmma_cp", True)])
     # the capacity screen at the same shape: each store's table of the
-    # same rows (TMA); int8 also at k = 100 (pool k + k // 2 = 150)
+    # same rows (TMA; int8 and bf16 on "bf16_ws", K1's kernel beside it),
+    # with the library yardstick; then kk 150 (int8 at k = 100: pool k + k
+    # // 2) and 256 (the screen's limit), past "bf16_ws"'s block
     cap = _time_capacity("SIFT1M shape", q, v, sq, valid, "l2",
-                         ("int8", "bf16", "fp16"))
-    cap100 = _time_capacity("SIFT1M shape, k = 100", q, v, sq, valid, "l2",
-                            ("int8",), {"int8": 150})
+                         ("int8", "bf16", "fp16"), library=True)
+    cap150 = _time_capacity("SIFT1M shape, kk 150", q, v, sq, valid, "l2",
+                            ("int8", "bf16"), {"int8": 150, "bf16": 150})
+    cap256 = _time_capacity("SIFT1M shape, kk 256", q, v, sq, valid, "l2",
+                            ("int8", "bf16"), {"int8": 256, "bf16": 256})
     # below K1's 32,768-row switch, which the capacity screen does not
     # have: a streaming chunk's tail, a small shard, a small index; a
     # full batch and a batch of 8 queries
@@ -786,7 +849,7 @@ def phase_kernel_vs_plain() -> dict:
             small[(n_small, nq_small)] = _time_capacity(
                 f"below the row switch, N={n_small}, Q={nq_small}",
                 q[:nq_small], v[:n_small], sq[:n_small], valid[:n_small],
-                "l2", ("int8", "fp16"))
+                "l2", ("int8", "bf16", "fp16"))
     del big, v, sq, valid
     torch.cuda.empty_cache()
     # the cp.async producer where the main path sends it: GloVe-50's D = 50
@@ -794,12 +857,14 @@ def phase_kernel_vs_plain() -> dict:
     q = torch.randn((1024, D_GLOVE), generator=gen, device="cuda")
     glv = _time_screen("GloVe-50 shape", q, v, sq, valid, 18, "l2",
                        [("wgmma_cp", False), ("wgmma_cp", True)])
-    # int8 rows of 50 bytes and bf16 rows of 100: the ordinary-load
-    # producer
+    # int8 rows of 50 bytes and bf16 rows of 100: no TMA, so K1's kernel
+    # on ordinary loads ("bf16_ws" needs TMA's 16-byte pitch)
     cap_glv = _time_capacity("GloVe-50 shape", q, v, sq, valid, "cosine",
                              ("int8", "bf16"))
     del glove, v, sq, valid
     torch.cuda.empty_cache()
+
+    every = (cap, cap150, cap256, cap_glv, *small.values())
 
     def entry(name, t, key, err):
         ms, bound, by, screen_err = t[key]
@@ -816,25 +881,52 @@ def phase_kernel_vs_plain() -> dict:
             "wgmma_cp": dict(entry("exact_screen_wgmma_cp", glv, "wgmma_cp",
                                    max_err["wgmma_cp"]),
                              fast_math_ms=glv["wgmma_cp_fast"][0]),
-            # the int8 rung's screen at the SIFT1M shape stands for the
-            # entry; every store's numbers beside it
+            # K1's kernel with the table's store: the fp16 rung's screen
+            # at the SIFT1M shape stands for the entry (int8 and bf16 at
+            # k = 10 moved to "bf16_ws"; their times on this kernel beside)
             "capacity": dict(
-                CAPACITY_KERNEL, name="capacity_screen", store="int8",
-                max_abs_err=max(t[3] for c in (cap, cap100, cap_glv,
-                                               *small.values())
-                                for t in c.values()),
-                ms=cap["int8"][0], plain_ms=cap["int8"][4],
-                bound_ms=cap["int8"][1], bound_by=cap["int8"][2],
-                library_ms=None,
-                ms_by_store={st: t[0] for st, t in cap.items()},
-                bound_ms_by_store={st: t[1] for st, t in cap.items()},
-                plain_ms_by_store={st: t[4] for st, t in cap.items()},
-                int8_k100_ms=cap100["int8"][0],
-                int8_k100_plain_ms=cap100["int8"][4],
-                glove50_ms_by_store={st: t[0] for st, t in cap_glv.items()},
-                small_ms={f"{st} N={n_} Q={q_}": [t[0], t[4]]
+                CAPACITY_KERNEL, name="capacity_screen", store="fp16",
+                max_abs_err=max(t["old_err"] if t["route"] == "bf16_ws"
+                                else t["err"] for c in every for t in
+                                c.values()),
+                ms=cap["fp16"]["ms"], plain_ms=cap["fp16"]["plain_ms"],
+                bound_ms=cap["fp16"]["bound_ms"],
+                bound_by=cap["fp16"]["bound_by"],
+                library_ms=cap["fp16"]["library_ms"],
+                ms_by_store={st: t["old_ms"] or t["ms"]
+                             for st, t in cap.items()},
+                kk150_ms={st: t["ms"] for st, t in cap150.items()},
+                kk256_ms={st: t["ms"] for st, t in cap256.items()},
+                glove50_ms_by_store={st: t["ms"]
+                                     for st, t in cap_glv.items()},
+                small_ms={f"{st} N={n_} Q={q_}": [t["old_ms"] or t["ms"],
+                                                  t["plain_ms"]]
                           for (n_, q_), c in small.items()
-                          for st, t in c.items()})}
+                          for st, t in c.items()}),
+            # the warp-specialised bf16 kernel: the int8 rung's screen at
+            # the SIFT1M shape (kk 26) stands for the entry
+            "capacity_ws": dict(
+                CAPACITY_WS_KERNEL, name="capacity_screen_ws", store="int8",
+                max_abs_err=max(t["err"] for c in every for t in c.values()
+                                if t["route"] == "bf16_ws"),
+                ms=cap["int8"]["ms"], plain_ms=cap["int8"]["plain_ms"],
+                bound_ms=cap["int8"]["bound_ms"],
+                bound_by=cap["int8"]["bound_by"],
+                library_ms=cap["int8"]["library_ms"],
+                ms_by_store={st: cap[st]["ms"] for st in ("int8", "bf16")},
+                old_route_ms_by_store={st: cap[st]["old_ms"]
+                                       for st in ("int8", "bf16")},
+                bound_ms_by_store={st: cap[st]["bound_ms"]
+                                   for st in ("int8", "bf16")},
+                plain_ms_by_store={st: cap[st]["plain_ms"]
+                                   for st in ("int8", "bf16")},
+                library_ms_by_store={st: cap[st]["library_ms"]
+                                     for st in ("int8", "bf16")},
+                small_ms={f"{st} N={n_} Q={q_}": [t["ms"], t["old_ms"],
+                                                  t["plain_ms"]]
+                          for (n_, q_), c in small.items()
+                          for st, t in c.items()
+                          if t["route"] == "bf16_ws"})}
 
 
 def _recall(found: np.ndarray, truth: np.ndarray, k: int) -> float:
@@ -1495,7 +1587,7 @@ def phase_capacity_ladder() -> tuple:
             (d100, i100), t100 = timed(
                 lambda: idx.batch_search_slots(batches[0], 100))
             _cap_read("int8 at k = 100 (pool 150): one batch",
-                      {"int8": 1})
+                      {"int8": 1}, {"wgmma": 1})
             rec100 = _recall(i100, truth100, 100)
             check(i100.shape == (BATCH, 100) and np.isfinite(d100).all()
                   and rec100 >= 0.99,
@@ -1519,7 +1611,8 @@ def phase_capacity_ladder() -> tuple:
                   f"{(t2 - t1) * 1e3:.3f} ms ({(t2 - t1) / (t2 - t0):.3f} "
                   f"of the batch)", flush=True)
             _profile(f"capacity {rung}, one {BATCH}-query batch",
-                     lambda: idx.batch_search_slots(batches[1], 10))
+                     lambda: idx.batch_search_slots(batches[1], 10),
+                     need="screen_")
     idx.close()
     del idx
     torch.cuda.empty_cache()
@@ -3762,10 +3855,13 @@ def main() -> int:
     check(all(launches[r] > 0 for r in ("wgmma", "wgmma_cp"))
           and all(n > 0 for n in BEAM_LAUNCHES.values())
           and all(n > 0 for n in CAPACITY_LAUNCHES.values())
+          and CAPACITY_ROUTE_LAUNCHES["bf16_ws"] > 0
+          and CAPACITY_ROUTE_LAUNCHES["wgmma"] > 0
           and SELECT_LAUNCHES["diverse_select"] > 0,
           f"the main path launched every K1 route: {launches}, K2 in "
           f"every mode: {BEAM_LAUNCHES}, the capacity screen on every "
-          f"store: {CAPACITY_LAUNCHES}, and K4: {SELECT_LAUNCHES}")
+          f"store: {CAPACITY_LAUNCHES} and both its kernels: "
+          f"{CAPACITY_ROUTE_LAUNCHES}, and K4: {SELECT_LAUNCHES}")
     print(f"# smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included", flush=True)
     print(smi)
@@ -3773,8 +3869,13 @@ def main() -> int:
                                   for r in ("wgmma", "wgmma_cp")] + [
         dict(beam, launches=sum(BEAM_LAUNCHES.values()),
              launches_by_mode=dict(BEAM_LAUNCHES)),
-        dict(timing["capacity"], launches=sum(CAPACITY_LAUNCHES.values()),
-             launches_by_store=dict(CAPACITY_LAUNCHES)),
+        dict(timing["capacity"],
+             launches=(CAPACITY_ROUTE_LAUNCHES["wgmma"]
+                       + CAPACITY_ROUTE_LAUNCHES["wgmma_ld"]),
+             launches_by_store=dict(CAPACITY_LAUNCHES),
+             launches_by_route=dict(CAPACITY_ROUTE_LAUNCHES)),
+        dict(timing["capacity_ws"],
+             launches=CAPACITY_ROUTE_LAUNCHES["bf16_ws"]),
         dict(select, launches=SELECT_LAUNCHES["diverse_select"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

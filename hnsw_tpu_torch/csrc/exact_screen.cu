@@ -73,8 +73,8 @@
 // exact in bf16), while fp16 at f32 fidelity needs two TF32 passes, 1.11
 // ms. The table read once from HBM is 0.16 ms in f32, 0.04 ms in int8. So
 // every store is bound by operations, not bytes, and every producer puts
-// the product on the tensor cores (TF32 here; bf16 wgmma for the stores
-// that allow it is later work).
+// the product on the tensor cores (TF32 here; the int8 and bf16 tables'
+// bf16 wgmma is screen_ws_kernel, below).
 // The query tile is blockIdx.x, the fastest-varying grid index, so the
 // query tiles of one segment run together and meet its table boxes in L2.
 // Measured, the product itself hides behind the rest: the staging (the
@@ -86,8 +86,8 @@
 // convert, multiply and select the current one. (That split comes from
 // tools/screen_split.py, which times builds with -DSPLIT_NO_SELECT,
 // -DSPLIT_NO_EPILOGUE and -DSPLIT_NO_PRODUCT: each compiles that part of
-// screen_wgmma_kernel out, so their results are wrong by design. The
-// library the port loads defines none of them.)
+// screen_wgmma_kernel and screen_ws_kernel out, so their results are
+// wrong by design. The library the port loads defines none of them.)
 //
 // Shared memory (dynamic; 227 KB a block, 228 KB an SM on this card), for
 // TQ = 64 queries by TC = 128 columns a tile:
@@ -130,6 +130,55 @@
 // grid = (query tiles, N segments); a loop inside the block walks the
 // segment's column tiles (the TPU's sequential grid axis); a second small
 // kernel merges each query's per-segment lists.
+//
+// The capacity screen's own route for int8 and bf16 tables (WGMMA_WS,
+// ops/exact_screen.py "bf16_ws"): screen_ws_kernel<STORE>, the same
+// contract (keys, ties, l2 selected squared, the scale multiplying the
+// Gram before the metric, masked columns at +inf, segments, the merge
+// kernel) built for what those stores allow. Their products are exact in
+// bf16 (an int8 value is, and the query is rounded to bf16 by contract),
+// so the Gram runs as bf16 wgmma (m64n64k16, f32 sums) at twice TF32's
+// rate, reading half the bytes of the widened boxes above. A block is 5
+// warpgroups:
+// * one producer warpgroup (setmaxnreg 40). One thread keeps the ring
+//   full with TMA: bf16 rows land as they lie in device memory, already
+//   in the 128-byte swizzle wgmma reads (64 bf16 a swizzle row), 4 tiles
+//   of 64 rows deep; int8 rows land raw, 4 tiles deep, and the
+//   warpgroup's 128 threads widen each into a bf16 swizzled tile (a ring
+//   of 3; int8 -> bf16 is exact, a prmt and an fadd a value), half the
+//   bytes the f32 boxes above take. The conversion stays off the
+//   consumers, so the table is not the register-sourced A operand: in
+//   the capacity split (tools/screen_split.py --capacity, 1M x 128,
+//   kk 26) the kernel above spends ~2.0 of its 4.7 ms selecting and ~0.9
+//   in the epilogue, and here the selection is still the largest share
+//   (~1.4 of 2.3 ms) while the producer's TMA and widening alone take
+//   ~0.9. The same threads stage each tile's norms, mask and scales
+//   beside it, loaded a tile ahead;
+// * four consumer warpgroups (setmaxnreg 104), each with its own tile of
+//   64 queries, rounded to bf16 once (round to nearest even, as
+//   ops/distance.bf16_round) into the K-major swizzled layout and kept
+//   resident for the whole segment (q_sq stays the f32 norm). A
+//   consumer waits for a tile once, runs its product (D / 16 wgmma),
+//   waits on the product once, computes the metric in its accumulator
+//   registers and releases the stage; then it selects straight from the
+//   registers: a warp owns 16 query rows (the accumulator's layout: a
+//   row's values lie in the four lanes of a quad) and keeps their lists
+//   in registers too, each in its quad's lanes, 8 entries a lane (so
+//   k_sel <= 32); a lane flags its values at or below its rows' current
+//   worst distance, and all 16 rows insert their flagged keys together,
+//   with shuffles inside each quad. No distance tile is written, no
+//   barrier spans warps after the set-up, and while one consumer runs its
+//   epilogue and selection the others' products and the producer's copies
+//   and conversion run beside it.
+// Shared memory: the resident queries (4 x 64 x D bf16, 64 KiB at D =
+// 128), the ring (bf16 4 x 16 KiB; int8 4 x 8 + 3 x 16 KiB at D = 128),
+// the tiles' norms / mask / scales and the barriers: 133 KiB for bf16 and
+// 148 KiB for int8 at D = 128, one block an SM (16 consumer warps, as
+// two blocks of the kernel above); up to D = 192 fits 227 KB. A segment
+// costs its lists' fill again (about k_sel (1 + ln(segment / k_sel))
+// inserts a query), so the wrapper plans one wave of blocks, not two.
+// Elsewhere (k_sel past 32, D past 192: ops/exact_screen.ws_applies) the
+// capacity screen keeps the kernel above.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only, no driver link)
 #include <cuda_bf16.h>
@@ -150,8 +199,9 @@ constexpr float INF_DIST = 3.0e38f;  // ops/distance.py INF_DIST
 constexpr long long EMPTY = LLONG_MAX;
 
 enum Metric { COSINE = 0, L2 = 1, SQEUCLIDEAN = 2, DOT = 3 };
-// The producer of the ring (ops/exact_screen.py ROUTES, CAPACITY_ROUTES).
-enum Route { WGMMA = 1, WGMMA_CP = 2, WGMMA_LD = 3 };
+// The producer of the ring (ops/exact_screen.py ROUTES, CAPACITY_ROUTES);
+// WGMMA_WS is screen_ws_kernel, the capacity screen's int8 / bf16 route.
+enum Route { WGMMA = 1, WGMMA_CP = 2, WGMMA_LD = 3, WGMMA_WS = 4 };
 // The table's store and the product's precision (ops/exact_screen.py
 // STORES): float32 at f32 accuracy or with fast_math's bf16 operands, and
 // the capacity modes' int8 (with per-row scales), bf16 and fp16 tables.
@@ -835,6 +885,498 @@ static_assert(DT_BYTES <= stage_bytes(F32) && DT_BYTES <= stage_bytes(I8) &&
                   DT_BYTES <= stage_bytes(F16),
               "the distance tile fits one stage wherever it lives there");
 
+// ---- the capacity screen's warp-specialised route (WGMMA_WS) --------------
+
+constexpr int WS_NC = 4;                   // consumer warpgroups
+constexpr int WS_NT = 128 * (WS_NC + 1);   // + the producer warpgroup
+constexpr int WS_TQ = 64 * WS_NC;          // queries a block, 64 a consumer
+constexpr int WS_TC = 64;                  // table rows (columns) a tile
+constexpr int WS_KB = 64;                  // bf16 a 128-byte swizzle row
+constexpr int WS_QBOX = 64 * 128;          // a k block of a query tile
+constexpr int WS_VBOX = WS_TC * 128;       // a k block of a bf16 tile
+constexpr int WS_RBOX = WS_TC * WS_KB;     // a k block of a raw int8 tile
+constexpr int WS_STAGES_BF16 = 4;          // bf16 tiles in the ring
+constexpr int WS_STAGES_I8 = 3;            // int8: widened tiles in the ring
+constexpr int WS_RAW = 4;                  // int8: raw tiles in flight
+constexpr int WS_PRODUCER_REGS = 40;       // setmaxnreg of the producer
+constexpr int WS_CONSUMER_REGS = 104;      // and of the consumers
+constexpr int WS_K_MAX = 32;               // a list: 8 entries x 4 lanes
+// Past every cudaError_t, below ERR_TMA: the compiled kernel's registers
+// cannot cover the setmaxnreg budget above (its launch could wait
+// forever for registers), so it is not launched.
+constexpr int ERR_REGS = 90000;
+
+__host__ __device__ constexpr int ws_stages(int s) {
+  return s == I8 ? WS_STAGES_I8 : WS_STAGES_BF16;
+}
+
+// Dynamic shared memory of screen_ws_kernel<store> at this D
+// (ops/exact_screen.ws_smem_bytes repeats it): the alignment slack, the
+// resident queries, the ring (and int8's raw tiles), the tiles' norms /
+// mask / scales, the query norms and the barriers. The lists live in
+// registers.
+size_t ws_smem_bytes(int d, int store) {
+  const size_t n_kb = (d + WS_KB - 1) / WS_KB, ns = ws_stages(store);
+  const bool i8 = store == I8;
+  return 1024 + WS_NC * n_kb * WS_QBOX + ns * n_kb * WS_VBOX +
+         (i8 ? WS_RAW * n_kb * WS_RBOX : 0) + ns * 3 * WS_TC * sizeof(float) +
+         WS_TQ * sizeof(float) +
+         (2 * ns + (i8 ? 2 * WS_RAW : 0)) * sizeof(uint64_t);
+}
+
+// acc[64 x 64] (+)= A[64 x 16] * B[64 x 16]^T, both bf16 K-major from
+// shared memory (128-byte swizzle), f32 sums; scale_d = 0 overwrites acc.
+__device__ __forceinline__ void mma_bf16(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Two f32 rounded to bf16 (round to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// Four int8 (the bytes of w, lowest first) as four bf16, exactly: byte b
+// + 128 becomes the low mantissa byte of 2^23, the f32 subtraction leaves
+// b, and the top half of an f32 with <= 8 significant bits is its bf16.
+__device__ __forceinline__ uint2 i8x4_bf16(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float m = 8388736.f;  // 2^23 + 128
+  const uint32_t f0 = __float_as_uint(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - m);
+  const uint32_t f1 = __float_as_uint(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - m);
+  const uint32_t f2 = __float_as_uint(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - m);
+  const uint32_t f3 = __float_as_uint(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - m);
+  return make_uint2(__byte_perm(f0, f1, 0x7632), __byte_perm(f2, f3, 0x7632));
+}
+
+// mbar_wait for screen_ws_kernel's roles, which wait on each other: a
+// wait past ~2^34 cycles (seconds) traps, so a fault in the hand-offs
+// ends the launch with an error instead of holding the card.
+__device__ __forceinline__ void ws_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1LL << 34)) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The metric of one consumer's 64 x 64 accumulator, in place: register
+// 4j + 2h + e holds row r0 + 8h, column 8j + 2(lane % 4) + e of the tile
+// (vq, pen, scl: the tile's norms, 0 / +inf mask and int8 scales). The
+// Gram is scaled first (int8 rows), then the metric, as the kernel above.
+// Returns the lane's flags: bit i set where distance i is at or below its
+// row's current worst (thr0 for row r0, thr1 for r0 + 8).
+template <int M, bool SCALE>
+__device__ __forceinline__ unsigned ws_epilogue(float (&acc)[32],
+                                                const float* vq,
+                                                const float* pen,
+                                                const float* scl, float qq0,
+                                                float qq1, float thr0,
+                                                float thr1, int lane) {
+  unsigned m = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int cc = 8 * j + 2 * (lane % 4);
+    const float2 v = *reinterpret_cast<const float2*>(vq + cc);
+    const float2 p = *reinterpret_cast<const float2*>(pen + cc);
+    float2 s = make_float2(1.f, 1.f);
+    if (SCALE) s = *reinterpret_cast<const float2*>(scl + cc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e;
+        float g = acc[i];
+        if (SCALE) g *= e ? s.y : s.x;
+        const float dist =
+            select_dist<M>(g, h ? qq1 : qq0, e ? v.y : v.x) + (e ? p.y : p.x);
+        acc[i] = dist;
+        m |= (unsigned)(dist <= (h ? thr1 : thr0)) << i;
+      }
+    }
+  }
+  return m;
+}
+
+// The lane's distance number sel = 4j + 2H + e of row half H: a select
+// tree of depth 4 over its 16 values of that half, by e, then the bits
+// of j (plain scalars: an array here would go to local memory).
+template <int H>
+__device__ __forceinline__ float ws_pick(const float (&d)[32], int sel) {
+  const bool e = sel & 1, j0 = sel & 4, j1 = sel & 8, j2 = sel & 16;
+#define WS_AT(j) (e ? d[4 * (j) + 2 * H + 1] : d[4 * (j) + 2 * H])
+  const float b0 = j0 ? WS_AT(1) : WS_AT(0), b1 = j0 ? WS_AT(3) : WS_AT(2);
+  const float b2 = j0 ? WS_AT(5) : WS_AT(4), b3 = j0 ? WS_AT(7) : WS_AT(6);
+#undef WS_AT
+  const float c0 = j1 ? b1 : b0, c1 = j1 ? b3 : b2;
+  return j2 ? c1 : c0;
+}
+
+// A row's list lives in the four lanes of its quad: lane 4q + t holds its
+// entries 8t .. 8t + 7 (ascending through the quad; k_sel <= 32, entries
+// from k_sel on are never read). The quad's worst key, entry k_sel - 1:
+__device__ __forceinline__ long long quad_worst(const long long (&l)[8],
+                                                int k_sel, int lane) {
+  const int e = k_sel - 1;
+  long long v = l[0];
+#pragma unroll
+  for (int r = 1; r < 8; ++r) v = (e & 7) == r ? l[r] : v;
+  return __shfl_sync(0xffffffffu, v, (lane & ~3) | (e >> 3));
+}
+
+// Inserts key c into the quad's list where ins (the quad's lanes agree on
+// c and ins; every lane of the warp calls it, for its own quad's row): c
+// goes to position pos, the number of entries below it, and the entries
+// from pos on move up one place, the lane's first taking the previous
+// lane's last.
+__device__ __forceinline__ void quad_insert(long long (&l)[8], long long c,
+                                            bool ins, int lane) {
+  int below = 0;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) below += l[r] < c;
+  int pos = below + __shfl_xor_sync(0xffffffffu, below, 1);
+  pos += __shfl_xor_sync(0xffffffffu, pos, 2);
+  const long long carry = __shfl_up_sync(0xffffffffu, l[7], 1);
+  const int first = 8 * (lane & 3);
+  if (ins) {
+#pragma unroll
+    for (int r = 7; r >= 0; --r) {
+      const int p = first + r;
+      const long long prev = r ? l[r - 1] : carry;
+      l[r] = p < pos ? l[r] : p == pos ? c : prev;
+    }
+  }
+}
+
+// Selection of one consumer warp's 16 rows straight from the registers
+// into their register-resident lists (quad q holds row q, la, and row
+// q + 8, lb: the accumulator's register 4j + 2h + e of lane 4q + t is
+// row q + 8h). All 16 rows advance together: each step, every quad with
+// flagged distances left takes the lowest flagged one of one of its
+// lanes for each of its two rows and inserts its key where it beats the
+// row's worst key (the exact test: a key at the worst distance with a
+// lower id still enters, so the order of the insertions does not
+// matter); ballots and shuffles, no shared memory. w0 / w1: the rows'
+// worst keys; the lanes' thresholds for the next tile (thr0 for row q,
+// thr1 for row q + 8) are their distances.
+__device__ __forceinline__ void ws_select(const float (&dist)[32],
+                                          unsigned m, long long (&la)[8],
+                                          long long (&lb)[8], long long& w0,
+                                          long long& w1, int k_sel, int c0,
+                                          int lane, float& thr0,
+                                          float& thr1) {
+  constexpr unsigned ALL = 0xffffffffu;
+  unsigned f0 = m & 0x33333333u, f1 = m & 0xCCCCCCCCu;  // h = 0, h = 1
+  const int base = lane & ~3, t = lane & 3;
+  while (true) {
+    const unsigned b0 = __ballot_sync(ALL, f0 != 0);
+    const unsigned b1 = __ballot_sync(ALL, f1 != 0);
+    if (!(b0 | b1)) break;
+    // the quad's first lane with a flag left, -1 where none is
+    const int src0 = __ffs((b0 >> base) & 0xFu) - 1;
+    const int src1 = __ffs((b1 >> base) & 0xFu) - 1;
+    const int s0 = __ffs(f0) - 1, s1 = __ffs(f1) - 1;  // lowest flags
+    const float v0 = ws_pick<0>(dist, s0), v1 = ws_pick<1>(dist, s1);
+    const int cl0 = c0 + 8 * (s0 >> 2) + 2 * t + (s0 & 1);
+    const int cl1 = c0 + 8 * (s1 >> 2) + 2 * t + (s1 & 1);
+    const int from0 = base | max(src0, 0), from1 = base | max(src1, 0);
+    const long long k0 = pack_key(__shfl_sync(ALL, v0, from0),
+                                  __shfl_sync(ALL, cl0, from0));
+    const long long k1 = pack_key(__shfl_sync(ALL, v1, from1),
+                                  __shfl_sync(ALL, cl1, from1));
+    if (src0 == t) f0 &= f0 - 1;
+    if (src1 == t) f1 &= f1 - 1;
+    quad_insert(la, k0, src0 >= 0 && k0 < w0, lane);
+    quad_insert(lb, k1, src1 >= 0 && k1 < w1, lane);
+    w0 = quad_worst(la, k_sel, lane);
+    w1 = quad_worst(lb, k_sel, lane);
+  }
+  thr0 = key_dist(w0);
+  thr1 = key_dist(w1);
+}
+
+// partial[q, seg, :] as screen_wgmma_kernel's, for the int8 (with
+// scales) and bf16 tables, warp-specialised (the note at the top). tm_v:
+// TMA map of the table [n, d] in [64 x WS_TC] boxes (bf16 in the 128-byte
+// swizzle, int8 unswizzled), zero fill past the edges. The queries are
+// read once by their consumers.
+template <int S>
+__global__ void __launch_bounds__(WS_NT, 1)
+    screen_ws_kernel(const __grid_constant__ CUtensorMap tm_v,
+                     const float* __restrict__ queries,
+                     const float* __restrict__ scales,
+                     const float* __restrict__ v_sq,
+                     const unsigned char* __restrict__ valid, int nq, int n,
+                     int d, int k_sel, int seg_len, int metric,
+                     long long* __restrict__ partial) {
+  static_assert(S == I8 || S == BF16, "int8 or bf16 tables");
+  constexpr int NS = ws_stages(S);
+  constexpr bool RAW = S == I8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_kb = (d + WS_KB - 1) / WS_KB;
+  unsigned char* qs = align_1024(smem_raw);          // [NC][n_kb][QBOX]
+  unsigned char* ring = qs + WS_NC * n_kb * WS_QBOX;  // [NS][n_kb][VBOX]
+  unsigned char* raw = ring + NS * n_kb * WS_VBOX;    // [RAW][n_kb][RBOX]
+  float* aux = reinterpret_cast<float*>(             // [NS][vq|pen|scl][TC]
+      raw + (RAW ? WS_RAW * n_kb * WS_RBOX : 0));
+  float* qsq = aux + NS * 3 * WS_TC;                              // [TQ]
+  uint64_t* full = reinterpret_cast<uint64_t*>(qsq + WS_TQ);     // [NS]
+  uint64_t* empty = full + NS;                                    // [NS]
+  uint64_t* raw_full = empty + NS;                                // [RAW]
+  uint64_t* raw_empty = raw_full + WS_RAW;                        // [RAW]
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int seg = blockIdx.y, n_seg = gridDim.y;
+  const int c_begin = seg * seg_len;
+  const int c_end = min(n, c_begin + seg_len);
+  const int n_tiles = (c_end - c_begin + WS_TC - 1) / WS_TC;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 128);          // the producer warpgroup
+      mbar_init(&empty[s], 4 * WS_NC);   // a lane of every consumer warp
+    }
+    if (RAW)
+      for (int r = 0; r < WS_RAW; ++r) {
+        mbar_init(&raw_full[r], 1);
+        mbar_init(&raw_empty[r], 128);
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- the producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        WS_PRODUCER_REGS));
+    const int p = tid;
+    const CUtensorMap* pv = &tm_v;
+    // thread 0: arm bar for a whole tile (its arrival) and start its boxes
+    auto issue = [&](int t, uint64_t* bar, unsigned char* dst, int box) {
+      mbar_expect_tx(bar, n_kb * box);
+      const int c0 = c_begin + t * WS_TC;
+      for (int kb = 0; kb < n_kb; ++kb)
+        tma_load_2d(dst + kb * box, pv, kb * WS_KB, c0, bar);
+    };
+    // threads 64..127: one column each of a tile's norms, mask (+inf
+    // past the segment) and scales, loaded a tile ahead (the loads are in
+    // flight while the thread waits for and fills the current stage) and
+    // written into the stage's aux
+    const int c_aux = p - (128 - WS_TC);
+    float nx_vq = 0.f, nx_pen = 0.f, nx_scl = 0.f;
+    auto load_aux = [&](int t) {
+      const int col = c_begin + t * WS_TC + c_aux;
+      const bool ok = c_aux >= 0 && t < n_tiles && col < c_end;
+      nx_vq = ok ? v_sq[col] : 0.f;
+      nx_pen = ok && valid[col] ? 0.f : __int_as_float(0x7f800000);
+      nx_scl = RAW && ok ? scales[col] : 0.f;
+    };
+    auto stage_aux = [&](int t, float* a) {
+      if (c_aux >= 0) {
+        const float vq = nx_vq, pen = nx_pen, scl = nx_scl;
+        load_aux(t + 1);
+        a[c_aux] = vq;
+        a[WS_TC + c_aux] = pen;
+        if (RAW) a[2 * WS_TC + c_aux] = scl;
+      }
+    };
+    load_aux(0);
+    if constexpr (RAW) {
+      if (p == 0)
+        for (int t = 0; t < min(WS_RAW, n_tiles); ++t)
+          issue(t, &raw_full[t], raw + t * n_kb * WS_RBOX, WS_RBOX);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int r = t % WS_RAW, s = t % NS;
+        ws_wait(&raw_full[r], (t / WS_RAW) & 1);
+        if (t >= NS) ws_wait(&empty[s], (t / NS - 1) & 1);
+        const unsigned char* src = raw + r * n_kb * WS_RBOX;
+        unsigned char* dst = ring + s * n_kb * WS_VBOX;
+        // 16 int8 a thread -> two 16-byte chunks of the bf16 row, at the
+        // swizzled chunks 2q ^ (row % 8) and (2q + 1) ^ (row % 8)
+        for (int it = p; it < n_kb * WS_TC * 4; it += 128) {
+          const int kb = it / (WS_TC * 4), row = it / 4 % WS_TC, q = it % 4;
+          const uint4 in = *reinterpret_cast<const uint4*>(
+              src + kb * WS_RBOX + row * WS_KB + q * 16);
+          const uint2 a = i8x4_bf16(in.x), b = i8x4_bf16(in.y);
+          const uint2 c = i8x4_bf16(in.z), e = i8x4_bf16(in.w);
+          unsigned char* out = dst + kb * WS_VBOX + row * 128;
+          *reinterpret_cast<uint4*>(out + (((2 * q) ^ (row & 7)) * 16)) =
+              make_uint4(a.x, a.y, b.x, b.y);
+          *reinterpret_cast<uint4*>(out + (((2 * q + 1) ^ (row & 7)) * 16)) =
+              make_uint4(c.x, c.y, e.x, e.y);
+        }
+        stage_aux(t, aux + s * 3 * WS_TC);
+        // the widened tile -> wgmma's async-proxy reads; the raw tile's
+        // generic reads before TMA rewrites it
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_arrive(&full[s]);
+        mbar_arrive(&raw_empty[r]);
+        if (p == 0 && t + WS_RAW < n_tiles) {
+          ws_wait(&raw_empty[r], (t / WS_RAW) & 1);
+          issue(t + WS_RAW, &raw_full[r], raw + r * n_kb * WS_RBOX, WS_RBOX);
+        }
+      }
+    } else {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % NS;
+        if (t >= NS) ws_wait(&empty[s], (t / NS - 1) & 1);
+        if (p == 0) {
+          issue(t, &full[s], ring + s * n_kb * WS_VBOX, WS_VBOX);
+        } else {
+          stage_aux(t, aux + s * 3 * WS_TC);
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    // ---- a consumer warpgroup: 64 queries ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+        WS_CONSUMER_REGS));
+    const int cw = wg - 1, ct = tid - 128 * wg, warp = ct / 32;
+    const int qb = blockIdx.x * WS_TQ + 64 * cw;
+    const bool active = qb < nq;  // a tile past Q only keeps the ring going
+    unsigned char* qa = qs + cw * n_kb * WS_QBOX;
+    float* qq = qsq + 64 * cw;
+    if (active) {
+      // the resident query tile: 8 bf16 (a 16-byte chunk) an item, chunk
+      // c of a 128-byte row at c ^ (row % 8), zeros past d and past nq
+      for (int i = ct; i < 64 * n_kb * 8; i += 128) {
+        const int row = i / (n_kb * 8), ch = i % (n_kb * 8);
+        const int k0 = ch * 8;
+        const bool rok = qb + row < nq;
+        const float* src = queries + (size_t)(qb + row) * d;
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = k0 + 2 * e;
+          w[e] = bf16x2_bits(rok && k < d ? src[k] : 0.f,
+                             rok && k + 1 < d ? src[k + 1] : 0.f);
+        }
+        *reinterpret_cast<uint4*>(qa + (ch / 8) * WS_QBOX + row * 128 +
+                                  (((ch % 8) ^ (row & 7)) * 16)) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      if (ct < 64) {  // the f32 norms, before any rounding
+        float s = 0.f;
+        if (qb + ct < nq) {
+          const float* row = queries + (size_t)(qb + ct) * d;
+          for (int j = 0; j < d; ++j) s = fmaf(row[j], row[j], s);
+        }
+        qq[ct] = s;
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+    named_sync(1 + cw, 128);
+    const int r0 = 16 * warp + lane / 4;  // the lane's rows r0, r0 + 8
+    const float qq0 = active ? qq[r0] : 0.f, qq1 = active ? qq[r0 + 8] : 0.f;
+    float thr0 = INF_DIST, thr1 = INF_DIST;
+    // the lists of the lane's quad's rows (r0: la, r0 + 8: lb), entries
+    // 8t .. 8t + 7, and their worst keys
+    long long la[8], lb[8], w0 = EMPTY, w1 = EMPTY;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) la[r] = lb[r] = EMPTY;
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    const uint32_t q_addr = smem_u32(qa);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % NS, c0 = c_begin + t * WS_TC;
+      ws_wait(&full[s], (t / NS) & 1);
+      unsigned m = 0;
+      if (active) {
+        const uint32_t v_addr = smem_u32(ring + s * n_kb * WS_VBOX);
+        fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#ifndef SPLIT_NO_PRODUCT
+        for (int kb = 0; kb < n_kb; ++kb) {
+          const uint64_t da = smem_desc(q_addr + kb * WS_QBOX);
+          const uint64_t db = smem_desc(v_addr + kb * WS_VBOX);
+#pragma unroll
+          for (int k = 0; k < WS_KB / 16; ++k)  // 16 bf16 = 32 bytes a step
+            mma_bf16(acc, da + 2 * k, db + 2 * k, (kb | k) ? 1 : 0);
+        }
+#endif  // SPLIT_NO_PRODUCT
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        fence_acc(acc);
+#ifndef SPLIT_NO_EPILOGUE
+        const float* a = aux + s * 3 * WS_TC;
+        switch (metric) {  // one branch a tile, none a value
+          case COSINE:
+            m = ws_epilogue<COSINE, RAW>(acc, a, a + WS_TC, a + 2 * WS_TC,
+                                         qq0, qq1, thr0, thr1, lane);
+            break;
+          case DOT:
+            m = ws_epilogue<DOT, RAW>(acc, a, a + WS_TC, a + 2 * WS_TC, qq0,
+                                      qq1, thr0, thr1, lane);
+            break;
+          default:  // l2 selects on the squared distance, as sqeuclidean
+            m = ws_epilogue<SQEUCLIDEAN, RAW>(acc, a, a + WS_TC,
+                                              a + 2 * WS_TC, qq0, qq1, thr0,
+                                              thr1, lane);
+        }
+#endif  // SPLIT_NO_EPILOGUE
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with s
+#ifndef SPLIT_NO_SELECT
+      if (active)
+        ws_select(acc, m, la, lb, w0, w1, k_sel, c0, lane, thr0, thr1);
+#else
+      asm volatile("" ::"r"(m));  // keeps the epilogue of the split builds
+#endif  // SPLIT_NO_SELECT
+    }
+    if (active) {  // the lane's entries of its quad's two rows
+      const int qa0 = qb + r0, qa1 = qb + r0 + 8, e0 = 8 * (lane & 3);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (e0 + r < k_sel && qa0 < nq)
+          partial[((size_t)qa0 * n_seg + seg) * k_sel + e0 + r] = la[r];
+        if (e0 + r < k_sel && qa1 < nq)
+          partial[((size_t)qa1 * n_seg + seg) * k_sel + e0 + r] = lb[r];
+      }
+    }
+  }
+}
+
+// The warp-specialised screen of a store; nullptr for a store it does not
+// take.
+const void* ws_fn(int store) {
+  if (store == I8) return reinterpret_cast<const void*>(screen_ws_kernel<I8>);
+  if (store == BF16)
+    return reinterpret_cast<const void*>(screen_ws_kernel<BF16>);
+  return nullptr;
+}
+
 size_t wgmma_smem_bytes(int k_sel, int store) {
   return 1024 + (size_t)STAGES * stage_bytes(store) +
          (size_t)TQ * k_sel * sizeof(long long) +
@@ -899,6 +1441,30 @@ int encode_rows(CUtensorMap* map, const void* ptr, int rows, int d,
   return r == CUDA_SUCCESS ? 0 : ERR_TMA + (int)r;
 }
 
+// TMA map of screen_ws_kernel's table [rows, d] of `store` in [WS_KB x
+// WS_TC] boxes: bf16 in the 128-byte swizzle wgmma reads (64 values a
+// row), int8 unswizzled (64 bytes a row, widened by the producer).
+int encode_ws_rows(CUtensorMap* map, const void* ptr, int rows, int d,
+                   int store) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ERR_TMA + CUDA_ERROR_NOT_FOUND;
+  const int eb = elem_bytes(store);
+  cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)d * eb};
+  cuuint32_t box[2] = {(cuuint32_t)WS_KB, (cuuint32_t)WS_TC};
+  cuuint32_t elem[2] = {1, 1};
+  CUresult r = fn(map,
+                  eb == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
+                          : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                  2, const_cast<void*>(ptr), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  eb == 2 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TMA + (int)r;
+}
+
 // ---- merge ------------------------------------------------------------------
 
 // out[q, :] = ascending k_sel smallest of query q's n_seg * k_sel keys:
@@ -957,55 +1523,108 @@ const void* screen_fn(int route, int store) {
   return nullptr;
 }
 
+// The merge of the segments' lists into out; every screen selects l2 on
+// the squared distance.
+int merge(const long long* partial, int nq, int n_seg, int k_sel,
+          int metric, void* out, cudaStream_t st) {
+  int width = n_seg * k_sel, p2 = 1;
+  while (p2 < width) p2 <<= 1;
+  merge_kernel<<<nq, MERGE_THREADS, p2 * sizeof(long long), st>>>(
+      partial, width, p2, k_sel, metric == L2, static_cast<long long*>(out));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// The tile sizes, so the Python wrapper can plan segments without copying
-// them.
-int exact_screen_tile_queries() { return TQ; }
-int exact_screen_tile_columns() { return TC; }
+// A block's queries and a tile's columns of a route, so the Python wrapper
+// can plan segments without copying them.
+int exact_screen_tile_queries(int route) {
+  return route == WGMMA_WS ? WS_TQ : TQ;
+}
+int exact_screen_tile_columns(int route) {
+  return route == WGMMA_WS ? WS_TC : TC;
+}
 
-// Resident screen blocks per SM for this route, k_sel and store (0 f32,
-// 1 f32 fast_math, 2 int8, 3 bf16, 4 fp16); negative cudaError_t on
-// failure.
-int exact_screen_blocks_per_sm(int route, int k_sel, int store) {
-  const void* fn = screen_fn(route, store);
-  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
-  size_t smem = wgmma_smem_bytes(k_sel, store);
+// Dynamic shared memory of a route's screen at this D, k_sel and store.
+size_t exact_screen_smem_bytes(int route, int d, int k_sel, int store) {
+  return route == WGMMA_WS ? ws_smem_bytes(d, store)
+                           : wgmma_smem_bytes(k_sel, store);
+}
+
+// Resident screen blocks per SM for this route, D, k_sel and store (0
+// f32, 1 f32 fast_math, 2 int8, 3 bf16, 4 fp16); negative cudaError_t on
+// failure (a route the store does not take, or shared memory past the
+// card's).
+int exact_screen_blocks_per_sm(int route, int d, int k_sel, int store) {
+  const bool ws = route == WGMMA_WS;
+  const void* fn = ws ? ws_fn(store) : screen_fn(route, store);
+  if (fn == nullptr || (ws && k_sel > WS_K_MAX))
+    return -(int)cudaErrorInvalidValue;
+  size_t smem = exact_screen_smem_bytes(route, d, k_sel, store);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -(int)e;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, NT, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                    ws ? WS_NT : NT, smem);
   return e != cudaSuccess ? -(int)e : blocks;
 }
 
 // Screen (route: 1 wgmma = TMA producer, 2 wgmma_cp = cp.async producer,
-// f32 stores only, 3 wgmma_ld = ordinary loads, reduced stores only) +
-// merge on `stream`.
+// f32 stores only, 3 wgmma_ld = ordinary loads, reduced stores only, 4
+// the warp-specialised bf16 screen, int8 and bf16 stores only) + merge on
+// `stream`.
 // vectors: the [n, d] table of `store` (f32, int8, bf16 or fp16 values);
 // scales: its [n] f32 row scales for int8, else unused. partial: [nq,
 // n_seg, k_sel] int64 scratch; out: [nq, k_sel] int64 keys. Returns the
-// cudaError_t of the launches, or ERR_TMA + CUresult when a TMA map fails.
+// cudaError_t of the launches, ERR_TMA + CUresult when a TMA map fails, or
+// ERR_REGS (route 4) when the kernel's registers cannot cover its
+// setmaxnreg budget.
 int exact_screen_launch(int route, const void* queries, const void* vectors,
                         const void* scales, const void* v_sq,
                         const void* valid, int nq, int n, int d, int k_sel,
                         int n_seg, int seg_len, int metric, int store,
                         void* partial, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const void* fn = screen_fn(route, store);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  size_t smem = wgmma_smem_bytes(k_sel, store);
+  const bool ws = route == WGMMA_WS;
+  const void* fn = ws ? ws_fn(store) : screen_fn(route, store);
+  if (fn == nullptr || (ws && k_sel > WS_K_MAX))
+    return (int)cudaErrorInvalidValue;
+  size_t smem = exact_screen_smem_bytes(route, d, k_sel, store);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((nq + TQ - 1) / TQ, n_seg);
   const float* qp = static_cast<const float*>(queries);
   const float* scp = static_cast<const float*>(scales);
   const float* sqp = static_cast<const float*>(v_sq);
   const unsigned char* okp = static_cast<const unsigned char*>(valid);
   long long* pp = static_cast<long long*>(partial);
+  if (ws) {
+    // the producer gives up registers for the consumers: the block's
+    // allocation must hold both budgets
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, fn);
+    if (e != cudaSuccess) return (int)e;
+    if ((long)fa.numRegs * WS_NT <
+        128L * WS_PRODUCER_REGS + 128L * WS_NC * WS_CONSUMER_REGS)
+      return ERR_REGS;
+    CUtensorMap tv = {};
+    const int rc = encode_ws_rows(&tv, vectors, n, d, store);
+    if (rc != 0) return rc;
+    dim3 grid_ws((nq + WS_TQ - 1) / WS_TQ, n_seg);
+    if (store == I8)
+      screen_ws_kernel<I8><<<grid_ws, WS_NT, smem, st>>>(
+          tv, qp, scp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pp);
+    else
+      screen_ws_kernel<BF16><<<grid_ws, WS_NT, smem, st>>>(
+          tv, qp, scp, sqp, okp, nq, n, d, k_sel, seg_len, metric, pp);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    return merge(pp, nq, n_seg, k_sel, metric, out, st);
+  }
+  dim3 grid((nq + TQ - 1) / TQ, n_seg);
   CUtensorMap tq = {}, tv = {};
   if (route == WGMMA) {
     int rc = encode_rows(&tq, queries, nq, d, TQ, F32);
@@ -1026,12 +1645,7 @@ int exact_screen_launch(int route, const void* queries, const void* vectors,
 #undef SCREEN_LAUNCH
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  int width = n_seg * k_sel, p2 = 1;
-  while (p2 < width) p2 <<= 1;
-  // every producer selects l2 on the squared distance
-  merge_kernel<<<nq, MERGE_THREADS, p2 * sizeof(long long), st>>>(
-      pp, width, p2, k_sel, metric == L2, static_cast<long long*>(out));
-  return (int)cudaGetLastError();
+  return merge(pp, nq, n_seg, k_sel, metric, out, st);
 }
 
 }  // extern "C"

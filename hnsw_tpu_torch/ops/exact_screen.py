@@ -17,11 +17,17 @@ fills the kernel's shared-memory ring (``screen_route``): TMA
 16-byte alignment).
 
 K3, the capacity modes' reduced tables (int8 rows with per-row scales,
-bf16, fp16): ``capacity_scan`` launches the same kernel with the table's
-store where ``capacity_applies`` (``capacity_route``: TMA, or ordinary
-loads for the row pitches TMA cannot take), else runs the plain
-``ops/topk.quantized_topk_candidates``. Its launches are counted by store
-(``capacity_launches_by_store``), apart from K1's; the plain scans it
+bf16, fp16): ``capacity_scan`` launches a capacity screen where
+``capacity_applies``, else runs the plain
+``ops/topk.quantized_topk_candidates``. ``capacity_route`` picks the
+kernel: the int8 and bf16 tables that TMA can copy take
+``screen_ws_kernel`` ("bf16_ws": bf16 ``wgmma``, a resident query tile,
+a warp-specialised ring) where its lists fit a warp's registers and its
+ring and queries a block (``ws_applies``: kk <= 32, D <= 192); the rest
+take the same kernel as K1 with the table's store (TMA, or ordinary
+loads for the row pitches TMA cannot take). Its launches are counted by
+store (``capacity_launches_by_store``) and by route
+(``capacity_launches_by_route``), apart from K1's; the plain scans it
 runs on a CUDA table are counted too (``capacity_plain_on_cuda``).
 
 The kernel's keys are int64 (distance bits high, column id low), so
@@ -57,6 +63,9 @@ _METRIC_CODE = {"cosine": 0, "l2": 1, "sqeuclidean": 2, "dot": 3}
 _EMPTY_KEY = (1 << 63) - 1
 #: exact_screen_launch returns this + the CUresult when a TMA map fails
 _ERR_TMA = 100000
+#: and this when the "bf16_ws" kernel's registers cannot cover its
+#: setmaxnreg budget (it is then not launched)
+_ERR_REGS = 90000
 #: most candidates the merge kernel sorts per query (n_seg * k_sel)
 _MERGE_MAX = 4096
 #: largest k_sel of K1 (the JAX kernel's limit) and of the capacity screen
@@ -69,8 +78,20 @@ _REF_CHUNK = 65536
 #: the producers of the library's one screen kernel for a float32 table,
 #: by route code
 ROUTES = {"wgmma": 1, "wgmma_cp": 2}
-#: the producers for a reduced table: TMA or ordinary loads ("wgmma_ld")
-CAPACITY_ROUTES = {"wgmma": 1, "wgmma_ld": 3}
+#: the capacity screen's routes: K1's kernel fed by TMA or by ordinary
+#: loads ("wgmma_ld"), and the warp-specialised bf16 screen of int8 and
+#: bf16 tables ("bf16_ws", TMA)
+CAPACITY_ROUTES = {"wgmma": 1, "wgmma_ld": 3, "bf16_ws": 4}
+#: "bf16_ws"'s block (csrc/exact_screen.cu WS_*, which these repeat):
+#: consumer warpgroups of 64 queries each, table rows a tile, bf16 a
+#: swizzle row, tiles in the ring by store, int8's raw tiles in flight,
+#: the most dynamic shared memory a block may take (227 KB), and the
+#: largest kk (a list is 8 entries in each of its quad's 4 lanes)
+WS_CONSUMERS, WS_TILE_COLUMNS, WS_KB = 4, 64, 64
+WS_STAGES = {"int8": 3, "bf16": 4}
+WS_RAW = 4
+WS_SMEM_MAX = 232_448
+WS_K_MAX = 32
 #: the library's store codes: float32 (f32-accurate or fast_math) and the
 #: capacity modes' reduced tables, by torch dtype
 STORES = {"float32": 0, "fast_math": 1, "int8": 2, "bf16": 3, "fp16": 4}
@@ -84,6 +105,7 @@ launches_by_route = {"wgmma": 0, "wgmma_cp": 0}
 #: takes the kernel), in all and by store
 capacity_launches = 0
 capacity_launches_by_store = {"int8": 0, "bf16": 0, "fp16": 0}
+capacity_launches_by_route = {"wgmma": 0, "wgmma_ld": 0, "bf16_ws": 0}
 #: capacity scans of a CUDA table that ran the plain version (off
 #: capacity_applies: kk past CAPACITY_K_MAX, or a custom metric)
 capacity_plain_on_cuda = 0
@@ -134,31 +156,36 @@ def _load():
             lib.exact_screen_launch.argtypes = [ci] + [vp] * 5 + [ci] * 8 \
                 + [vp, vp, vp]
             lib.exact_screen_launch.restype = ci
-            lib.exact_screen_blocks_per_sm.argtypes = [ci, ci, ci]
+            lib.exact_screen_blocks_per_sm.argtypes = [ci] * 4
             lib.exact_screen_blocks_per_sm.restype = ci
+            lib.exact_screen_smem_bytes.argtypes = [ci] * 4
+            lib.exact_screen_smem_bytes.restype = ctypes.c_size_t
             for fn in (lib.exact_screen_tile_queries,
                        lib.exact_screen_tile_columns):
-                fn.argtypes = []
+                fn.argtypes = [ci]
                 fn.restype = ci
             _lib = lib
         return _lib
 
 
-def _plan_segments(lib, device, route: int, nq: int, n: int, k_sel: int,
-                   store: int) -> Tuple[int, int]:
+def _plan_segments(lib, device, route: int, nq: int, n: int, d: int,
+                   k_sel: int, store: int) -> Tuple[int, int]:
     """(n_seg, seg_len): cut N so that the (query tiles x segments) grid
     of the kernel of ``route`` and ``store`` (codes) fills about two waves
-    of resident blocks."""
-    tq = lib.exact_screen_tile_queries()
-    tc = lib.exact_screen_tile_columns()
-    per_sm = lib.exact_screen_blocks_per_sm(route, k_sel, store)
+    of resident blocks; one for "bf16_ws", whose one block an SM per
+    segment runs equal work, and where each segment costs its lists'
+    fill again (about kk (1 + ln(segment / kk)) inserts a query)."""
+    tq = lib.exact_screen_tile_queries(route)
+    tc = lib.exact_screen_tile_columns(route)
+    per_sm = lib.exact_screen_blocks_per_sm(route, d, k_sel, store)
     if per_sm <= 0:
         raise RuntimeError(f"exact_screen occupancy query failed "
                            f"(cudaError {-per_sm})")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    waves = 1 if route == CAPACITY_ROUTES["bf16_ws"] else 2
     q_tiles = -(-nq // tq)
     col_tiles = -(-n // tc)
-    n_seg = max(1, min(2 * sms * per_sm // q_tiles, col_tiles,
+    n_seg = max(1, min(waves * sms * per_sm // q_tiles, col_tiles,
                        _MERGE_MAX // k_sel))
     seg_len = -(-col_tiles // n_seg) * tc
     return -(-n // seg_len), seg_len
@@ -186,17 +213,50 @@ def screen_route(queries: torch.Tensor, vectors: torch.Tensor) -> str:
     return "wgmma_cp"
 
 
-def capacity_route(queries: torch.Tensor, table: torch.Tensor) -> str:
-    """The producer a capacity screen of this reduced ``table`` takes, by
-    its row pitch (D times the value's bytes) and base pointers: "wgmma"
-    (TMA) at a pitch and pointers that are multiples of 16 bytes (int8 D %
-    16 == 0, bf16 / fp16 D % 8 == 0), else "wgmma_ld" (ordinary loads, any
-    D and any offset)."""
+def ws_smem_bytes(d: int, store: str) -> int:
+    """Dynamic shared memory of "bf16_ws"'s kernel for an int8 or bf16
+    table of width ``d`` (csrc/exact_screen.cu ws_smem_bytes): 1 KiB of
+    alignment slack, the four consumers' resident 64-query tiles (bf16, D
+    padded to 64), the ring of bf16 tiles (and int8's raw tiles), each
+    tile's norms / mask / scales, the query norms and the mbarriers. Its
+    lists live in registers."""
+    n_kb = -(-d // WS_KB)
+    ns, i8 = WS_STAGES[store], store == "int8"
+    return (1024 + WS_CONSUMERS * n_kb * 64 * 128
+            + ns * n_kb * WS_TILE_COLUMNS * 128
+            + (WS_RAW * n_kb * WS_TILE_COLUMNS * WS_KB if i8 else 0)
+            + ns * 3 * WS_TILE_COLUMNS * 4 + 64 * WS_CONSUMERS * 4
+            + (2 * ns + (2 * WS_RAW if i8 else 0)) * 8)
+
+
+def ws_applies(d: int, kk: int, store: str) -> bool:
+    """Whether "bf16_ws" takes an int8 or bf16 table of width ``d`` for
+    ``kk`` candidates: kk <= WS_K_MAX (a list lives in registers, 8
+    entries in each of 4 lanes) and its shared memory fits a block (D <=
+    192).
+    Elsewhere (fp16, kk 150 on the int8 rung, wide tables) the capacity
+    screen keeps K1's kernel."""
+    return (store in WS_STAGES and 1 <= kk <= WS_K_MAX
+            and ws_smem_bytes(d, store) <= WS_SMEM_MAX)
+
+
+def capacity_route(queries: torch.Tensor, table: torch.Tensor,
+                   kk: int) -> str:
+    """The kernel and producer a capacity screen of this reduced
+    ``table`` for ``kk`` candidates takes. At a row pitch (D times the
+    value's bytes) and base pointers that are multiples of 16 bytes (int8
+    D % 16 == 0, bf16 / fp16 D % 8 == 0), TMA: "bf16_ws" for int8 and
+    bf16 where ``ws_applies`` (min(kk, N) candidates), else "wgmma" (K1's
+    kernel with the table's store). Any other D and offset: "wgmma_ld"
+    (K1's kernel, ordinary loads)."""
     pitch = table.shape[-1] * table.element_size()
-    if (pitch % 16 == 0 and table.data_ptr() % 16 == 0
+    if not (pitch % 16 == 0 and table.data_ptr() % 16 == 0
             and queries.data_ptr() % 16 == 0):
-        return "wgmma"
-    return "wgmma_ld"
+        return "wgmma_ld"
+    store = _REDUCED.get(table.dtype)
+    if ws_applies(table.shape[-1], min(kk, table.shape[0]), store):
+        return "bf16_ws"
+    return "wgmma"
 
 
 def _check_args(queries, table, scales, v_sq, valid, k_sel, metric,
@@ -245,9 +305,11 @@ def _check_args(queries, table, scales, v_sq, valid, k_sel, metric,
 
 
 def _launch(queries, table, scales, v_sq, valid, k_sel, metric, store,
-            route, label) -> torch.Tensor:
+            route, label, plan=None) -> torch.Tensor:
     """One launch of the screen + merge of ``store`` fed by ``route``
-    (codes); returns the [Q, k_sel] int64 keys. Raises on any error."""
+    (codes); returns the [Q, k_sel] int64 keys. ``plan``: (n_seg,
+    seg_len) in place of ``_plan_segments``' (tests put a segment boundary
+    inside a tile). Raises on any error."""
     dev = queries.device
     nq, n, d = queries.shape[0], table.shape[0], queries.shape[1]
     keys = torch.empty((nq, k_sel), dtype=torch.int64, device=dev)
@@ -255,8 +317,15 @@ def _launch(queries, table, scales, v_sq, valid, k_sel, metric, store,
         return keys
     lib = _load()
     with torch.cuda.device(dev):
-        n_seg, seg_len = _plan_segments(lib, dev, route, nq, n, k_sel,
-                                        store)
+        if plan is None:
+            n_seg, seg_len = _plan_segments(lib, dev, route, nq, n, d,
+                                            k_sel, store)
+        else:
+            n_seg, seg_len = plan
+            if (n_seg != -(-n // seg_len)
+                    or n_seg * k_sel > _MERGE_MAX):
+                raise ValueError(f"plan {plan} does not cut N={n} into "
+                                 f"segments the merge takes")
         partial = torch.empty((nq, n_seg, k_sel), dtype=torch.int64,
                               device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -269,6 +338,9 @@ def _launch(queries, table, scales, v_sq, valid, k_sel, metric, store,
     if rc >= _ERR_TMA:
         raise RuntimeError(f"exact_screen ({label}): no TMA map, CUresult "
                            f"{rc - _ERR_TMA}")
+    if rc == _ERR_REGS:
+        raise RuntimeError(f"exact_screen ({label}): the compiled kernel's "
+                           f"registers do not cover its setmaxnreg budget")
     if rc != 0:
         raise RuntimeError(f"exact_screen ({label}) launch failed: "
                            f"cudaError {rc}")
@@ -290,20 +362,25 @@ def _screen_cuda(queries, vectors, v_sq, valid, k_sel, metric, fast_math,
     return _decode(keys)
 
 
-def _capacity_cuda(queries, table, scales, v_sq, valid, kk, metric, route):
+def _capacity_cuda(queries, table, scales, v_sq, valid, kk, metric, route,
+                   plan=None):
     """Checks, then one launch of the capacity screen of ``table``'s store
-    fed by ``route``."""
+    through ``route`` (``plan``: as ``_launch``'s)."""
     global capacity_launches
     _check_args(queries, table, scales, v_sq, valid, kk, metric,
                 tuple(_REDUCED), CAPACITY_K_MAX)
     store = _REDUCED[table.dtype]
+    if route == "bf16_ws" and not ws_applies(queries.shape[1], kk, store):
+        raise ValueError(f"bf16_ws does not take a {store} table at "
+                         f"D={queries.shape[1]}, kk={kk}")
     keys = _launch(queries, table, scales, v_sq, valid, kk, metric,
                    STORES[store], CAPACITY_ROUTES[route],
-                   f"capacity {store}, {route}")
+                   f"capacity {store}, {route}", plan)
     if queries.shape[0]:
         with _lock:
             capacity_launches += 1
             capacity_launches_by_store[store] += 1
+            capacity_launches_by_route[route] += 1
     return _decode(keys)
 
 
@@ -476,7 +553,7 @@ def capacity_scan(queries: torch.Tensor, table: torch.Tensor, scales,
     if capacity_applies(n, kk, metric, table, scales):
         q = queries.to(torch.float32).contiguous()
         return _capacity_cuda(q, table, scales, v_sq, valid, min(kk, n),
-                              metric, capacity_route(q, table))
+                              metric, capacity_route(q, table, kk))
     if table.is_cuda:
         with _lock:
             capacity_plain_on_cuda += 1

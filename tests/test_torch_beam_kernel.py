@@ -13,7 +13,9 @@ On the CPU:
       largest single-query count (a query that stops keeps its pool);
   (b) the twin against ``hnsw_tpu.core.search.beam_search_layer``, on
       f32 rows and on the capacity stores (the JAX Graph's int8 capacity
-      mode, fp16 store and bf16 store, carried across);
+      mode, fp16 store and bf16 store, carried across), with JAX pinned
+      to its CPU backend in this module; the int8 rows' scores against
+      their float64 product with the bf16-rounded query;
   (c) which calls the predicate sends to the kernel, from each layout's
       tensors (every layout from_host makes has a mode), and that a CPU
       graph never loads the library.
@@ -105,6 +107,20 @@ def _starts(g, q, q_sq, metric, precision, seeded, seed=0):
     return ids, d
 
 
+def _jax_on_the_cpu():
+    """JAX pinned to its CPU backend before it first runs, as
+    tests/conftest.py pins it, also where the conftest is skipped (the
+    card's runs of this file use --noconftest). The comparisons below hold
+    the twin to the JAX package's contract as its CPU build computes it:
+    on the card, an XLA GPU build of the int8-row scoring keeps the query
+    in f32 (its default excess precision drops the bf16 rounding that
+    ``_score_hop`` asks for), whatever the matmul precision."""
+    jax = pytest.importorskip("jax")
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_default_device", jax.devices("cpu")[0])
+    return jax
+
+
 def _queries(device="cpu", n=24, d=32, seed=2):
     q = torch.from_numpy(_data(seed, n, d)).to(device)
     return q, torch.sum(q * q, dim=-1)
@@ -153,7 +169,7 @@ def test_single_query_equals_batch(hosts, merge, expand, start, max_hops):
 def jax_graphs():
     """(jax DeviceGraph, port DeviceGraph) per metric, laid out by the JAX
     package and carried into the port, as tests/test_torch_search.py."""
-    pytest.importorskip("jax")
+    _jax_on_the_cpu()
     import hnsw_tpu
     from hnsw_tpu_torch.convert import device_graph_from_numpy
     out = {}
@@ -174,7 +190,7 @@ def jax_graphs():
 @pytest.mark.parametrize("merge", ["bitonic", "sort"])
 @pytest.mark.parametrize("metric", ["cosine", "l2"])
 def test_twin_matches_jax_layer(jax_graphs, metric, merge, expand, layer):
-    import jax
+    jax = _jax_on_the_cpu()
     import jax.numpy as jnp
     from hnsw_tpu.core import search as jsearch
     jg, tg = jax_graphs[metric]
@@ -209,7 +225,7 @@ def jax_capacity_graphs():
     scales and a [1, D] placeholder; an fp16 store; a bf16 store, carried
     across bit for bit) and carried into the port."""
     import dataclasses
-    pytest.importorskip("jax")
+    _jax_on_the_cpu()
     import hnsw_tpu
     from hnsw_tpu_torch.convert import device_graph_from_numpy
     out = {}
@@ -253,7 +269,7 @@ def test_twin_matches_jax_layer_on_capacity_stores(jax_capacity_graphs,
     """The twin's capacity-store scoring (the rows K2's qrows / f16rows /
     bf16rows modes reproduce) against hnsw_tpu.core.search's
     beam_search_layer on the same layer inputs."""
-    import jax
+    jax = _jax_on_the_cpu()
     import jax.numpy as jnp
     from hnsw_tpu.core import search as jsearch
     jg, tg = jax_capacity_graphs[store, metric]
@@ -275,6 +291,39 @@ def test_twin_matches_jax_layer_on_capacity_stores(jax_capacity_graphs,
     ov, err = _overlap_and_err(np.asarray(jd), np.asarray(ji), td.numpy(),
                                ti.numpy())
     assert ov >= 0.999 and err <= CAPACITY_TOL[store], (ov, err)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_int8_row_scores_use_the_bf16_rounded_query(jax_capacity_graphs,
+                                                     metric):
+    """The int8 capacity mode's row scores (what K2's qrows mode and the
+    twin compute) are the bf16-rounded query times the exact int8 rows,
+    summed in f32, times the row's scale: the twin's ``_score_hop`` and
+    hnsw_tpu's on JAX's CPU backend both equal that product in float64,
+    while the product with the unrounded f32 query lies farther off. That
+    gap is what the JAX comparisons above see when JAX runs on an XLA GPU
+    build, which keeps the query in f32."""
+    jax = _jax_on_the_cpu()
+    import jax.numpy as jnp
+    from hnsw_tpu.core import search as jsearch
+    from hnsw_tpu_torch.ops.distance import bf16_round
+    jg, tg = jax_capacity_graphs["quantized", metric]
+    q, q_sq = _queries()
+    rows_in = torch.nonzero(tg.qvec.abs().sum(1) > 0).flatten()
+    nb = rows_in[torch.from_numpy(np.random.default_rng(5).integers(
+        0, len(rows_in), (q.shape[0], 24)))]
+    td = tsearch._score_hop(tg, q, q_sq, nb, "dot", HIGHEST).double()
+    jd = torch.from_numpy(np.asarray(jsearch._score_hop(
+        jg, jnp.asarray(q.numpy()), jnp.asarray(q_sq.numpy()),
+        jnp.asarray(nb.numpy()), "dot", jax.lax.Precision.HIGHEST),
+        dtype=np.float64))
+    rows = tg.qvec[nb].double() * tg.qscale[nb].double()[..., None]
+    want = -torch.einsum("bd,bcd->bc", bf16_round(q).double(), rows)
+    unrounded = -torch.einsum("bd,bcd->bc", q.double(), rows)
+    scale = torch.einsum("bd,bcd->bc", q.double().abs(), rows.abs())
+    assert ((td - want).abs() / scale).max() <= 1e-6
+    assert ((jd - want).abs() / scale).max() <= 1e-6
+    assert ((unrounded - want).abs() / scale).max() > 1e-4
 
 
 def _overlap_and_err(da, ia, db, ib):

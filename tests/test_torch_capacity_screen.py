@@ -19,7 +19,11 @@ kernel runs only on the card (tests/test_torch_cuda_kernels.py); here:
 * the dispatch: ``capacity_applies`` is false on CPU tables and off its
   limits, ``capacity_scan`` on the CPU is the plain version and counts no
   launch, ``capacity_route`` picks the producer by row pitch and
-  alignment, the wrapper's checks refuse what the kernel does not take;
+  alignment and "bf16_ws" (the warp-specialised bf16 kernel of int8 and
+  bf16 tables) where its lists fit registers (kk <= 32) and its block
+  shared memory (``ws_smem_bytes``, held to the source's constants and to
+  sums by hand), launches are counted by route,
+  the wrapper's checks refuse what the kernel does not take;
 * the plain version's selection (``ops/topk.topk_keyed``: a top-k over
   unique int64 keys) equals a stable sort, ties and signs included;
 * the callers: ``ExactIndex`` per ``hbm_dtype``, ``StreamingExactIndex``'s
@@ -236,19 +240,127 @@ def _view(dtype, n, d, off):
 
 
 @pytest.mark.parametrize("dtype,d,off,want", [
-    (torch.int8, 128, 0, "wgmma"), (torch.int8, 16, 0, "wgmma"),
+    (torch.int8, 128, 0, "bf16_ws"), (torch.int8, 16, 0, "bf16_ws"),
     (torch.int8, 64, 4, "wgmma_ld"), (torch.int8, 52, 0, "wgmma_ld"),
     (torch.int8, 50, 0, "wgmma_ld"), (torch.int8, 25, 0, "wgmma_ld"),
-    (torch.int8, 64, 1, "wgmma_ld"), (torch.bfloat16, 128, 0, "wgmma"),
-    (torch.bfloat16, 8, 0, "wgmma"), (torch.float16, 50, 0, "wgmma_ld"),
+    (torch.int8, 64, 1, "wgmma_ld"), (torch.bfloat16, 128, 0, "bf16_ws"),
+    (torch.bfloat16, 8, 0, "bf16_ws"), (torch.float16, 50, 0, "wgmma_ld"),
     (torch.float16, 64, 8, "wgmma_ld"), (torch.float16, 7, 0, "wgmma_ld"),
-    (torch.bfloat16, 64, 2, "wgmma_ld")])
+    (torch.bfloat16, 64, 2, "wgmma_ld"), (torch.float16, 128, 0, "wgmma")])
 def test_capacity_route_by_row_pitch_and_alignment(dtype, d, off, want):
+    """At kk 14: TMA-aligned int8 and bf16 tables take "bf16_ws", fp16
+    K1's kernel through TMA; any other pitch or offset ordinary loads."""
     t = _view(dtype, 40, d, off)
     q = _view(torch.float32, 3, d, 0)
     assert t.data_ptr() % 16 == off and t.is_contiguous()
-    assert es.capacity_route(q, t) == want
-    assert set(es.CAPACITY_ROUTES) == {"wgmma", "wgmma_ld"}
+    assert es.capacity_route(q, t, 14) == want
+    assert set(es.CAPACITY_ROUTES) == {"wgmma", "wgmma_ld", "bf16_ws"}
+
+
+@pytest.mark.parametrize("dtype,d,kk,n,want", [
+    (torch.int8, 128, 26, 40, "bf16_ws"), (torch.int8, 128, 32, 40,
+                                           "bf16_ws"),
+    (torch.int8, 128, 33, 40, "wgmma"), (torch.int8, 128, 150, 400,
+                                         "wgmma"),
+    (torch.int8, 128, 150, 30, "bf16_ws"),      # min(kk, N) = 30 fits
+    (torch.int8, 128, 256, 400, "wgmma"), (torch.bfloat16, 128, 14, 64,
+                                           "bf16_ws"),
+    (torch.bfloat16, 128, 33, 64, "wgmma"), (torch.int8, 64, 32, 100,
+                                             "bf16_ws"),
+    (torch.bfloat16, 16, 1, 100, "bf16_ws"), (torch.bfloat16, 192, 32, 40,
+                                              "bf16_ws"),
+    (torch.int8, 192, 26, 40, "bf16_ws"), (torch.int8, 256, 1, 40,
+                                           "wgmma"),
+    (torch.bfloat16, 256, 14, 40, "wgmma"), (torch.bfloat16, 960, 1, 40,
+                                             "wgmma"),
+    (torch.float16, 128, 1, 40, "wgmma")])
+def test_capacity_route_takes_bf16_ws_where_its_block_fits(dtype, d, kk, n,
+                                                           want):
+    """"bf16_ws" takes an aligned int8 or bf16 table where its lists fit a
+    warp's registers (min(kk, N) <= 32) and its ring and resident queries
+    fit 227 KB of shared memory (D <= 192); past that, K1's kernel on
+    TMA."""
+    t = _view(dtype, n, d, 0)
+    q = _view(torch.float32, 3, d, 0)
+    assert es.capacity_route(q, t, kk) == want
+    store = {torch.int8: "int8", torch.bfloat16: "bf16",
+             torch.float16: "fp16"}[dtype]
+    assert es.ws_applies(d, min(kk, n), store) == (want == "bf16_ws")
+
+
+@pytest.mark.parametrize("d,store,want", [
+    (128, "bf16", 136_256), (128, "int8", 151_920), (64, "int8", 78_192),
+    (16, "bf16", 70_720), (192, "bf16", 201_792), (192, "int8", 225_648),
+    (256, "bf16", 267_328), (256, "int8", 299_376)])
+def test_ws_smem_bytes_by_hand(d, store, want):
+    """The byte count, added up by hand: 1 KiB slack + 4 x 8 KiB query
+    boxes a 64-wide k block + the ring (bf16 4 x 8 KiB, int8 3 x 8 KiB
+    widened + 4 x 4 KiB raw, a k block) + 768 B of norms / mask / scales
+    a ring stage + 1 KiB of query norms + 8 B a barrier; it fits 227 KB
+    up to D = 192."""
+    assert es.ws_smem_bytes(d, store) == want
+    assert (want <= es.WS_SMEM_MAX) == es.ws_applies(d, 14, store)
+
+
+def test_ws_constants_match_the_library_source():
+    """ws_smem_bytes repeats csrc/exact_screen.cu's ws_smem_bytes; the
+    constants it reads are the source's (the card's test holds the byte
+    counts equal to the compiled library's)."""
+    import re
+    src = open(es.SOURCE).read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = ([^;]+);",
+                             src).group(1).split("*")[-1].strip(" ()"))
+    assert const("WS_NC") == es.WS_CONSUMERS
+    assert const("WS_TC") == es.WS_TILE_COLUMNS
+    assert const("WS_KB") == es.WS_KB
+    assert const("WS_STAGES_BF16") == es.WS_STAGES["bf16"]
+    assert const("WS_STAGES_I8") == es.WS_STAGES["int8"]
+    assert const("WS_RAW") == es.WS_RAW
+    assert const("WS_K_MAX") == es.WS_K_MAX
+    assert "constexpr int WS_TQ = 64 * WS_NC;" in src
+    assert "constexpr int WS_QBOX = 64 * 128;" in src
+    assert "constexpr int WS_VBOX = WS_TC * 128;" in src
+    assert "constexpr int WS_RBOX = WS_TC * WS_KB;" in src
+    assert "constexpr int ERR_REGS = 90000;" in src
+    assert es._ERR_REGS == 90000
+    assert es.CAPACITY_ROUTES["bf16_ws"] == 4
+    assert "WGMMA_WS = 4" in src
+
+
+def test_capacity_launches_count_by_route(monkeypatch):
+    """Each launch the wrapper makes adds one to its route's count (and
+    its store's); forcing "bf16_ws" where its block does not fit, or on
+    fp16, raises before anything is loaded or counted. The launch itself
+    is stubbed: there is no card here."""
+    def fake_launch(queries, table, scales, v_sq, valid, k_sel, *a, **kw):
+        return torch.full((queries.shape[0], k_sel), es._EMPTY_KEY,
+                          dtype=torch.int64)
+    monkeypatch.setattr(es, "_launch", fake_launch)
+    es.capacity_launches = 0
+    es.capacity_launches_by_store.update(int8=0, bf16=0, fp16=0)
+    es.capacity_launches_by_route.update(wgmma=0, wgmma_ld=0, bf16_ws=0)
+    for route, dtype, reps in (("bf16_ws", torch.int8, 2),
+                               ("wgmma", torch.float16, 1),
+                               ("wgmma_ld", torch.bfloat16, 3),
+                               ("bf16_ws", torch.bfloat16, 1)):
+        args = _args(d=16, dtype=dtype)
+        for _ in range(reps):
+            d, i = es._capacity_cuda(*args, 8, "l2", route)
+            assert (i == -1).all() and (d == es.INF_DIST).all()
+    assert es.capacity_launches_by_route == {"bf16_ws": 3, "wgmma": 1,
+                                             "wgmma_ld": 3}
+    assert es.capacity_launches_by_store == {"int8": 2, "bf16": 4,
+                                             "fp16": 1}
+    assert es.capacity_launches == 7
+    monkeypatch.setattr(es, "_launch", lambda *a, **kw: pytest.fail("ran"))
+    for dtype, kk, d in ((torch.float16, 8, 16), (torch.int8, 150, 128),
+                         (torch.bfloat16, 8, 256)):
+        with pytest.raises(ValueError, match="bf16_ws"):
+            es._capacity_cuda(*_args(n=300, d=d, dtype=dtype), kk, "l2",
+                              "bf16_ws")
+    assert es.capacity_launches == 7
 
 
 def _args(n=300, d=16, dtype=torch.int8):

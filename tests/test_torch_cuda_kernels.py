@@ -14,7 +14,9 @@ are 16-byte aligned, the threads' cp.async copies (``"wgmma_cp"``)
 elsewhere.
 
 The capacity screen (the same kernel over the capacity modes' int8, bf16
-and fp16 tables, ``capacity_scan``) is held to its plain version,
+and fp16 tables, ``capacity_scan``; the int8 and bf16 tables TMA takes
+go to its own warp-specialised bf16 kernel, route "bf16_ws", where it
+fits) is held to its plain version,
 ``ops/topk.quantized_topk_candidates``, on the same tensors: id overlap
 >= 0.999 and matched distances within 1e-5 of max(1, |d|) (the products
 are exact, or within 2^-22 of sum |q_i v_i| for fp16; f32 sums run in
@@ -25,7 +27,13 @@ kk in {1, 14, 26, 128, 150, 256}, through each producer, on unaligned
 views, tables of 1 to 5,000 rows, an all-masked table and zero rows;
 its one-tile Gram against float64 within 1e-5 of sum |q_i v_i|; its
 launch counts by store (and the plain scans of a CUDA table past kk
-256, counted apart); a broken build raises.
+256, counted apart); a broken build raises. "bf16_ws" on its own: int8
+and bf16 x the four metrics x kk 1 / 26 / 150 / 256 x D 16 / 64 / 128 /
+960 (the route where ``ws_applies``, K1's kernel past it), ids equal to
+the plain version's on integer-valued data (l2, sqeuclidean, dot: exact
+arithmetic on both sides; kk up to its limit, 32), Q 8 and 1,024, an
+all-masked table, segment boundaries inside a tile, its one-tile Gram
+against float64, and its shared memory against the library's.
 """
 
 import numpy as np
@@ -283,6 +291,7 @@ def _cap_reset():
     es.launches = es.capacity_launches = es.capacity_plain_on_cuda = 0
     es.launches_by_route.update(wgmma=0, wgmma_cp=0)
     es.capacity_launches_by_store.update(int8=0, bf16=0, fp16=0)
+    es.capacity_launches_by_route.update(wgmma=0, wgmma_ld=0, bf16_ws=0)
 
 
 def _cap_table(v, store):
@@ -353,8 +362,9 @@ def test_capacity_screen_every_producer_at_d128(cuda, monkeypatch, store,
     """The same table through each producer (TMA, ordinary loads): each
     agrees with the plain version."""
     q, t, s, sq, valid = _cap_case(cuda, store, 40_000, 128, seed=5)
-    assert es.capacity_route(q, t) == "wgmma"
-    monkeypatch.setattr(es, "capacity_route", lambda q, t: route)
+    assert es.capacity_route(q, t, 26) == ("wgmma" if store == "fp16"
+                                           else "bf16_ws")
+    monkeypatch.setattr(es, "capacity_route", lambda q, t, kk: route)
     _cap_reset()
     dk, ik = es.capacity_scan(q, t, s, sq, valid, kk=26, metric="l2")
     assert es.capacity_launches_by_store[store] == 1
@@ -377,7 +387,7 @@ def test_capacity_screen_unaligned_row_views(cuda, store, off, route):
     view = buf[skip:skip + n * d].view(n, d)
     view.copy_(t)
     assert view.data_ptr() % 16 == off
-    assert es.capacity_route(q, view) == route
+    assert es.capacity_route(q, view, 14) == route
     _cap_reset()
     dk, ik = es.capacity_scan(q, view, s, sq, valid, kk=14, metric="cosine")
     assert es.capacity_launches_by_store[store] == 1
@@ -517,3 +527,161 @@ def test_exact_index_capacity_rung_on_card_matches_cpu(cuda, store):
     same = out[0][1] == out[1][1]
     np.testing.assert_allclose(out[0][0][same], out[1][0][same], atol=1e-5,
                                rtol=0)
+
+
+# ---- the capacity screen's warp-specialised bf16 route ("bf16_ws")
+
+WS_STORES = ["int8", "bf16"]
+
+
+def _ws_want(d, kk, store):
+    return "bf16_ws" if es.ws_applies(d, kk, store) else "wgmma"
+
+
+@pytest.mark.parametrize("d", [16, 64, 128, 960])
+@pytest.mark.parametrize("kk", [1, 26, 150, 256])
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sqeuclidean", "dot"])
+@pytest.mark.parametrize("store", WS_STORES)
+def test_ws_route_matches_plain(cuda, store, metric, kk, d):
+    """capacity_scan of a ragged table (20,011 rows: no multiple of the
+    64-row tile; every 7th masked) takes "bf16_ws" where its lists fit a
+    warp's registers and its block shared memory (kk 150 / 256 and D =
+    960 keep K1's kernel) and agrees with the plain version: id overlap
+    >= 0.999, matched distances within 1e-5 of max(1, |d|)."""
+    n = 20_011
+    q, t, s, sq, valid = _cap_case(cuda, store, n, d, seed=3 * d + kk)
+    valid = torch.ones_like(valid)
+    valid[::7] = False
+    route = _ws_want(d, kk, store)
+    assert es.capacity_route(q, t, kk) == route
+    _cap_reset()
+    dk, ik = es.capacity_scan(q, t, s, sq, valid, kk=kk, metric=metric)
+    assert es.capacity_launches_by_route == dict(
+        {"wgmma": 0, "wgmma_ld": 0, "bf16_ws": 0}, **{route: 1})
+    assert es.capacity_launches_by_store[store] == 1
+    assert es.capacity_plain_on_cuda == 0
+    dp, ip = es.quantized_topk_candidates(q, t, s, sq, valid, kk=kk,
+                                          metric=metric)
+    _cap_hold(dk, ik, dp, ip)
+    assert not torch.isin(ik, torch.arange(0, n, 7, device=cuda)).any()
+
+
+def _int_case(device, store, n, d, nq, seed):
+    """Integer-valued rows and queries in [-3, 3] (exact in int8 with
+    scale 1 and in bf16; every product and sum exact in f32), a tenth of
+    the rows copies of others (equal distances: ties to the lower id)."""
+    r = np.random.default_rng(seed)
+    v = r.integers(-3, 4, (n, d)).astype(np.float32)
+    v[r.integers(0, n, n // 10)] = v[r.integers(0, n, n // 10)]
+    q = r.integers(-3, 4, (nq, d)).astype(np.float32)
+    vt = torch.from_numpy(v).to(device)
+    if store == "int8":
+        t, s = vt.to(torch.int8), torch.ones(n, device=device)
+    else:
+        t, s = vt.to(torch.bfloat16), None
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    return (torch.from_numpy(q).to(device), t, s, (vt * vt).sum(-1), valid)
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("kk", [1, 26, 32])
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sqeuclidean", "dot"])
+@pytest.mark.parametrize("store", WS_STORES)
+def test_ws_route_equal_ids_on_integer_data(cuda, store, metric, kk, d):
+    """On integer data both versions compute the same exact distances, so
+    the ids are equal, ties to the lower id (l2, sqeuclidean, dot); cosine
+    rounds its rsqrt on either side and is held as the other cases are."""
+    q, t, s, sq, valid = _int_case(cuda, store, 9_999, d, 70, seed=d + kk)
+    assert es.capacity_route(q, t, kk) == "bf16_ws"
+    _cap_reset()
+    dk, ik = es.capacity_scan(q, t, s, sq, valid, kk=kk, metric=metric)
+    assert es.capacity_launches_by_route["bf16_ws"] == 1
+    dp, ip = es.quantized_topk_candidates(q, t, s, sq, valid, kk=kk,
+                                          metric=metric)
+    if metric == "cosine":
+        _cap_hold(dk, ik, dp, ip)
+    else:
+        assert torch.equal(ik, ip)
+        assert torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("nq", [8, 1024])
+@pytest.mark.parametrize("store", WS_STORES)
+def test_ws_route_query_batches(cuda, store, nq):
+    """Q = 8 (one block, three of its four consumers past Q) and Q = 1,024
+    (four blocks a segment) at the SIFT1M width, 50,000 rows."""
+    q, t, s, sq, valid = _cap_case(cuda, store, 50_000, 128, nq=nq,
+                                   seed=nq)
+    kk = {"int8": 26, "bf16": 14}[store]
+    _cap_reset()
+    dk, ik = es.capacity_scan(q, t, s, sq, valid, kk=kk, metric="l2")
+    assert es.capacity_launches_by_route["bf16_ws"] == 1
+    _cap_hold(dk, ik, *es.quantized_topk_candidates(q, t, s, sq, valid,
+                                                    kk=kk, metric="l2"))
+
+
+@pytest.mark.parametrize("store", WS_STORES)
+def test_ws_route_all_masked(cuda, store):
+    q, t, s, sq, valid = _cap_case(cuda, store, 10_000, 64, nq=33, seed=2)
+    _cap_reset()
+    dk, ik = es.capacity_scan(q, t, s, sq, torch.zeros_like(valid), kk=26,
+                              metric="cosine")
+    assert es.capacity_launches_by_route["bf16_ws"] == 1
+    assert (ik == -1).all() and (dk == es.INF_DIST).all()
+
+
+@pytest.mark.parametrize("seg_len", [37, 100, 1000])
+@pytest.mark.parametrize("store", WS_STORES)
+def test_ws_route_segment_boundary_inside_a_tile(cuda, store, seg_len):
+    """Segments of 37 / 100 / 1,000 rows end inside a 64-row tile (the
+    tile's rows past the segment are masked; the next segment scores
+    them), as a plan of whole tiles never does."""
+    n = 3_001
+    q, t, s, sq, valid = _cap_case(cuda, store, n, 64, nq=70, seed=seg_len)
+    plan = (-(-n // seg_len), seg_len)
+    kk = 14 if plan[0] * 26 > 4096 else 26
+    _cap_reset()
+    dk, ik = es._capacity_cuda(q, t, s, sq, valid, kk, "l2", "bf16_ws",
+                               plan=plan)
+    assert es.capacity_launches_by_route["bf16_ws"] == 1
+    _cap_hold(dk, ik, *es.quantized_topk_candidates(q, t, s, sq, valid,
+                                                    kk=kk, metric="l2"))
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("store", WS_STORES)
+def test_ws_tile_product_matches_float64(cuda, store, d):
+    """One 32-row table with the dot metric and kk = N = 32 returns every
+    column, so -dist is the kernel's scaled Gram: held to a float64
+    product of the bf16-rounded query and the int8 rows times their
+    scale, or the bf16 rows, within 1e-5 of sum |q_i v_i| (the products
+    are exact; a wrong swizzle, widening or zero fill is off by O(1))."""
+    q, t, s, sq, valid = _cap_case(cuda, store, 32, d, nq=64, seed=d)
+    valid[:] = True
+    _cap_reset()
+    dist, ids = es._capacity_cuda(q, t, s, sq, valid, 32, "dot", "bf16_ws")
+    assert es.capacity_launches_by_route["bf16_ws"] == 1
+    assert (torch.sort(ids, dim=1).values
+            == torch.arange(32, device=cuda)).all()
+    gram = torch.empty_like(dist).scatter_(1, ids, -dist).double()
+    vv = t.double() * (s.double()[:, None] if s is not None else 1.0)
+    qq = q.bfloat16().double()
+    err = ((gram - qq @ vv.T).abs() / (qq.abs() @ vv.abs().T)).max().item()
+    assert err <= 1e-5, err
+
+
+def test_ws_smem_bytes_match_the_library(cuda):
+    """The wrapper's ws_smem_bytes is the library's, and a block fits an
+    SM exactly where ws_applies says so (kk <= 32, D <= 192)."""
+    lib = es._load()
+    for store in WS_STORES:
+        for d in (16, 64, 128, 192, 256):
+            for kk in (1, 14, 26, 32, 33, 40, 150):
+                nbytes = lib.exact_screen_smem_bytes(4, d, kk,
+                                                     es.STORES[store])
+                assert nbytes == es.ws_smem_bytes(d, store)
+                per_sm = lib.exact_screen_blocks_per_sm(4, d, kk,
+                                                        es.STORES[store])
+                assert (per_sm >= 1) == es.ws_applies(d, kk, store), (
+                    store, d, kk, per_sm)
+    assert lib.exact_screen_blocks_per_sm(4, 128, 14, 4) < 0   # fp16

@@ -279,9 +279,11 @@ def test_screen_split_tool_guards_three_parts_of_the_wgmma_kernel(
         tmp_path, monkeypatch):
     """hnsw_tpu_torch/tools/screen_split.py builds the kernel with
     -DSPLIT_NO_<part> to time the rest: each part it names must have one
-    guard in the source around that part (the selection call, the
-    epilogue, the product loop), and build() must pass the macros to
-    nvcc, so that the tool keeps measuring what it names."""
+    guard in each screen kernel's source around that part (the selection
+    call, the epilogue, the product loop: screen_wgmma_kernel's first,
+    then screen_ws_kernel's), and build() and the tool's own parallel
+    builds must pass the macros to nvcc, so that the tool keeps measuring
+    what it names."""
     import importlib.util
     import os
     path = os.path.join(os.path.dirname(es.SOURCE), os.pardir, "tools",
@@ -291,14 +293,34 @@ def test_screen_split_tool_guards_three_parts_of_the_wgmma_kernel(
     spec.loader.exec_module(tool)
     with open(es.SOURCE) as f:
         src = f.read()
-    want = {"SELECT": "select_tile(", "EPILOGUE": "epilogue<SQEUCLIDEAN>",
-            "PRODUCT": "mma_tf32(acc, a_hi + off, b_lo + off, keep)"}
+    want = {"SELECT": ("select_tile(", "ws_select("),
+            "EPILOGUE": ("epilogue<SQEUCLIDEAN>",
+                         "ws_epilogue<SQEUCLIDEAN, RAW>"),
+            "PRODUCT": ("mma_tf32(acc, a_hi + off, b_lo + off, keep)",
+                        "mma_bf16(acc, da + 2 * k, db + 2 * k")}
     assert {p for parts in tool.VARIANTS.values() for p in parts} == set(want)
-    for name, inside in want.items():
-        assert src.count(f"#ifndef SPLIT_NO_{name}\n") == 1
-        a = src.index(f"#ifndef SPLIT_NO_{name}\n")
-        b = src.index(f"#endif  // SPLIT_NO_{name}\n")
-        assert a < b and inside in src[a:b]
+    for name, insides in want.items():
+        assert src.count(f"#ifndef SPLIT_NO_{name}\n") == 2
+        b = 0
+        for inside in insides:
+            a = src.index(f"#ifndef SPLIT_NO_{name}\n", b)
+            b = src.index(f"#endif  // SPLIT_NO_{name}\n", a)
+            assert inside in src[a:b]
+    assert src.index("screen_ws_kernel(const") < src.index(
+        "mma_bf16(acc, da + 2 * k") < src.index("const void* ws_fn(")
+    seen_tool = []
+
+    def fake_tool_run(cmd, **kw):
+        seen_tool.append(cmd)
+        return types.SimpleNamespace(returncode=0, stderr="ptxas info")
+    monkeypatch.setattr(tool.subprocess, "run", fake_tool_run)
+    monkeypatch.setattr(es, "_nvcc", lambda: "nvcc")
+    assert tool._build(es, str(tmp_path / "v"), ("SELECT", "PRODUCT")) == (
+        "ptxas info")
+    assert "-DSPLIT_NO_SELECT" in seen_tool[0]
+    assert "-DSPLIT_NO_PRODUCT" in seen_tool[0]
+    assert seen_tool[0][seen_tool[0].index("-o") + 1] == str(
+        tmp_path / "v" / "libexact_screen.so")
 
     seen = []
 
