@@ -95,9 +95,11 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    card at a layer-0 call of phase 10's build (a wave of 2,048 of
    262,144 x 128 L2 rows, C = 96 candidates: 64 of the other rows, 32 of
    the wave; deg 32): rows equal on integer-valued rows, >= 0.999 of
-   them on Gaussian rows, equal without diversify, the same at the
-   reverse update's C = 64 and at m = 42's C = 252; the kernel's ms
-   beside its bound (utils/roofline.select_bound_s) and the twin's;
+   them on Gaussian rows, equal without diversify, the same with an fp16
+   store, at the reverse update's C = 64, at m = 42's C = 252 and at
+   C = 1,024 (D staged in slabs); the kernel's ms beside its bound
+   (utils/roofline.select_bound_s) and the twin's, and the layer-0 call's
+   split from the clocked build (tools/select_split.py);
 9. the device wave builder on the first 50,000 of the same vectors (wave
    2048): a build held to the recall of the native build of the same
    50,000 (phase 5's graph, measured when it held only them) and
@@ -265,6 +267,9 @@ BEAM_KERNEL = {"route": "cuda",
 #: where phase 5b builds K2 with its phase counters (tools/hop_split.py)
 HOP_SPLIT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "build", "hop_split_clocks")
+#: where phase 8b builds K4 with its phase counters (tools/select_split.py)
+SELECT_SPLIT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "build", "select_split_clocks")
 #: K2's launches on the main path, by scoring mode (ops/beam_search.MODES),
 #: summed over the phases that drive a graph path (each resets the counts
 #: before it and reads them after)
@@ -324,13 +329,13 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Builds the three CUDA libraries and K2's clocked variant (one nvcc
-    each, started together) and the native host engine."""
+    """Builds the three CUDA libraries and K2's and K4's clocked variants
+    (one nvcc each, started together) and the native host engine."""
     import threading
 
     from hnsw_tpu_torch import native
     from hnsw_tpu_torch.ops import beam_search, diverse_select, exact_screen
-    from hnsw_tpu_torch.tools import hop_split
+    from hnsw_tpu_torch.tools import hop_split, select_split
     took, errors = {}, []
 
     def load(name, fn):
@@ -347,7 +352,10 @@ def phase_build() -> None:
                 ("beam_search.cu", beam_search._load),
                 ("diverse_select.cu", diverse_select._load),
                 ("beam_search.cu -DBEAM_PHASE_CLOCKS",
-                 lambda: hop_split.clocks_library(HOP_SPLIT_DIR)))]
+                 lambda: hop_split.clocks_library(HOP_SPLIT_DIR)),
+                ("diverse_select.cu -DSELECT_PHASE_CLOCKS",
+                 lambda: diverse_select.build((select_split.CLOCKS,),
+                                              SELECT_SPLIT_DIR)))]
     for t in threads:
         t.start()
     for t in threads:
@@ -1822,28 +1830,6 @@ def phase_graph_modes(st: dict) -> None:
                need=tuple(BEAM_LAUNCHES), covered_only=True)
 
 
-def _select_slate(vectors, sq, P: int, n_cand: int, intra_k: int,
-                  metric: str):
-    """A wave builder's candidate slate for the first ``P`` rows of
-    ``vectors`` (the wave): each one's ``n_cand`` nearest of the other rows
-    (the snapshot's candidates) and its ``intra_k`` nearest of the wave,
-    scored at HIGHEST by build_device._row_dist_dense, as
-    _assemble_wave_rows hands them to the selection."""
-    from hnsw_tpu_torch.core import build_device
-    wave = vectors[:P].to(torch.float32)
-    snap = vectors[P:].to(torch.float32)
-    near = torch.cat([torch.topk(torch.cdist(wave[c:c + 256], snap),
-                                 n_cand, largest=False).indices + P
-                      for c in range(0, P, 256)])
-    intra = torch.cdist(wave, wave)
-    intra.fill_diagonal_(float("inf"))
-    iw = torch.topk(intra, intra_k, largest=False).indices
-    ci = torch.cat([near, iw], dim=1).to(torch.int32).contiguous()
-    anchors = torch.arange(P, dtype=torch.int32, device=vectors.device)
-    cd = build_device._row_dist_dense(vectors, sq, anchors, ci, metric)
-    return ci, cd.contiguous()
-
-
 def _select_case(label: str, ci, cd, vectors, sq, deg: int, metric: str,
                  diversify: bool, need_equal: float, timed: bool = False):
     """One call of K4 (ops/diverse_select.diverse_select_cuda) and of its
@@ -1851,12 +1837,15 @@ def _select_case(label: str, ci, cd, vectors, sq, deg: int, metric: str,
     failed check unless at least ``need_equal`` of the rows are equal.
     Its error is the largest difference, slot by slot, of the distances of
     the ids the two keep (0 where the rows are equal). ``timed``: both
-    timed (median of 5 CUDA-event reps), the kernel beside its bound
-    (utils/roofline.select_bound_s over the distinct valid rows and the
-    valid candidates' pairs; and every slot's row, every pair)."""
+    timed, one call an event pair through the wrapper (median of 5
+    CUDA-event reps, as every kernel here is timed), the kernel also 20
+    calls back to back a rep (tools/select_split.back_to_back_ms: the
+    host's time between calls hidden under the kernel's) and beside its
+    bound (utils/roofline.select_bound_s over the distinct valid rows and
+    the valid candidates' pairs; and every slot's row, every pair)."""
     from hnsw_tpu_torch.core import build
     from hnsw_tpu_torch.ops import diverse_select
-    from hnsw_tpu_torch.utils import roofline
+    from hnsw_tpu_torch.tools import select_split
     kw = dict(deg=deg, metric=metric, diversify=diversify)
 
     def kern():
@@ -1894,25 +1883,23 @@ def _select_case(label: str, ci, cd, vectors, sq, deg: int, metric: str,
     if not timed:
         return out
     ms, twin_ms = cuda_ms(kern), cuda_ms(twin)
-    valid = [{int(i) for i, d in zip(ci_h[p], cd_h[p])
-              if i >= 0 and d < 3.0e38} for p in range(P)]
-    rows = len(set().union(*valid))
-    pairs = sum(len(v) * (len(v) - 1) // 2 for v in valid)
+    b2b = select_split.back_to_back_ms(kern)
     D = vectors.shape[1]
-    bound_s, by = roofline.select_bound_s(P, C, D, deg, rows=rows,
-                                          pairs=pairs, diversify=diversify)
-    flat_s, flat_by = roofline.select_bound_s(P, C, D, deg,
-                                              diversify=diversify)
-    bound, flat = bound_s * 1e3, flat_s * 1e3
+    b = select_split.data_bound(ci, cd, D, deg, diversify,
+                                vectors.element_size())
+    bound, flat = b["bound_ms"], b["no_reuse_bound_ms"]
     per_sm = diverse_select._load().diverse_select_blocks_per_sm(
-        C, diverse_select.STORES[vectors.dtype])
-    print(f"    kernel {ms:.4f} ms ({per_sm} blocks an SM), bound "
-          f"{bound:.4f} ms ({by}; {rows} distinct rows, {pairs} valid "
-          f"pairs), {bound / ms:.4f} of the bound (every slot's row and "
-          f"pair: {flat:.4f} ms, {flat_by}, {flat / ms:.4f}); twin "
+        C, D, diverse_select.STORES[vectors.dtype]) if diversify else None
+    occ = f" ({per_sm} blocks an SM)" if diversify else ""
+    print(f"    kernel {ms:.4f} ms (back to back {b2b:.4f}){occ}, bound "
+          f"{bound:.4f} ms ({b['bound_by']}; {b['rows']} distinct rows, "
+          f"{b['pairs']} valid pairs), {bound / ms:.4f} of the bound "
+          f"({bound / b2b:.4f} back to back; every slot's row and pair: "
+          f"{flat:.4f} ms, {b['no_reuse_bound_by']}, {flat / ms:.4f}); twin "
           f"{twin_ms:.3f} ms ({twin_ms / ms:.1f}x)", flush=True)
-    out.update(ms=ms, plain_ms=twin_ms, bound_ms=bound, bound_by=by,
-               no_reuse_bound_ms=flat, blocks_per_sm=per_sm)
+    out.update(ms=ms, back_to_back_ms=b2b, plain_ms=twin_ms, bound_ms=bound,
+               bound_by=b["bound_by"], no_reuse_bound_ms=flat,
+               blocks_per_sm=per_sm)
     return out
 
 
@@ -1923,31 +1910,37 @@ def phase_select_kernel(smi: str) -> dict:
     wave, deg 32, D = 128, L2), on integer-valued rows (|x| <= 4: every
     operand, product and sum exact, rows equal) and Gaussian rows (the
     kernel's f32 sums run in another order than the twin's matmul: >=
-    0.999 of the rows equal); without diversify (equal); at the reverse
-    update's C = 64 both ways; and at m = 42's C = 252 (6 m). Returns the
-    kernels-line entry (the Gaussian layer-0 call is the headline)."""
+    0.999 of the rows equal); without diversify (equal); with an fp16
+    store; at the reverse update's C = 64 both ways; at m = 42's C = 252
+    (6 m); and at C = 1,024 (P 64), where D is staged in slabs. The inputs
+    are tools/select_split.py's, and the layer-0 call's split is read from
+    the clocked build of phase_build. Returns the kernels-line entry (the
+    Gaussian layer-0 call is the headline)."""
     from hnsw_tpu_torch.ops import diverse_select
+    from hnsw_tpu_torch.tools import select_split
     n, P = N_SIFT, WAVE
     print(f"# K4 neighbour selection vs its twin, one launch, a wave of {P} "
           f"of {n} x {DIM} rows, C={SELECT_C}, deg={SELECT_DEG}, l2 "
           f"(median of 5 CUDA-event reps; {smi})", flush=True)
-    gen = torch.Generator(device=DEVICE).manual_seed(8)
     out = {}
     for kind in ("integer", "gaussian"):
-        if kind == "integer":
-            vectors = torch.randint(-4, 5, (n, DIM), generator=gen,
-                                    device=DEVICE).to(torch.float32)
-        else:
-            vectors = torch.randn((n, DIM), generator=gen, device=DEVICE)
+        vectors = select_split.rows(kind, n, DIM, DEVICE)
         sq = (vectors * vectors).sum(-1)
         need = 1.0 if kind == "integer" else 0.999
-        ci, cd = _select_slate(vectors, sq, P, SELECT_C - 32, 32, "l2")
+        ci, cd = select_split.slate(vectors, sq, P, SELECT_C - 32, 32)
         print(f"  {kind} rows, layer 0:", flush=True)
         out[kind] = _select_case(f"{kind} layer 0", ci, cd, vectors, sq,
                                  SELECT_DEG, "l2", True, need, timed=True)
         out[kind, "plain"] = _select_case(
             f"{kind} layer 0", ci, cd, vectors, sq, SELECT_DEG, "l2",
             False, 1.0)
+        v16 = vectors.to(torch.float16)
+        sq16 = (v16.to(torch.float32) ** 2).sum(-1)
+        print(f"  {kind} rows, layer 0, fp16 store:", flush=True)
+        out[kind, "fp16"] = _select_case(
+            f"{kind} layer 0, fp16 store", ci, cd, v16, sq16, SELECT_DEG,
+            "l2", True, need, timed=True)
+        del v16, sq16
         ci64, cd64 = ci[:, :SELECT_C_REVERSE].contiguous(), \
             cd[:, :SELECT_C_REVERSE].contiguous()
         for diversify in (True, False):
@@ -1958,11 +1951,27 @@ def phase_select_kernel(smi: str) -> dict:
                 SELECT_DEG, "l2", diversify,
                 need if diversify else 1.0, timed=True)
         if kind == "gaussian":
-            ci_w, cd_w = _select_slate(vectors, sq, 512, 168, 84, "l2")
+            ci_w, cd_w = select_split.slate(vectors, sq, 512, 168, 84)
             print("  gaussian rows, m = 42's width C=252, deg 84:",
                   flush=True)
             out["wide"] = _select_case("C=252", ci_w, cd_w, vectors, sq, 84,
                                        "l2", True, 0.999, timed=True)
+            ci_s, cd_s = select_split.slate(vectors, sq, 64, 992, 32)
+            check(diverse_select.layout(1024, DIM)["n_slabs"] > 1,
+                  "C=1,024 at D=128 stages D in slabs")
+            print("  gaussian rows, C=1,024, deg 64 (D in slabs):",
+                  flush=True)
+            out["slabs"] = _select_case("C=1,024", ci_s, cd_s, vectors, sq,
+                                        64, "l2", True, 0.999, timed=True)
+            if DEVICE == "cuda":
+                lib = select_split.bind_clocks(os.path.join(
+                    SELECT_SPLIT_DIR, "libdiverse_select.so"))
+                rep = select_split.phase_report(select_split.clocked(
+                    lib, (ci, cd, vectors, sq), SELECT_DEG, True),
+                    out[kind]["back_to_back_ms"])
+                print(f"  split of the gaussian layer-0 call (clocked build,"
+                      f" tools/select_split.py): "
+                      f"{select_split.format_report(rep)}", flush=True)
         del vectors, sq, ci, cd
         torch.cuda.empty_cache()
     with open(os.path.join(diverse_select.BUILD_DIR,
@@ -1973,13 +1982,15 @@ def phase_select_kernel(smi: str) -> dict:
     head = out["gaussian"]
     return dict(SELECT_KERNEL, name="diverse_select",
                 max_abs_err=max(v["max_abs_err"] for v in out.values()),
-                ms=head["ms"], plain_ms=head["plain_ms"],
+                ms=head["ms"], back_to_back_ms=head["back_to_back_ms"],
+                plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 no_reuse_bound_ms=head["no_reuse_bound_ms"], library_ms=None,
                 blocks_per_sm=head["blocks_per_sm"],
                 rows_equal={str(k): v["equal"] for k, v in out.items()},
                 cases={str(k): {kk: v[kk] for kk in (
-                    "ms", "plain_ms", "bound_ms", "no_reuse_bound_ms")}
+                    "ms", "back_to_back_ms", "plain_ms", "bound_ms",
+                    "no_reuse_bound_ms")}
                        for k, v in out.items() if "ms" in v})
 
 

@@ -2,11 +2,14 @@
 
 The kernel (``csrc/diverse_select.cu``) runs one call of
 ``core/build._diverse_select_dev`` as one launch, one block a row: the
-stable sort and dedup of the row's candidates, the bf16-operand Gram of
-its candidates turned into conflict bits in shared memory, Malkov's
-diversity scan, the backfill to ``deg`` and the compaction. Its plain twin
-is ``core/build._diverse_select_reference``, which returns the same rows
-(the kernel's f32 Gram sums run in another order).
+stable sort and dedup of the row's candidates, each candidate's row
+gathered once into shared memory as bf16, the lower triangle of their Gram
+on the tensor cores (``mma.sync``) turned into conflict bits in registers,
+Malkov's diversity scan, the backfill to ``deg`` and the compaction. Its
+plain twin is ``core/build._diverse_select_reference``, which returns the
+same rows (the kernel's f32 Gram sums run in another order). Where a row's
+candidates do not fit the block whole, D is staged in slabs (``layout``)
+and the launch takes a workspace the wrapper allocates.
 
 Which calls take the kernel is decided here, in ``select_kernel_applies``:
 CUDA tensors on one device, at most ``SELECT_MAX_C`` candidates a row and,
@@ -27,6 +30,7 @@ import ctypes
 import os
 import subprocess
 import threading
+from typing import Optional
 
 import torch
 
@@ -39,8 +43,11 @@ _METRIC_CODE = {"cosine": 0, "l2": 1, "sqeuclidean": 2, "dot": 3}
 STORES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 #: most candidates a row the kernel takes (its scan keeps one 32-bit kept
-#: mask a lane of one warp; 164,864 bytes of shared memory a block)
+#: mask a lane of one warp)
 SELECT_MAX_C = 1024
+#: csrc/diverse_select.cu: bytes of staged rows a block, dynamic shared
+#: memory a block can have
+ROW_BUDGET, SMEM_MAX = 96 * 1024, 232_448
 
 #: kernel launches so far (one per call on CUDA)
 launches = 0
@@ -54,23 +61,30 @@ _lock = threading.Lock()
 _lib = None
 
 
-def build() -> str:
-    """Compile ``csrc/diverse_select.cu`` into ``BUILD_DIR`` if the
-    library is missing or older than the source; returns its path. ptxas's
-    report goes to ``diverse_select.ptxas.txt`` beside it."""
-    so = os.path.join(BUILD_DIR, "libdiverse_select.so")
+def build(defines=(), build_dir: Optional[str] = None,
+          source: Optional[str] = None) -> str:
+    """Compile ``csrc/diverse_select.cu`` (or ``source``) into ``build_dir``
+    (default ``BUILD_DIR``) if the library is missing or older than the
+    source; returns its path. ``defines``: macros passed as ``-D``
+    (``SELECT_PHASE_CLOCKS`` for ``tools/select_split.py``; the port
+    defines none). ptxas's report goes to ``diverse_select.ptxas.txt``
+    beside the library."""
+    build_dir = build_dir or BUILD_DIR
+    source = source or SOURCE
+    so = os.path.join(build_dir, "libdiverse_select.so")
     if (os.path.exists(so)
-            and os.path.getmtime(so) >= os.path.getmtime(SOURCE)):
+            and os.path.getmtime(so) >= os.path.getmtime(source)):
         return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", SOURCE, "-o", tmp]
+           "-Xptxas", "-v", *(f"-D{m}" for m in defines), source,
+           "-o", tmp]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    with open(os.path.join(BUILD_DIR, "diverse_select.ptxas.txt"), "w") as f:
+    with open(os.path.join(build_dir, "diverse_select.ptxas.txt"), "w") as f:
         f.write(res.stderr)
     os.replace(tmp, so)
     return so
@@ -81,13 +95,85 @@ def bind(path: str):
     typed."""
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.diverse_select_launch.argtypes = [vp] * 4 + [ci] * 9 + [vp, vp]
+    lib.diverse_select_launch.argtypes = [vp] * 4 + [ci] * 9 + [vp] * 3
     lib.diverse_select_launch.restype = ci
-    lib.diverse_select_smem_bytes.argtypes = [ci]
+    lib.diverse_select_smem_bytes.argtypes = [ci] * 3
     lib.diverse_select_smem_bytes.restype = ci
-    lib.diverse_select_blocks_per_sm.argtypes = [ci, ci]
+    lib.diverse_select_blocks_per_sm.argtypes = [ci] * 3
     lib.diverse_select_blocks_per_sm.restype = ci
+    lib.diverse_select_workspace_bytes.argtypes = [ci] * 4
+    lib.diverse_select_workspace_bytes.restype = ctypes.c_longlong
+    lib.workspace_sizes = {}     # workspace_bytes: (device, P, C, D, store)
     return lib
+
+
+def workspace_bytes(lib, device: int, P: int, C: int, D: int,
+                    store: int) -> int:
+    """Bytes of global workspace a diversifying launch of ``lib`` needs
+    (its ``diverse_select_workspace_bytes``: 0 where the rows are staged
+    whole), asked of the library once for each (device, P, C, D, store):
+    the builder repeats a few shapes, and the question queries the device
+    where D is staged in slabs."""
+    key = (device, P, C, D, store)
+    n = lib.workspace_sizes.get(key)
+    if n is None:
+        n = lib.workspace_sizes[key] = int(
+            lib.diverse_select_workspace_bytes(P, C, D, store))
+    return n
+
+
+def bit_words(C: int) -> int:
+    """Words of the kernel's triangle of conflict bits over C candidates
+    (row j holds words 0 .. j // 32): sum over j < C of j // 32 + 1."""
+    q, r = divmod(C, 32)
+    return 32 * (q * (q + 1) // 2) + r * (q + 1)
+
+
+def unit_count(R: int) -> int:
+    """The kernel's (m-tile, word) units over R m-tiles of 16 candidates:
+    m-tile r pairs with the 32-candidate words 0 .. r // 2."""
+    return sum(r // 2 + 1 for r in range(R))
+
+
+def layout(C: int, D: int, row_budget: int = ROW_BUDGET) -> dict:
+    """The kernel's shared layout at C candidates a row, D wide (the
+    source's ``layout()``): C and D padded to multiples of 16 (D at least
+    16); three [C] arrays (each padded to a multiple of 4) and, at
+    ``bits``, the triangle of conflict bits; then, 128-byte aligned at
+    ``rows``, the staged rows, ``pitch`` = slab + 8 bf16 a row, where the
+    rank first reads the input ids and distances (``plain``: the bytes of
+    a launch without diversify, which stages no row). The rows are whole
+    (one slab of D_pad) where C_pad x pitch x 2 bytes fit ``row_budget``
+    (the library's, ``ROW_BUDGET`` unless it was built with another
+    ``DIVERSE_SELECT_ROW_BUDGET``) and ``SMEM_MAX`` beside the arrays, else
+    in slabs of the widest multiple of 16 columns that fit. ``total`` is
+    -1 where not even 16 columns fit."""
+    c_pad = -(-C // 16) * 16
+    d_pad = max(16, -(-D // 16) * 16)
+    cq = -(-C // 4) * 4
+    bits = 12 * cq
+    rows = -(-(bits + 4 * bit_words(C)) // 128) * 128
+    budget = min(row_budget, SMEM_MAX - rows)
+    if c_pad * (d_pad + 8) * 2 <= budget:
+        slab = d_pad
+    else:
+        slab = (budget // (2 * c_pad) - 8) // 16 * 16
+    out = dict(c_pad=c_pad, d_pad=d_pad, bits=bits, rows=rows,
+               plain=rows + 8 * cq, units=unit_count(c_pad // 16))
+    if slab < 16:
+        return dict(out, slab=0, n_slabs=0, pitch=0, total=-1)
+    return dict(out, slab=slab, n_slabs=-(-d_pad // slab), pitch=slab + 8,
+                total=rows + c_pad * (slab + 8) * 2)
+
+
+def smem_bytes(C: int, D: int, store: int) -> int:
+    """Dynamic shared memory of one block (the library's
+    ``diverse_select_smem_bytes``): ``layout(C, D)["total"]``, or -1 for
+    arguments the kernel does not take (C outside 1 .. SELECT_MAX_C, D < 0,
+    an unknown store code)."""
+    if not 1 <= C <= SELECT_MAX_C or D < 0 or store not in STORES.values():
+        return -1
+    return layout(C, D)["total"]
 
 
 def _load():
@@ -170,13 +256,21 @@ def diverse_select_cuda(cand_i: torch.Tensor, cand_d: torch.Tensor,
     if P == 0:
         return out
     lib = _load()
+    store = STORES.get(vectors.dtype, 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        n = workspace_bytes(lib, dev.index, P, C, D, store) if (
+            diversify) else 0
+        if n < 0:
+            raise RuntimeError(f"diverse_select workspace for P={P}, C={C}, "
+                               f"D={D}: error {n}")
+        # D in slabs: the units' accumulators between slabs
+        ws = torch.empty(n, dtype=torch.uint8, device=dev) if n else None
         rc = lib.diverse_select_launch(
             cand_i.data_ptr(), cand_d.data_ptr(), vectors.data_ptr(),
             sq.data_ptr(), P, C, N, D, deg, out_w,
-            _METRIC_CODE.get(metric, 0), STORES.get(vectors.dtype, 0),
-            int(bool(diversify)), out.data_ptr(), stream)
+            _METRIC_CODE.get(metric, 0), store, int(bool(diversify)),
+            out.data_ptr(), None if ws is None else ws.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"diverse_select launch failed: cudaError {rc}")
     with _lock:                  # slices on one card launch from threads

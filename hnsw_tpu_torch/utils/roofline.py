@@ -137,13 +137,15 @@ def hop_bound_s(n_queries: int, d: int, pool: int, starts: int, width: int,
 
 def select_bound_s(P: int, C: int, D: int, deg: int, *,
                    rows: Optional[int] = None, pairs: Optional[int] = None,
-                   diversify: bool = True) -> Tuple[float, str]:
+                   diversify: bool = True,
+                   store_bytes: int = 4) -> Tuple[float, str]:
     """(seconds, "bytes" | "operations"): the least time on the H100 SXM of
     one call of the wave builder's neighbour selection (the K4 kernel,
     ops/diverse_select) over ``P`` rows of ``C`` candidates, ``D`` wide,
     keeping min(C, deg) a row. It is the larger of the bytes it must move
     over the HBM rate (the [P, C] ids and distances read once, ``rows``
-    float32 candidate rows and a squared norm each, the [P, min(C, deg)]
+    candidate rows of ``store_bytes`` an element (4 float32, 2 float16 or
+    bfloat16) and a squared norm each, the [P, min(C, deg)]
     ids written once) and 2 D operations a candidate pair of the Gram over
     the bf16 tensor peak (DEFAULT rounds the operands to bf16). ``pairs``
     defaults to every pair e < j of every row, P C (C - 1) / 2, and
@@ -158,7 +160,8 @@ def select_bound_s(P: int, C: int, D: int, deg: int, *,
         pairs = P * C * (C - 1) // 2
     if not diversify:
         rows = pairs = 0
-    moved = 8 * P * C + (4 * D + 4) * rows + 4 * P * min(C, deg)
+    moved = (8 * P * C + (store_bytes * D + 4) * rows
+             + 4 * P * min(C, deg))
     t_bytes = moved / peaks["hbm_bytes_s"]
     t_ops = 2.0 * D * pairs / peaks["bf16"]
     if t_ops >= t_bytes:

@@ -21,6 +21,13 @@ Cosine goes through rsqrt and is held to a row overlap >= 0.99 there. On
 Gaussian rows at the smoke's layer-0 shape (P 2,048, C 96, deg 32, D 128)
 the kernel's Gram sums run in another order than the twin's matmul, which
 can flip a conflict at a near-tie: at least 0.999 of the rows equal.
+
+The kernel pads C and D to multiples of 16 and stages D in slabs where a
+row's candidates do not fit its block whole (``ops/diverse_select.layout``):
+C across the padding (1 .. 1,024), D 7 / 50 / 65 / 128 / 300 in every
+store, the slab path (C 1,024 at D 128, C 256 at D 300) and the same inputs
+through a build whose row budget moves the threshold (slabs against whole
+rows, equal rows).
 """
 
 import numpy as np
@@ -80,7 +87,8 @@ def _batch(seed, vectors, sq, P, C, metric, near=False):
     else:
         ci = torch.from_numpy(r.integers(0, n, (P, C)).astype(np.int32)
                               ).to(dev)
-    ci[:, C // 2] = ci[:, 1]
+    if C > 1:
+        ci[:, C // 2] = ci[:, 1]
     ci[torch.from_numpy(r.random((P, C)) < 0.15).to(dev)] = -1
     ci[0] = -1
     ci[1, 5:] = -1
@@ -122,7 +130,7 @@ def _hold(got, want, metric):
 
 @pytest.mark.parametrize("diversify", [True, False])
 @pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("D", [7, 50, 128, 300])
+@pytest.mark.parametrize("D", [7, 50, 65, 128, 300])
 @pytest.mark.parametrize("C,deg", WIDTHS)
 def test_kernel_equals_twin_on_integer_rows(cuda, C, deg, D, metric,
                                             diversify):
@@ -240,16 +248,129 @@ def test_builder_functions_launch_the_kernel(cuda):
 
 
 def test_shared_memory_and_occupancy(cuda):
-    """9,216 bytes of staged rows, six [C] arrays, [C, ceil(C / 32)]
-    conflict bits; every store's kernel fits an SM up to SELECT_MAX_C."""
+    """The library's shared layout equals the wrapper's copy
+    (``ops/diverse_select.smem_bytes``: six [C] arrays, the triangle of
+    conflict bits, the staged bf16 rows); every store's kernel fits an SM
+    up to SELECT_MAX_C at every D, and at least 4 blocks an SM at the
+    layer-0 call (C 96, D 128, f32)."""
     lib = ds._load()
-    for C in (1, 20, 64, 96, 256, ds.SELECT_MAX_C):
-        W = -(-C // 32)
-        assert lib.diverse_select_smem_bytes(C) == 9216 + 24 * C + 4 * C * W
-        for store in ds.STORES.values():
-            assert lib.diverse_select_blocks_per_sm(C, store) >= 1
-    assert lib.diverse_select_smem_bytes(ds.SELECT_MAX_C) == 164_864
-    assert lib.diverse_select_blocks_per_sm(96, 3) == -1
+    for C in (1, 15, 16, 17, 20, 33, 64, 95, 96, 97, 252, 255, 256, 257,
+              500, ds.SELECT_MAX_C):
+        for D in (1, 7, 50, 65, 128, 300, 960):
+            for store in ds.STORES.values():
+                got = lib.diverse_select_smem_bytes(C, D, store)
+                assert got == ds.smem_bytes(C, D, store) > 0, (C, D, store)
+                assert lib.diverse_select_blocks_per_sm(C, D, store) >= 1
+    assert lib.diverse_select_smem_bytes(ds.SELECT_MAX_C + 1, 128, 0) == -1
+    assert ds.smem_bytes(ds.SELECT_MAX_C + 1, 128, 0) == -1
+    assert lib.diverse_select_smem_bytes(96, 128, 3) == -1
+    assert lib.diverse_select_blocks_per_sm(96, 128, 3) == -1
+    assert lib.diverse_select_blocks_per_sm(96, 128, 0) >= 4
+    assert lib.diverse_select_workspace_bytes(2048, 96, 128, 0) == 0
+    assert lib.diverse_select_workspace_bytes(64, 1024, 128, 0) > 0
+
+
+@pytest.mark.parametrize("diversify", [True, False])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("dtype", list(ds.STORES))
+@pytest.mark.parametrize("C", [1, 15, 16, 17, 33, 95, 96, 97, 255, 256, 257,
+                               1024])
+def test_candidates_across_the_padding(cuda, C, dtype, metric, diversify):
+    """C on both sides of each multiple of 16 and 32, every store, integer
+    rows at D 128: the rows equal the twin's (cosine overlap >= 0.99)."""
+    vectors, sq = _store(17, 3000, 128, cuda, dtype)
+    ci, cd = _batch(C, vectors, sq, 24 if C > 256 else 48, C, metric)
+    deg = min(32, max(1, C // 2))
+    _hold(*_both(ci, cd, vectors, sq, deg, metric, diversify), metric)
+
+
+@pytest.mark.parametrize("diversify", [True, False])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [7, 50, 65, 128, 300])
+def test_widths_in_the_reduced_stores(cuda, D, dtype, metric, diversify):
+    """D padded to 16 in the fp16 and bf16 stores (16-byte loads at D % 8
+    == 0, else element by element): equal rows at C 96 / deg 32."""
+    vectors, sq = _store(D + 1, 3000, D, cuda, dtype)
+    ci, cd = _batch(D + 2, vectors, sq, 64, 96, metric)
+    _hold(*_both(ci, cd, vectors, sq, 32, metric, diversify), metric)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("dtype", list(ds.STORES))
+@pytest.mark.parametrize("C,D,deg", [(1024, 128, 64), (256, 300, 32)])
+def test_the_slab_path(cuda, C, D, deg, dtype, metric):
+    """Rows that do not fit the block whole are staged in D slabs (the
+    layout says so), accumulators carried in the workspace: equal rows."""
+    assert ds.layout(C, D)["n_slabs"] > 1
+    vectors, sq = _store(19, 5000, D, cuda, dtype)
+    ci, cd = _batch(20, vectors, sq, 40, C, metric)
+    _hold(*_both(ci, cd, vectors, sq, deg, metric, True), metric)
+
+
+@pytest.mark.parametrize("C,D,budget", [(256, 300, 200 * 1024),
+                                        (96, 128, 8 * 1024),
+                                        (512, 128, 200 * 1024)])
+def test_slabs_and_whole_rows_agree(cuda, tmp_path, C, D, budget):
+    """The same integer inputs through the shipped library and a build
+    whose DIVERSE_SELECT_ROW_BUDGET moves the threshold (whole rows where
+    the shipped kernel stages slabs, or slabs where it stages whole rows):
+    the same rows, in every store and metric."""
+    shipped = ds.layout(C, D)["n_slabs"]
+    other = ds.layout(C, D, row_budget=budget)["n_slabs"]
+    assert (shipped == 1) != (other == 1), (shipped, other)
+    lib = ds.bind(ds.build((f"DIVERSE_SELECT_ROW_BUDGET={budget}",),
+                           str(tmp_path)))
+    for store in ds.STORES.values():
+        assert lib.diverse_select_smem_bytes(C, D, store) == ds.layout(
+            C, D, row_budget=budget)["total"]
+    for dtype in ds.STORES:
+        vectors, sq = _store(21, 4000, D, cuda, dtype)
+        for metric in METRICS:
+            ci, cd = _batch(22, vectors, sq, 48, C, metric)
+            kw = dict(deg=32, metric=metric, diversify=True)
+            a = ds.diverse_select_cuda(ci, cd, vectors, sq, **kw)
+            saved = ds._lib
+            ds._lib = lib
+            try:
+                b = ds.diverse_select_cuda(ci, cd, vectors, sq, **kw)
+            finally:
+                ds._lib = saved
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("diversify", [True, False])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("dtype", list(ds.STORES))
+@pytest.mark.parametrize("C,D", [(96, 128), (96, 50), (1024, 128)])
+def test_ids_past_the_store_read_its_last_row(cuda, C, D, dtype, metric,
+                                              diversify):
+    """Ids at or past the store's N (up to INT32_MAX): the twin gathers
+    row N - 1 for them and keeps the id, and so does the kernel, on every
+    path of its gather (16-byte loads, element loads at D 50, cp.async of
+    a bf16 store, D in slabs at C 1,024): equal rows."""
+    vectors, sq = _store(25, 3000, D, cuda, dtype)
+    ci, cd = _batch(26, vectors, sq, 24, C, metric)
+    cols = torch.arange(C, device=cuda) % 5 == 2
+    past = cols[None, :] & (ci >= 0)
+    ci = torch.where(past, 3000 + ci * 7, ci).to(torch.int32).contiguous()
+    ci[2, 3] = torch.iinfo(torch.int32).max
+    assert int((ci >= 3000).sum()) > 100
+    got, want = _both(ci, cd, vectors, sq, 32, metric, diversify)
+    assert (want >= 3000).any()
+    _hold(got, want, metric)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_gaussian_rows_in_the_reduced_stores(cuda, dtype, metric):
+    """The layer-0 shape on Gaussian rows stored as fp16 or bf16: at least
+    0.999 of the rows equal."""
+    vectors, sq = _store(23, 50_000, 128, cuda, dtype, gaussian=True)
+    ci, cd = _batch(24, vectors, sq, 2048, 96, metric, near=True)
+    got, want = _both(ci, cd, vectors, sq, 32, metric, True)
+    equal = float(np.mean((got == want).all(axis=1)))
+    assert equal >= 0.999, equal
 
 
 def test_arguments_the_kernel_does_not_take_raise(cuda):
