@@ -11,7 +11,8 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    one nvcc each, started together (csrc/exact_screen.cu: K1's TF32
    wgmma screen, fed by TMA, route "wgmma", or by cp.async, route
    "wgmma_cp"; csrc/beam_search.cu: K2, one graph layer's beam search a
-   launch, and the same source with -DBEAM_PHASE_CLOCKS for phase 5b's
+   launch, and K5, a whole search a launch, and the same source with
+   -DBEAM_PHASE_CLOCKS (K2 alone) for phase 5b's
    hop split; csrc/diverse_select.cu: K4, one call of the wave builder's
    neighbour selection a launch), and the native host engine;
 3. kernel vs plain: exact_topk_fused through each K1 route against the
@@ -46,10 +47,13 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    sends down the wgmma_cp route;
 5. graph tier: the default Graph (m=16, ef_construction=100, cosine,
    descent entry, bitonic merge, f32 store) built on 100,000 x 128 by the
-   native builder and served on the card at ef 64 and 192, each layer one
-   K2 launch; the same batches through the plain twin
-   (core/search.beam_search_layer_reference; recall within 0.005 of the
-   kernel's), and one traced batch each way (launches, idle share);
+   native builder and served on the card at ef 64 and 192, each batch one
+   K5 launch (checked: one, and no K2 launch); in the default mode and in
+   bench.py's (fast_math, neighbour blocks, pivot seeds) the same batches
+   through the parent's path (core/search.search_graph_reference with one
+   K2 launch a layer: recall within 0.005 and hops a layer equal) and, in
+   the default mode, through the plain twin; QPS each way and one traced
+   batch each way (launches, idle share);
 5b. K2 against its twin on that graph: one layer-0 launch beside the twin
    on the inputs the entry points give it (Graph at ef 64 and 192 on f32
    rows, bench.py's mode at ef 192 on int8 and on fp16 neighbour blocks,
@@ -67,7 +71,13 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    32-out table, no build; larger than L2) beside the twin, held the
    same way; then where a hop's time goes at rows ef 64 and 192 and on
    the int8 rows (tools/hop_split.py: each phase's share of the slowest
-   block's cycles);
+   block's cycles); then K5 against its plain version
+   (core/search.search_graph_reference over K2's twin) on the searches
+   Graph makes (default mode ef 64 / 192, bench's mode ef 192): one
+   launch each, id overlap >= 0.999, distances within 1e-5 x max(1, |d|)
+   (1e-3 on int8 blocks), hops a layer equal; its ms beside its bound
+   (utils/roofline.search_bound_s), the plain version's and the parent's
+   path's ms, and its resident blocks an SM;
 6. exact capacity ladder at BIGANN-10M's shape (10,000,000 x 128, L2,
    k=10; synthetic rows from a seed): the float32 rung through the kernel,
    checked against a chunked numpy scan, then hbm_dtype int8, bf16 and
@@ -178,12 +188,16 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    0.99), and utils/profiling.device_trace around one bench exact batch
    (CUDA kernel events and the annotated name).
 
-Phases 5, 8, 9, 10 and 18 each check that K2 launched while they ran and
-that no layer of a mode K2 covers went to the twin
+Phases 5, 8, 9, 10, 17 and 18 each check that K5 launched while they
+served (by layer 0's mode) and that no search K5 covers went to its
+plain version (ops/graph_search.plain_on_cuda "size" and "other");
+phases 9 and 10 also that K2 launched for the wave builder's descent and
+refine, and no layer of a mode K2 covers went to its twin
 (ops/beam_search.twin_layers_on_cuda); phases 5, 8, 9 and 10 drive only
-covered modes and check that no layer went to the twin at all, and the
-main path as a whole launched K2 in each of its five modes (f32 rows,
-blocks, int8 rows, fp16 rows, bf16 rows).
+covered modes and check that nothing went to either plain version, and
+the main path as a whole launched K5 in each of its five modes (f32
+rows, blocks, int8 rows, fp16 rows, bf16 rows) and K2 in each of the
+builder's (f32 rows, blocks, fp16 rows).
 Phases 6, 7, 12, 14 and 17 each check the capacity screen's launches by
 store and by route (ops/exact_screen.capacity_launches_by_store,
 capacity_launches_by_route: int8 and bf16 on "bf16_ws" but int8 at
@@ -193,9 +207,9 @@ check that K4 launched and that no selection went to its twin
 (ops/diverse_select.plain_on_cuda; the build that forces the twin is
 left out of the count).
 The last two lines are the kernel table (one entry a K1 route, one for
-K2, two for the capacity screen: K1's kernel with the table's store and
-the warp-specialised bf16 kernel, and one for K4, each with its launches
-on the main path) and
+K2, one for K5, two for the capacity screen: K1's kernel with the
+table's store and the warp-specialised bf16 kernel, and one for K4, each
+with its launches on the main path) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card and no network; imports nothing of JAX.
 """
@@ -264,6 +278,17 @@ CAPACITY_KK = {"int8": 26, "bf16": 14, "fp16": 14}
 BEAM_KERNEL = {"route": "cuda",
                "source": "hnsw_tpu_torch/csrc/beam_search.cu",
                "replaces": "hnsw_tpu/core/search.py:240"}
+#: K5, the whole-search kernel: one launch a graph search (entries, every
+#: upper layer, layer 0, the f32 rerank; ops/graph_search), built from K2's
+#: device code in the same source
+GRAPH_KERNEL = {"route": "cuda",
+                "source": "hnsw_tpu_torch/csrc/beam_search.cu",
+                "replaces": "hnsw_tpu/core/search.py:368"}
+#: K5's launches on the main path, by layer 0's mode, summed over the
+#: phases that serve a graph (each resets the counts before it and reads
+#: them after)
+GRAPH_LAUNCHES = dict.fromkeys(("rows", "blocks", "qrows", "f16rows",
+                                "bf16rows"), 0)
 #: where phase 5b builds K2 with its phase counters (tools/hop_split.py)
 HOP_SPLIT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "build", "hop_split_clocks")
@@ -436,50 +461,57 @@ def _cap_read(label: str, want: dict, routes: dict = None) -> dict:
 
 
 def _beam_reset() -> None:
-    from hnsw_tpu_torch.ops import beam_search
+    from hnsw_tpu_torch.ops import beam_search, graph_search
     beam_search.launches = 0
     beam_search.launches_by_mode.update(dict.fromkeys(beam_search.MODES, 0))
     beam_search.twin_layers_on_cuda.update(mode=0, size=0, other=0)
+    graph_search.launches = 0
+    graph_search.launches_by_mode.update(dict.fromkeys(beam_search.MODES, 0))
+    graph_search.plain_on_cuda.update(mode=0, size=0, other=0)
 
 
-def _beam_read(label: str, need=("rows",), covered_only=False) -> dict:
-    """K2's launches by mode since the last _beam_reset(), added to
-    BEAM_LAUNCHES. On the card, a failed check unless every mode in
-    ``need`` launched and no layer of a mode K2 covers went to the twin
-    (ops/beam_search.twin_layers_on_cuda["size"] and ["other"]); with
-    ``covered_only`` (a phase that drives only modes K2 covers), no layer
-    went to the twin at all."""
-    from hnsw_tpu_torch.ops import beam_search
+def _beam_read(label: str, need=(), need5=(), covered_only=False) -> dict:
+    """K2's and K5's launches by mode since the last _beam_reset(), added
+    to BEAM_LAUNCHES and GRAPH_LAUNCHES. On the card, a failed check unless
+    K2 launched in every mode of ``need`` (the builder's layers), K5 in
+    every mode of ``need5`` (the searches, by layer 0's mode), no layer of
+    a mode K2 covers went to its twin (ops/beam_search.twin_layers_on_cuda
+    "size" and "other") and no search K5 covers to its plain version
+    (ops/graph_search.plain_on_cuda "size" and "other"); with
+    ``covered_only`` (a phase that drives only modes both cover), nothing
+    went to either at all."""
+    from hnsw_tpu_torch.ops import beam_search, graph_search
     by = dict(beam_search.launches_by_mode)
     twin = dict(beam_search.twin_layers_on_cuda)
+    by5 = dict(graph_search.launches_by_mode)
+    plain = dict(graph_search.plain_on_cuda)
     for m, n in by.items():
         BEAM_LAUNCHES[m] += n
+    for m, n in by5.items():
+        GRAPH_LAUNCHES[m] += n
     if DEVICE == "cuda":
-        check(all(by[m] > 0 for m in need) and twin["size"] == 0
-              and twin["other"] == 0
-              and (twin["mode"] == 0 or not covered_only),
-              f"{label} launched the beam-search kernel: {by}; layers the "
-              f"twin ran on the card {twin} (none of a covered mode"
-              + (", none at all)" if covered_only else
-                 "; by mode, those K2 lacks)"))
+        check(all(by[m] > 0 for m in need) and all(by5[m] > 0 for m in need5)
+              and twin["size"] == twin["other"] == 0
+              and plain["size"] == plain["other"] == 0
+              and ((twin["mode"] == 0 and plain["mode"] == 0)
+                   or not covered_only),
+              f"{label} launched K2 {by} (need {list(need)}) and K5 {by5} "
+              f"(need {list(need5)}); layers K2's twin ran on the card "
+              f"{twin}, searches the plain version ran {plain} (none of a "
+              f"covered mode" + (", none at all)" if covered_only else
+                                 "; by mode, those the kernels lack)"))
     return by
 
 
-@contextlib.contextmanager
 def _twin():
     """Inside the block every graph layer runs the plain twin
-    (core/search.beam_search_layer_reference): ops/beam_search's predicate
-    is patched to say no, and the layers it so sends to the twin are left
-    out of twin_layers_on_cuda."""
-    from hnsw_tpu_torch.ops import beam_search
-    real = beam_search.hop_kernel_applies
-    counts = dict(beam_search.twin_layers_on_cuda)
-    beam_search.hop_kernel_applies = lambda *a, **kw: False
-    try:
-        yield
-    finally:
-        beam_search.hop_kernel_applies = real
-        beam_search.twin_layers_on_cuda.update(counts)
+    (core/search.beam_search_layer_reference) and every search the plain
+    composition of layers (core/search.search_graph_reference):
+    ops/graph_search.plain(twin=True), which patches K2's and K5's
+    predicates to say no and leaves what they so send to the plain
+    versions out of twin_layers_on_cuda and plain_on_cuda."""
+    from hnsw_tpu_torch.ops import graph_search
+    return graph_search.plain(twin=True)
 
 
 def _select_reset() -> None:
@@ -1143,38 +1175,81 @@ def phase_graph_tier() -> dict:
               f"exact tier, hops per layer (top..0) {hops}", flush=True)
         if ef == 64:
             dense_ids = ids
-    _beam_read("phase 5 (the graph tier)", covered_only=True)
-    # the same graph and batch through the plain twin, and one traced
-    # batch each way: K2's launches and the device's idle share
-    twin = {}
-    for ef in (64, 192):
-        with _twin():
-            _, ids_t = g.batch_search_slots(queries, 10, ef=ef)
-            hops_t = list(g.last_search_hops)
-            qps_t = _qps(lambda: g.batch_search_slots(queries, 10, ef=ef),
-                         1024)
-        rec_t = _recall(ids_t, gt, 10)
-        twin[ef] = {"recall": rec_t, "qps": qps_t}
-        check(abs(recall[ef] - rec_t) <= 0.005,
-              f"ef={ef}: recall@10 through the kernel {recall[ef]:.4f} "
-              f"within 0.005 of the twin's {rec_t:.4f} on the same graph")
-        print(f"  graph tier ef={ef}, the plain twin "
-              f"(beam_search_layer_reference): {qps_t:.1f} QPS, recall@10 "
-              f"{rec_t:.4f}, hops per layer {hops_t}", flush=True)
-    if DEVICE == "cuda":
+    _beam_read("phase 5 (the graph tier)", need5=("rows",),
+               covered_only=True)
+    from hnsw_tpu_torch.ops import beam_search, graph_search
+    _beam_reset()
+    g.batch_search_slots(queries, 10, ef=64)
+    n5, n2 = graph_search.launches, beam_search.launches
+    check(n5 == 1 and n2 == 0, f"one 1024-query batch: K5 launched {n5} "
+          f"time(s) (want 1), K2 {n2} (want 0)")
+    _beam_read("phase 5 (one batch)", need5=("rows",), covered_only=True)
+    # the same graph and batch through the parent's path (the plain
+    # composition: one K2 launch a layer, graph_search.plain()) and, in the
+    # default mode, through the plain twin; one traced batch each way:
+    # launches and the device's idle share; default and bench's mode
+    twin, parent = {}, {}
+    bench = dict(fast_math=True, block_layout=True, entry_mode="pivots")
+    for mode, attrs in (("default", {}), ("bench", bench)):
+        saved = {k: getattr(g, k) for k in attrs}
+        for k, v in attrs.items():
+            setattr(g, k, v)
         for ef in (64, 192):
-            _profile(f"one 1024-query graph batch at ef={ef}, kernel",
-                     lambda: g.batch_search_slots(queries, 10, ef=ef),
-                     need="beam_search_kernel")
-            with _twin():
-                _profile(f"one 1024-query graph batch at ef={ef}, twin",
-                         lambda: g.batch_search_slots(queries, 10, ef=ef),
-                         need="")
+            batch = (lambda: g.batch_search_slots(queries, 10, ef=ef))
+            _, ids_k = batch()
+            hops_k = list(g.last_search_hops)
+            qps_k = _qps(batch, 1024)
+            rec_k = _recall(ids_k, gt, 10)
+            with graph_search.plain():
+                _, ids_p = batch()
+                hops_p = list(g.last_search_hops)
+                qps_p = _qps(batch, 1024)
+            rec_p = _recall(ids_p, gt, 10)
+            parent[mode, ef] = {"recall": rec_p, "qps": qps_p}
+            check(abs(rec_k - rec_p) <= 0.005 and hops_k == hops_p,
+                  f"{mode} ef={ef}: recall@10 through K5 {rec_k:.4f} "
+                  f"within 0.005 of the plain version's (K2 a layer) "
+                  f"{rec_p:.4f}, hops a layer {hops_k} == {hops_p}")
+            line = (f"  graph tier {mode} ef={ef}: K5 {qps_k:.1f} QPS, "
+                    f"recall@10 {rec_k:.4f}; the parent's path (K2 a layer, "
+                    f"graph_search.plain()) {qps_p:.1f} QPS "
+                    f"({qps_k / qps_p:.2f}x), recall@10 {rec_p:.4f}")
+            if mode == "default":
+                with _twin():
+                    _, ids_t = batch()
+                    hops_t = list(g.last_search_hops)
+                    qps_t = _qps(batch, 1024)
+                rec_t = _recall(ids_t, gt, 10)
+                twin[ef] = {"recall": rec_t, "qps": qps_t}
+                check(abs(rec_k - rec_t) <= 0.005 and hops_k == hops_t,
+                      f"ef={ef}: recall@10 through K5 {rec_k:.4f} within "
+                      f"0.005 of the twin's {rec_t:.4f} on the same graph, "
+                      f"hops a layer {hops_k} == {hops_t}")
+                line += (f"; the plain twin (search_graph_reference over "
+                         f"beam_search_layer_reference) {qps_t:.1f} QPS, "
+                         f"recall@10 {rec_t:.4f}")
+            print(line + f"; hops per layer (top..0) {hops_k}", flush=True)
+            if DEVICE == "cuda":
+                _profile(f"one 1024-query graph batch, {mode} ef={ef}, K5",
+                         batch, need="graph_search_kernel")
+                with graph_search.plain():
+                    _profile(f"one 1024-query graph batch, {mode} ef={ef}, "
+                             f"the parent's path (K2 a layer)", batch,
+                             need="beam_search_kernel")
+                if mode == "default" and ef == 64:
+                    with _twin():
+                        _profile(f"one 1024-query graph batch, {mode} "
+                                 f"ef={ef}, twin", batch, need="")
+        for k, v in saved.items():
+            setattr(g, k, v)
+    # what ran to compare with the plain versions is not the main path
+    _beam_reset()
     del oracle
     torch.cuda.empty_cache()
     return {"g": g, "cpu": cpu, "base": base, "queries": queries, "gt": gt,
             "dense_ids_ef64": dense_ids, "prefix_recall": prefix_recall,
-            "recall": recall, "qps": qps_by_ef, "twin": twin}
+            "recall": recall, "qps": qps_by_ef, "twin": twin,
+            "parent": parent}
 
 
 #: bytes a scored row reads in each of K2's row modes at width D (the row
@@ -1285,6 +1360,198 @@ def _beam_case(label: str, c: dict) -> dict:
             "spill_stores": regs.get("spill_stores"),
             "expanded": w[0], "scored": w[1], "distinct_nodes": n_nodes,
             "distinct_rows": n_rows}
+
+
+def _capture_search(g, queries: np.ndarray, ef: int) -> dict:
+    """The arguments of the core/search.search_graph call that
+    ``g.batch_search_slots(queries, 10, ef=ef)`` makes: {"g", "q", "kw"}
+    (the stats argument left out)."""
+    from hnsw_tpu_torch.index import hnsw
+    seen = {}
+    real = hnsw.search_graph
+
+    def spy(dg, q, **kw):
+        if not seen:
+            seen.update(g=dg, q=q, kw={k: v for k, v in kw.items()
+                                       if k != "stats"})
+        return real(dg, q, **kw)
+
+    hnsw.search_graph = spy
+    try:
+        g.batch_search_slots(queries, 10, ef=ef)
+    finally:
+        hnsw.search_graph = real
+    return seen
+
+
+def _graph_case(label: str, c: dict) -> dict:
+    """One captured search (``_capture_search``) through K5
+    (core/search.search_graph: one launch of
+    ops/graph_search.graph_search_cuda, its q_sq included), through its
+    plain version in plain PyTorch (core/search.search_graph_reference with
+    K2's twin a layer) and through the parent's path (the same composition
+    with one K2 launch a layer and a host sync a layer) on the same inputs:
+    a failed check unless the ids overlap >= 0.999, the distances of shared
+    ids agree within 1e-5 x max(1, |d|) (1e-3 on int8 blocks that no f32
+    rerank rescored, as K2) and
+    the hop counts a layer are equal. Times the three (median of 5
+    CUDA-event reps, one call each) and puts K5 beside
+    utils/roofline.search_bound_s: each layer's distinct node ids and rows
+    (the twin's ``touched`` ids) and the rerank's distinct rows."""
+    from hnsw_tpu_torch.core import search
+    from hnsw_tpu_torch.ops import beam_search, graph_search
+    from hnsw_tpu_torch.tools import hop_split
+    from hnsw_tpu_torch.utils import roofline
+    dg, q, kw = c["g"], c["q"], c["kw"]
+    metric = kw["metric"]
+    ks, ts, touched = {}, {}, []
+    _beam_reset()
+    kd, ki = search.results_to_host(*search.search_graph(dg, q, stats=ks,
+                                                         **kw), ks)
+    check(graph_search.launches == 1 and beam_search.launches == 0,
+          f"{label}: one K5 launch ({graph_search.launches}), no K2 launch "
+          f"({beam_search.launches})")
+    _beam_reset()
+    with _twin():
+        td, ti = search.results_to_host(*search.search_graph_reference(
+            dg, q, stats=ts, touched=touched, **kw), ts)
+    ov = _overlap(ki, ti)
+    err = abs_err = 0.0
+    for rk, rki, rt, rti in zip(kd, ki, td, ti):
+        pos = {int(x): j for j, x in enumerate(rki) if x >= 0}
+        for j, x in enumerate(rti):
+            if x >= 0 and int(x) in pos:
+                a, b = float(rk[pos[int(x)]]), float(rt[j])
+                abs_err = max(abs_err, abs(a - b))
+                err = max(err, abs(a - b) / max(1.0, abs(b)))
+    P0 = max(kw["ef"], kw["k"])
+    mode0 = beam_search.layer_mode(dg, 0, metric, P0, kw.get("expand", 1),
+                                   kw.get("merge", "sort"))
+    blocks_int8 = mode0 == "blocks" and dg.nbr_blocks.dtype == torch.int8
+    # the f32 rerank reports full f32 distances; 1e-3 only for int8 block
+    # distances that reach the output as layer 0 scored them
+    rerank = (kw.get("device_rerank", True)
+              and (kw.get("fast_math", False) or dg.qvec is not None)
+              and dg.vectors.shape[0] > 1)
+    tol = 1e-3 if blocks_int8 and not rerank else 1e-5
+    check(np.isfinite(kd).all() and ov >= 0.999 and err <= tol
+          and ks["hops"] == ts["hops"],
+          f"{label} (layer 0 {mode0}): K5 against the plain version: id "
+          f"overlap {ov:.5f} >= 0.999, matched dists within {tol:g} x "
+          f"max(1, |d|) ({err:.2e}), hops a layer {ks['hops']} == "
+          f"{ts['hops']}")
+    ms = cuda_ms(lambda: search.search_graph(dg, q, **kw))
+    with graph_search.plain():
+        parent_ms = cuda_ms(lambda: search.search_graph(dg, q, **kw))
+    with _twin():
+        plain_ms = cuda_ms(lambda: search.search_graph_reference(dg, q,
+                                                                 **kw))
+    _beam_reset()
+    # the bound: each layer searched (top first) at its pool and width
+    seeded = kw.get("seed_ids") is not None
+    layer_ids = [0] if seeded else list(range(dg.num_layers - 1, -1, -1))
+    P_up = kw.get("ef_upper", 0) or min(8, P0)
+    precision = "default" if kw.get("fast_math") else "highest"
+    layers = []
+    for layer, t in zip(layer_ids, touched):
+        P = P0 if layer == 0 else P_up
+        E = max(1, min(kw.get("expand", 1), P))
+        mode = beam_search.layer_mode(dg, layer, metric, P, E,
+                                      kw.get("merge", "sort"))
+        score = beam_search.score_code(dg, mode, precision)
+        int8 = (mode == "qrows" or (mode == "blocks"
+                                    and dg.nbr_blocks.dtype == torch.int8))
+        kind = ("int8" if int8 else "bf16" if beam_search.rounds_operands(
+            score, precision) else "fp32")
+        if mode == "blocks":
+            width = min(dg.layer_width(0), dg.nbr_blocks.shape[1])
+            row_bytes = dg.dim * dg.nbr_blocks.element_size()
+        else:
+            width = dg.layer_width(layer)
+            row_bytes = ROW_BYTES[mode](dg.dim)
+        nodes = torch.cat(t.get("nodes", [torch.empty(0)]))
+        rows = torch.cat(t.get("rows", [torch.empty(0)]))
+        layers.append((width, int(torch.unique(nodes).numel()),
+                       int(torch.unique(rows).numel()), int(rows.numel()),
+                       row_bytes, kind))
+    rr_rows = rr_scored = 0
+    if len(touched) > len(layer_ids):
+        rr = touched[-1]["rows"][0]
+        rr_rows, rr_scored = int(torch.unique(rr).numel()), int(rr.numel())
+    rr_bytes = dg.dim * dg.vectors.element_size() + 4
+    S = kw["seed_ids"].shape[1] if seeded else 1
+    bound_s, by = roofline.search_bound_s(len(q), dg.dim, kw["k"], S, layers,
+                                          rr_rows, rr_bytes, rr_scored)
+    bound = bound_s * 1e3
+    lib = graph_search._load()
+    n_up = 0 if seeded else dg.num_layers - 1
+    E0 = max(1, min(kw.get("expand", 1), P0))
+    E_up = max(1, min(kw.get("expand", 1), P_up))
+    nbytes = graph_search.smem_bytes(
+        dg.dim, P_up, E_up, dg.layer_width(1) if n_up else 1, n_up, P0, E0,
+        min(dg.layer_width(0), dg.nbr_blocks.shape[1]) if mode0 == "blocks"
+        else dg.layer_width(0), kw.get("merge", "sort"),
+        min(S, P0))
+    up = graph_search.row_mode(dg)
+    s0 = beam_search.score_code(dg, mode0, precision)
+    su = beam_search.score_code(dg, up, precision)
+    per_sm = lib.graph_search_blocks_per_sm(s0, su, 1, nbytes)
+    with open(os.path.join(beam_search.BUILD_DIR,
+                           "beam_search.ptxas.txt")) as f:
+        inst = (f"K5 {hop_split.SCORE_NAMES[s0]}+{hop_split.SCORE_NAMES[su]}"
+                f"/vec")
+        regs = hop_split.parse_ptxas(f.read()).get(inst, {})
+    print(f"  {label}: K5 {ms:.3f} ms (one call, the wrapper's q_sq "
+          f"included; {inst}: {per_sm} blocks an SM at {nbytes} B, "
+          f"{regs.get('registers')} registers, {regs.get('spill_stores')} "
+          f"B spill stores), bound "
+          f"{bound:.4f} ms ({by}), {bound / ms:.4f} of it; the parent's "
+          f"path (K2 a layer, a sync a layer) {parent_ms:.3f} ms; plain "
+          f"version {plain_ms:.3f} ms; overlap {ov:.5f}, max rel err "
+          f"{err:.2e}, hops a layer {ks['hops']}", flush=True)
+    return {"mode": mode0, "ms": ms, "plain_ms": plain_ms,
+            "parent_ms": parent_ms, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": abs_err, "max_rel_err": err, "overlap": ov,
+            "hops": ks["hops"], "blocks_per_sm": per_sm,
+            "registers": regs.get("registers"),
+            "spill_stores": regs.get("spill_stores")}
+
+
+def phase_graph_kernel(st: dict, smi: str) -> dict:
+    """K5 against its plain version on the card at the graph tier's shape
+    (phase 5's 100,000 x 128 cosine graph, its 1,024 queries), on the
+    searches Graph.batch_search_slots makes: the default mode at ef 64 and
+    192 (f32 rows, the descent through every layer) and bench's mode at
+    ef 192 (fast_math, int8 neighbour blocks, pivot seeds, the f32
+    rerank) (_graph_case). Returns the kernels-line entry (the default
+    mode at ef 64 is the headline)."""
+    g, queries = st["g"], st["queries"]
+    print(f"# K5 graph search vs its plain version, one launch a batch, "
+          f"{N_GRAPH} x {DIM} cosine (median of 5 CUDA-event reps; {smi})",
+          flush=True)
+    cases = {f"default ef={ef}": _capture_search(g, queries, ef)
+             for ef in (64, 192)}
+    saved = {k: getattr(g, k) for k in ("fast_math", "block_layout",
+                                        "entry_mode")}
+    g.fast_math, g.block_layout, g.entry_mode = True, True, "pivots"
+    cases["bench ef=192"] = _capture_search(g, queries, 192)
+    out = {label: _graph_case(label, c) for label, c in cases.items()}
+    for k, v in saved.items():
+        setattr(g, k, v)
+    del cases
+    torch.cuda.empty_cache()
+    head = out["default ef=64"]
+    return dict(GRAPH_KERNEL, name="graph_search",
+                max_abs_err=max(v["max_abs_err"] for v in out.values()),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=None, parent_ms=head["parent_ms"],
+                blocks_per_sm=head["blocks_per_sm"],
+                cases={k: {kk: v[kk] for kk in (
+                    "mode", "ms", "plain_ms", "parent_ms", "bound_ms",
+                    "bound_by", "blocks_per_sm", "registers",
+                    "spill_stores", "hops", "max_abs_err")}
+                       for k, v in out.items()})
 
 
 def phase_beam_kernel(st: dict, smi: str) -> dict:
@@ -1796,8 +2063,8 @@ def phase_graph_modes(st: dict) -> None:
         against_twin(label, 192, ids)
         if DEVICE == "cuda":
             batch = (lambda: g.batch_search_slots(queries, 10, ef=192))
-            _profile_rerank(f"one 1024-query batch, {label} ef=192, kernel",
-                            g, batch, need="beam_search_kernel")
+            _profile_rerank(f"one 1024-query batch, {label} ef=192, K5",
+                            g, batch, need="graph_search_kernel")
             with _twin():
                 _profile_rerank(f"one 1024-query batch, {label} ef=192, "
                                 f"twin", g, batch, need="")
@@ -1827,7 +2094,7 @@ def phase_graph_modes(st: dict) -> None:
           "compact uppers: ids equal the dense layout's at ef=64")
     _beam_read("phase 8 (bench.py's blocks, the capacity modes' int8 and "
                "fp16 rows, the bf16 store, compact uppers)",
-               need=tuple(BEAM_LAUNCHES), covered_only=True)
+               need5=tuple(GRAPH_LAUNCHES), covered_only=True)
 
 
 def _select_case(label: str, ci, cd, vectors, sq, deg: int, metric: str,
@@ -2269,7 +2536,8 @@ def phase_device_builds(st: dict) -> int:
     del gr
     torch.cuda.empty_cache()
     _beam_read("phase 9 (wave builds, refine, serving)",
-               need=("rows", "blocks", "f16rows"), covered_only=True)
+               need=("rows", "blocks", "f16rows"), need5=("rows",),
+               covered_only=True)
     _select_read("phase 9 (wave builds, the fp16 descent, refine, resume)")
     launches = _launches()
     check(launches["wgmma"] >= 2 and launches["wgmma_cp"] == 0,
@@ -2505,8 +2773,8 @@ def phase_sift_shape_build() -> int:
                       f"{rec['full', ef]:.4f} - 0.05")
     g.hbm_mode = "full"
     _beam_read("phase 10 (the 262,144-row wave build and its serving in "
-               "every hbm_mode)", need=("rows", "qrows", "f16rows"),
-               covered_only=True)
+               "every hbm_mode)", need=("rows",),
+               need5=("rows", "qrows", "f16rows"), covered_only=True)
     _select_read("phase 10 (the 262,144-row wave build)")
     s = probe.summary
     check(s is not None and s["launches"] > 0,
@@ -3483,6 +3751,7 @@ def _p17_graphs(mesh, graph: dict) -> None:
     g, base, q_np, gt = (graph[k] for k in ("g", "base", "queries", "gt"))
     dev = mesh.devices[0]
     S = mesh.shape["data"]
+    _beam_reset()
     q = torch.from_numpy(q_np).to(dev)
     g.hbm_mode, g.fast_math, g.entry_mode = "full", False, "descent"
     print(f"# sharded-graph-100k: phase 5's graph ({len(g)} x {DIM} cosine, "
@@ -3563,6 +3832,8 @@ def _p17_graphs(mesh, graph: dict) -> None:
               f"graph {graph['recall'][ef]:.4f}), {len(q_np) / t:.1f} QPS "
               f"(one batch)", flush=True)
     del pg
+    _beam_read("phase 17 (query-sharded, row-sharded, partitioned graphs)",
+               need5=("rows", "f16rows"))
 
 
 def _p17_ivf(mesh, ivf_st: dict) -> None:
@@ -3739,7 +4010,7 @@ def phase_drivers(sweep_small: bool = False, **bench_sizes) -> dict:
     _beam_reset()
     rec = bench.main([] if cuda else ["--device", "cpu"], n=N_BENCH,
                      **bench_sizes)
-    _beam_read("phase 18, tools/bench (its graph rows)", need=("blocks",))
+    _beam_read("phase 18, tools/bench (its graph rows)", need5=("blocks",))
     check(rec["recall"] == 1.0 and rec["exact_fast_recall"] >= 0.999,
           f"bench ({time.perf_counter() - t0:.1f} s): exact recall@10 "
           f"{rec['recall']} == 1.0, fast_math {rec['exact_fast_recall']} "
@@ -3834,6 +4105,7 @@ def main() -> int:
     launches = _add(launches, phase_exact_tier_glove50())
     graph = phase_graph_tier()
     beam = phase_beam_kernel(graph, smi)
+    graph_k = phase_graph_kernel(graph, smi)
     by, kept = phase_capacity_ladder()
     launches = _add(launches, by)
     launches = _add(launches, phase_auto_ladder())
@@ -3864,13 +4136,16 @@ def main() -> int:
     print(f"# smoke: phase 18 took {time.perf_counter() - t_new:.1f} s",
           flush=True)
     check(all(launches[r] > 0 for r in ("wgmma", "wgmma_cp"))
-          and all(n > 0 for n in BEAM_LAUNCHES.values())
+          and all(BEAM_LAUNCHES[m] > 0 for m in ("rows", "blocks",
+                                                  "f16rows"))
+          and all(n > 0 for n in GRAPH_LAUNCHES.values())
           and all(n > 0 for n in CAPACITY_LAUNCHES.values())
           and CAPACITY_ROUTE_LAUNCHES["bf16_ws"] > 0
           and CAPACITY_ROUTE_LAUNCHES["wgmma"] > 0
           and SELECT_LAUNCHES["diverse_select"] > 0,
           f"the main path launched every K1 route: {launches}, K2 in "
-          f"every mode: {BEAM_LAUNCHES}, the capacity screen on every "
+          f"each of the builder's modes: {BEAM_LAUNCHES}, K5 in every "
+          f"mode: {GRAPH_LAUNCHES}, the capacity screen on every "
           f"store: {CAPACITY_LAUNCHES} and both its kernels: "
           f"{CAPACITY_ROUTE_LAUNCHES}, and K4: {SELECT_LAUNCHES}")
     print(f"# smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
@@ -3880,6 +4155,8 @@ def main() -> int:
                                   for r in ("wgmma", "wgmma_cp")] + [
         dict(beam, launches=sum(BEAM_LAUNCHES.values()),
              launches_by_mode=dict(BEAM_LAUNCHES)),
+        dict(graph_k, launches=sum(GRAPH_LAUNCHES.values()),
+             launches_by_mode=dict(GRAPH_LAUNCHES)),
         dict(timing["capacity"],
              launches=(CAPACITY_ROUTE_LAUNCHES["wgmma"]
                        + CAPACITY_ROUTE_LAUNCHES["wgmma_ld"]),

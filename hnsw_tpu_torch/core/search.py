@@ -27,6 +27,13 @@ past the kernel's limits) runs the plain twin,
 host loop that reads ``take.any()`` once per hop. Both count the hops
 (``stats["hops"]``, one entry per layer searched, top layer first).
 Multi-operand ``lax.sort`` is a stable ``torch.sort`` plus ``gather``.
+
+A whole search (``search_graph``: the entries, every upper layer and its
+hand-off, layer 0, the f32 rerank) is one launch of K5
+(``ops/graph_search``) on CUDA, built from K2's device code, with no host
+sync before the results are read; ``search_graph_reference`` is its plain
+version, one ``beam_search_layer`` a layer. The builder's descent and
+refine still call ``beam_search_layer`` (K2) a layer at a time.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 from hnsw_tpu_torch.config import canonical_metric
 from hnsw_tpu_torch.core.state import DeviceGraph
 from hnsw_tpu_torch.ops import beam_search as _kernel
+from hnsw_tpu_torch.ops import graph_search as _graph_kernel
 from hnsw_tpu_torch.ops.distance import (DEFAULT, HIGHEST, INF_DIST,
                                          bf16_round, gathered_dist,
                                          gathered_epilogue, pairwise_dist,
@@ -362,7 +370,85 @@ def search_graph(g: DeviceGraph, queries: torch.Tensor, *, k: int, ef: int,
     traversal-ordered pool (the capacity modes rerank on the host).
     ``seed_ids`` ([B, S] slot ids, -1 padded) replaces the upper-layer
     descent with pre-selected layer-0 entries. ``store_normalized``: the
-    cosine store holds unit rows. ``stats`` collects per-layer hop counts.
+    cosine store holds unit rows. ``stats`` collects per-layer hop counts
+    (``stats["hops"]``, top layer first; on K5's path ``results_to_host``
+    fills it).
+
+    On CUDA the whole search is one launch of the hand-written kernel K5
+    (``ops/graph_search``) where ``ops/graph_search.search_kernel_applies``
+    holds: every layer, the hand-offs and the rerank in one block a query,
+    no host sync. Its hop counts stay on the card as
+    ``stats["hops_by_query"]`` ([layers, B] int32) until
+    ``results_to_host`` reads them with the results, in one copy, and
+    fills ``stats["hops"]``. Every other call runs
+    ``search_graph_reference`` (and on CUDA is counted in
+    ``ops/graph_search.plain_on_cuda``).
+    """
+    metric = canonical_metric(metric)
+    P0 = max(ef, k)
+    P_up = ef_upper if ef_upper > 0 else min(8, P0)
+    n_seed = None if seed_ids is None else int(seed_ids.shape[1])
+    plan = _graph_kernel.search_kernel_applies(g, metric, queries, P0, P_up,
+                                               expand, merge, n_seed)
+    if plan is None:
+        if queries.is_cuda:
+            _graph_kernel.count_plain(g, metric, P0, P_up, expand, merge,
+                                      n_seed)
+        return search_graph_reference(
+            g, queries, k=k, ef=ef, metric=metric, max_hops=max_hops,
+            fast_math=fast_math, expand=expand, ef_upper=ef_upper,
+            device_rerank=device_rerank, seed_ids=seed_ids, merge=merge,
+            store_normalized=store_normalized, stats=stats)
+    d, i, hops = _graph_kernel.graph_search_cuda(
+        g, queries, plan, k=k, P0=P0, P_up=P_up, expand=expand,
+        max_hops=max_hops, metric=metric,
+        precision=DEFAULT if fast_math else HIGHEST, merge=merge,
+        store_normalized=store_normalized,
+        rerank=(device_rerank and (fast_math or g.qvec is not None)
+                and g.vectors.shape[0] > 1), seed_ids=seed_ids)
+    if stats is not None:
+        stats["hops_by_query"] = hops
+    return d, i
+
+
+def results_to_host(d: torch.Tensor, i: torch.Tensor,
+                    stats: Optional[dict] = None):
+    """``search_graph``'s results as numpy arrays (dists, slot ids). Where
+    the kernel left its hop counts on the card (``stats["hops_by_query"]``)
+    they come back in the same device-to-host copy (one copy of K5's
+    output buffer) and ``stats["hops"]`` gets each layer's largest count,
+    the lockstep count the plain version reports."""
+    hq = None if stats is None else stats.get("hops_by_query")
+    if hq is None:
+        dh, ih = _graph_kernel.to_host(d, i)
+    else:
+        dh, ih, hq = _graph_kernel.to_host(d, i, hq)
+        stats["hops_by_query"] = hq
+        stats["hops"] = (hq.amax(1).tolist() if hq.shape[1]
+                         else [0] * hq.shape[0])
+    return dh.numpy(), ih.numpy()
+
+
+def search_graph_reference(g: DeviceGraph, queries: torch.Tensor, *, k: int,
+                           ef: int, metric: str = "cosine",
+                           max_hops: int = 128, fast_math: bool = False,
+                           expand: int = 1, ef_upper: int = 0,
+                           device_rerank: bool = True,
+                           seed_ids: torch.Tensor | None = None,
+                           merge: str = "sort",
+                           store_normalized: bool = False,
+                           stats: Optional[dict] = None,
+                           touched: Optional[list] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``search_graph`` (the same arguments and results) as a composition
+    of one ``beam_search_layer`` a layer: the plain version of K5, and
+    what every call off it runs. On CUDA each layer is a K2 launch and its
+    hop count a host sync; the f32 rerank is about ten eager launches.
+    ``touched`` (a list), when given, gets each layer's
+    ``beam_search_layer_reference`` reads (its ``touched`` dict, top layer
+    first; the twin runs every layer then) and, where the rerank runs, a
+    last dict whose "rows" are the slots it scores: what a roofline bound
+    of the whole search reads.
     """
     metric = canonical_metric(metric)
     precision = DEFAULT if fast_math else HIGHEST
@@ -374,11 +460,16 @@ def search_graph(g: DeviceGraph, queries: torch.Tensor, *, k: int, ef: int,
     P_up = ef_upper if ef_upper > 0 else min(8, P0)
 
     def layer_search(layer, ids, dists, pool):
-        return beam_search_layer(
-            g, layer, queries, q_sq, ids, dists, pool_size=pool,
-            max_hops=max_hops, metric=metric, precision=precision,
-            expand=min(expand, pool), merge=merge,
-            store_normalized=store_normalized, stats=stats)
+        kw = dict(pool_size=pool, max_hops=max_hops, metric=metric,
+                  precision=precision, expand=min(expand, pool),
+                  merge=merge, store_normalized=store_normalized,
+                  stats=stats)
+        if touched is None:
+            return beam_search_layer(g, layer, queries, q_sq, ids, dists,
+                                     **kw)
+        touched.append({})
+        return beam_search_layer_reference(g, layer, queries, q_sq, ids,
+                                           dists, touched=touched[-1], **kw)
 
     if seed_ids is not None:
         safe = torch.clamp(seed_ids, 0, g.cap - 1)
@@ -408,6 +499,8 @@ def search_graph(g: DeviceGraph, queries: torch.Tensor, *, k: int, ef: int,
         # every candidate against row 0.
         R = min(P0, max(2 * k, 16))
         ri = pi[:, :R]
+        if touched is not None:
+            touched.append({"rows": [ri[ri >= 0]]})
         safe = torch.clamp(ri, 0, g.cap - 1).long()
         dd = gathered_dist(queries, g.vectors[safe], g.sq_norms[safe],
                            q_sq, metric=metric, precision=HIGHEST)

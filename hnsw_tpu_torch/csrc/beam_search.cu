@@ -113,6 +113,37 @@
 // before this one, without the table and keys: 41,204), and at ef 512 for
 // D up to 50,164.
 
+//
+// K5: a whole search a launch (graph_search_kernel<SCORE0, SCOREUP, VEC>).
+// Replaces hnsw_tpu/core/search.py:search_graph (:368, the jit program of
+// a batch: _entry_dist :147, the upper-layer loop :427, the f32 rerank
+// :445-468), whose plain version in the port is
+// core/search.py:search_graph_reference: one K2 launch a layer, a host
+// sync a layer for its hop count, and about ten eager launches of entry
+// scoring, hand-off and rerank around them (78 launches and 12 host
+// syncs for a 1,024-query batch of a 9-layer graph). What bounds it is
+// what bounds K2, layer after layer: the slowest query's dependent hops;
+// its bytes and operations are the sum of the layers' (and the rerank's
+// R rows a query), tens of microseconds at the graph tier's shape. The
+// design removes everything between the layers: one block a query runs
+// layer_search (K2's body as a device function) on each layer in turn,
+// from the entries it scores itself (the graph's entry, or the caller's
+// seeds, a warp a row in the upper layers' row mode), handing the pool's
+// best to the next layer in shared memory, then layer 0 in its own mode,
+// then the rerank of the pool's head (a warp a row at full f32, a stable
+// rank by counting in pool order) straight into the [B, k] outputs, and
+// each layer's hop count into [L, B]. No block waits for another, and the
+// host reads nothing before the results. The layers' shapes (P, E, M and
+// the hash table, merge widths and shared-memory offsets that follow from
+// them) are computed on the host for the upper layers and for layer 0;
+// one allocation holds the larger layout, then the entries. SCOREUP is a
+// row mode (the entries are always scored on rows); SCORE0 is the same
+// mode, or int8 / fp16 blocks over any row mode: 15 pairs.
+// __launch_bounds__(128, 8) as K2: a 1,024-query batch stays one wave.
+// At that 64-register cap ptxas spills 112-248 B a thread (two inlined
+// layer bodies and what lives across them); a form that kept the upper
+// tables in shared memory spilled more and ran 3-7% slower.
+
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -535,10 +566,9 @@ __device__ __forceinline__ void elem4(const Params& a, size_t i, float* x) {
   }
 }
 
-// One element (any alignment).
+// One element of ``base`` (any alignment) in scoring mode SCORE.
 template <int SCORE>
-__device__ __forceinline__ float elem(const Params& a, size_t i) {
-  const void* base = is_blocks(SCORE) ? a.blocks : a.vectors;
+__device__ __forceinline__ float elem_at(const void* base, size_t i) {
   if (SCORE == S_F32) return __ldg(static_cast<const float*>(base) + i);
   if (SCORE == S_BF16)
     return bf16r(__ldg(static_cast<const float*>(base) + i));
@@ -547,6 +577,12 @@ __device__ __forceinline__ float elem(const Params& a, size_t i) {
   if (SCORE == S_B16ROW)
     return bf16_lo(__ldg(static_cast<const unsigned short*>(base) + i));
   return __half2float(__ldg(static_cast<const __half*>(base) + i));
+}
+
+// One element of the mode's store (any alignment).
+template <int SCORE>
+__device__ __forceinline__ float elem(const Params& a, size_t i) {
+  return elem_at<SCORE>(is_blocks(SCORE) ? a.blocks : a.vectors, i);
 }
 
 template <int SCORE>
@@ -673,21 +709,49 @@ __device__ __forceinline__ void score_list(
   }
 }
 
-// ---- the kernel -------------------------------------------------------------
+// ---- one layer -------------------------------------------------------------
 
+#ifdef BEAM_PHASE_CLOCKS
+__shared__ long long clk[N_PHASE + 1];
+#endif
+
+// The query row as a scoring mode multiplies it (rounded to bf16 where
+// round_q says so) into qop, at the start of the dynamic shared memory. The
+// caller syncs before it is read.
+__device__ __forceinline__ void load_query(float* qop, const float* q, int D,
+                                           int round_q) {
+  for (int k = threadIdx.x; k < D; k += NT) {
+    const float x = q[k];
+    qop[k] = round_q ? bf16r(x) : x;
+  }
+}
+
+// One layer's beam search for the block's query: the pool starts from the
+// s_in entries (sid, sdist: global or shared memory), the hops run on the
+// layer's neighbour rows ``table`` (through a.upper_map for a compact
+// table of n_rows rows) with the shapes and layout of ``a``, the query
+// (already in qop, as a.round_q has it) and its squared norm qsq. Adds the
+// nodes expanded and candidates scored to n_exp, n_scored and returns the
+// hop count. On return every thread is synced and the pool is in shared
+// memory (a.L.pool_d, a.L.pool_i): ascending, empty slots (INF, -1) last,
+// ids with the expanded flag. K2 (beam_search_kernel) runs one layer a
+// launch; K5 (graph_search_kernel) runs every layer of a search.
 template <int SCORE, bool VEC>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS)
-    beam_search_kernel(Params a) {
+__device__ __forceinline__ int layer_search(const Params& a, const int* table,
+                                            int n_rows, const int* sid,
+                                            const float* sdist, int s_in,
+                                            float qsq, int& n_exp,
+                                            int& n_scored) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool BLOCKS = is_blocks(SCORE);
   constexpr int ES = elem_bytes(SCORE);
-  const int b = blockIdx.x, tid = threadIdx.x;
+  const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int D = a.D, P = a.P, E = a.E, M = a.M, C = a.C, W2 = a.W2;
   const int H = a.H, NS = a.NS, WB = a.WB, sort_merge = a.merge_sort;
   const int mask = H - 1, shift = a.shift;
 #define SMEM(T, name) reinterpret_cast<T*>(smem + a.L.name)
-  float* const qop = reinterpret_cast<float*>(smem);      // D (padded to 4)
+  const float* const qop = reinterpret_cast<const float*>(smem);  // D
   unsigned long long* const tab = SMEM(unsigned long long, tab);   // H
   unsigned long long* const keys = SMEM(unsigned long long, keys);  // NS
   float* const pool_d = SMEM(float, pool_d);              // P
@@ -706,21 +770,12 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   int* const counts = SMEM(int, counts);  // taken, listed, entering
 #undef SMEM
 
-  // the query row as the scoring mode multiplies it
-  const float* q = a.queries + (size_t)b * D;
-  for (int k = tid; k < D; k += NT) {
-    const float x = q[k];
-    qop[k] = a.round_q ? bf16r(x) : x;
-  }
-  const float qsq = a.q_sq[b];
   const float scale = SCORE == S_I8 ? *a.block_scale : 1.0f;
   for (int h = tid; h < H; h += NT) tab[h] = EMPTY;
 
   // pool init: the start entries lead; more than one are sorted stably by
   // distance and adjacent duplicate ids masked, as the twin does
-  const int S = min(a.s_in, P);
-  const int* sid = a.start_ids + (size_t)b * a.s_in;
-  const float* sdist = a.start_d + (size_t)b * a.s_in;
+  const int S = min(s_in, P);
   for (int p = tid; p < P; p += NT) {
     pool_d[p] = p < S ? sdist[p] : INF_DIST;
     pool_i[p] = p < S ? sid[p] : -1;
@@ -747,13 +802,12 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   }
 
 #ifdef BEAM_PHASE_CLOCKS
-  __shared__ long long clk[N_PHASE + 1];
   if (tid == 0) {
     for (int i = 0; i < N_PHASE; ++i) clk[i] = 0;
     clk[N_PHASE] = clock64();
   }
 #endif
-  int hops = 0, n_exp = 0, n_scored = 0;
+  int hops = 0;
   while (hops < a.max_hops) {
     // S. the pool's ids into the table (cleared at init or in the last
     // hop's scoring); warp 0 selects the first E unexpanded finite entries
@@ -812,9 +866,9 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
                       D * ES);
         if (a.upper_map != nullptr) {
           const int u = __ldg(a.upper_map + row);
-          row = u < 0 ? -1 : min(u, a.n_rows - 1);
+          row = u < 0 ? -1 : min(u, n_rows - 1);
         }
-        if (row >= 0) id = __ldg(a.table + (size_t)row * a.width + m);
+        if (row >= 0) id = __ldg(table + (size_t)row * a.width + m);
         if (id >= 0) {
           if (!BLOCKS)
             prefetch_l2(static_cast<const char*>(a.vectors) +
@@ -948,8 +1002,26 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
       PHASE_MARK(PH_COMPACT);
     }
   }
+  return hops;
+}
+
+// ---- K2: one layer a launch ------------------------------------------------
+
+template <int SCORE, bool VEC>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+    beam_search_kernel(Params a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x, tid = threadIdx.x, P = a.P;
+  load_query(reinterpret_cast<float*>(smem), a.queries + (size_t)b * a.D,
+             a.D, a.round_q);
+  int n_exp = 0, n_scored = 0;
+  const int hops = layer_search<SCORE, VEC>(
+      a, a.table, a.n_rows, a.start_ids + (size_t)b * a.s_in,
+      a.start_d + (size_t)b * a.s_in, a.s_in, a.q_sq[b], n_exp, n_scored);
   // the pool is ascending with its empty slots last: the twin's final
   // stable sort leaves it as it is
+  const float* pool_d = reinterpret_cast<const float*>(smem + a.L.pool_d);
+  const int* pool_i = reinterpret_cast<const int*>(smem + a.L.pool_i);
   for (int p = tid; p < P; p += NT) {
     const float d = pool_d[p];
     a.out_d[(size_t)b * P + p] = d;
@@ -966,6 +1038,176 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
       a.clocks[(size_t)b * N_PHASE + i] = clk[i];
 #endif
 }
+
+// ---- K5: every layer of a search a launch ----------------------------------
+
+#ifndef BEAM_PHASE_CLOCKS
+constexpr int MAX_UP = 64;   // upper layers K5 takes
+
+struct GraphParams {
+  Params up;               // the upper layers' shapes, row store, rounding
+  Params l0;               // layer 0's (its table in l0.table)
+  const int* up_table[MAX_UP];   // layer l's neighbour rows at l - 1
+  int up_rows[MAX_UP];           // their rows (compact tables)
+  int n_up;                // upper layers searched: L - 1, or 0 with seeds
+  const int* entry;        // [] the graph's entry slot (no seeds)
+  const int* seeds;        // [B, s_in] layer-0 entries, -1 padded, or null
+  int s_in;
+  int n_seed;              // entries layer 0 starts from: min(s_in, P0), or 1
+  int cap;                 // slots: an id is clamped to cap - 1 to be scored
+  int k;                   // results a query
+  int R;                   // the rerank's window (0: the pool's first k)
+  int rr_score;            // the rerank's rows: S_F32, S_F16ROW or S_B16ROW
+  const void* rr_vectors;  // [cap, D] those rows
+  int seed_off;            // byte offset of the entries in shared memory
+  float* out_d;            // [B, k]
+  int* out_i;              // [B, k]
+  int* hops;               // [n_up + 1, B]: the top layer first
+};
+
+// The distance from the query in qop to row ``id`` of ``vectors`` in row
+// mode SCORE, by one warp (element by element, any alignment; a shuffle
+// sum that leaves the same value in every lane), as _score_hop scores it.
+template <int SCORE>
+__device__ __forceinline__ float row_dist(const void* vectors,
+                                          const float* sq_norms,
+                                          const float* qscale, int metric,
+                                          int D, const float* qop, float qsq,
+                                          int id) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.0f;
+  for (int k = lane; k < D; k += 32)
+    acc = fmaf(qop[k], elem_at<SCORE>(vectors, (size_t)id * D + k), acc);
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
+  if (SCORE == S_Q8ROW) acc = __fmul_rn(acc, __ldg(qscale + id));
+  return epilogue(metric, acc, qsq, __ldg(sq_norms + id));
+}
+
+// The rerank's f32 distance (the query unrounded, the row store's values
+// as f32).
+__device__ __forceinline__ float rerank_dist(const GraphParams& g,
+                                             const float* qop, float qsq,
+                                             int id) {
+  const int D = g.l0.D;
+  if (g.rr_score == S_F16ROW)
+    return row_dist<S_F16ROW>(g.rr_vectors, g.up.sq_norms, nullptr,
+                              g.up.metric, D, qop, qsq, id);
+  if (g.rr_score == S_B16ROW)
+    return row_dist<S_B16ROW>(g.rr_vectors, g.up.sq_norms, nullptr,
+                              g.up.metric, D, qop, qsq, id);
+  return row_dist<S_F32>(g.rr_vectors, g.up.sq_norms, nullptr, g.up.metric,
+                         D, qop, qsq, id);
+}
+
+// One block a query, as K2, through every layer: the entries (the graph's
+// entry, or the caller's seeds) scored in the upper layers' mode SCOREUP;
+// each upper layer's narrow beam (layer_search on its own table), whose
+// best entry, where it has one, is the next layer's entry; layer 0 in its
+// mode SCORE0; then the f32 rerank of the pool's head (R > 0: the first R
+// ids scored at full precision, -1 ids at INF, a stable rank by distance,
+// the first k written, -1 at INF) or the pool's first k. Each layer's hop
+// count goes to its row of ``hops``.
+template <int SCORE0, int SCOREUP, bool VEC>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+    graph_search_kernel(GraphParams g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int D = g.l0.D, B = gridDim.x;
+  const float* q = g.l0.queries + (size_t)b * D;
+  float* const qop = reinterpret_cast<float*>(smem);
+  int* const seed_i = reinterpret_cast<int*>(smem + g.seed_off);
+  float* const seed_d = reinterpret_cast<float*>(seed_i + g.n_seed);
+  const float qsq = g.l0.q_sq[b];
+
+  // 1. the entries, a warp each, as the upper layers score rows
+  load_query(qop, q, D, g.up.round_q);
+  __syncthreads();
+  for (int s = warp; s < g.n_seed; s += NW) {
+    const int id = g.seeds != nullptr
+                       ? __ldg(g.seeds + (size_t)b * g.s_in + s)
+                       : __ldg(g.entry);
+    float d = INF_DIST;
+    if (id >= 0)
+      d = row_dist<SCOREUP>(g.up.vectors, g.up.sq_norms, g.up.qscale,
+                            g.up.metric, D, qop, qsq, min(id, g.cap - 1));
+    if (lane == 0) {
+      seed_i[s] = id >= 0 ? id : -1;
+      seed_d[s] = d;
+    }
+  }
+  __syncthreads();
+
+  // 2. the upper layers, the top first: a pool's best entry, where it has
+  // one, is the next layer's entry
+  int n_exp = 0, n_scored = 0;
+  for (int l = g.n_up; l >= 1; --l) {
+    const int hops = layer_search<SCOREUP, VEC>(
+        g.up, g.up_table[l - 1], g.up_rows[l - 1], seed_i, seed_d, 1, qsq,
+        n_exp, n_scored);
+    if (tid == 0) {
+      g.hops[(size_t)(g.n_up - l) * B + b] = hops;
+      const float d = reinterpret_cast<const float*>(smem + g.up.L.pool_d)[0];
+      const int i = reinterpret_cast<const int*>(smem + g.up.L.pool_i)[0];
+      if (d < INF_DIST && unpack(i) >= 0) {
+        seed_i[0] = unpack(i);
+        seed_d[0] = d;
+      }
+    }
+    __syncthreads();
+  }
+
+  // 3. layer 0 (layer_search's first barrier orders the new query row)
+  load_query(qop, q, D, g.l0.round_q);
+  const int hops0 = layer_search<SCORE0, VEC>(
+      g.l0, g.l0.table, g.l0.n_rows, seed_i, seed_d, g.n_seed, qsq, n_exp,
+      n_scored);
+  const float* pool_d = reinterpret_cast<const float*>(smem + g.l0.L.pool_d);
+  const int* pool_i = reinterpret_cast<const int*>(smem + g.l0.L.pool_i);
+  float* const out_d = g.out_d + (size_t)b * g.k;
+  int* const out_i = g.out_i + (size_t)b * g.k;
+  if (tid == 0) g.hops[(size_t)g.n_up * B + b] = hops0;
+  if (g.R == 0) {
+    for (int p = tid; p < g.k; p += NT) {
+      const float d = pool_d[p];
+      out_d[p] = d;
+      out_i[p] = d >= INF_DIST ? -1 : unpack(pool_i[p]);
+    }
+    return;
+  }
+
+  // 4. the f32 rerank of the pool's head, into layer 0's merge buffer
+  float* const rd = reinterpret_cast<float*>(smem + g.l0.L.buf_d);
+  int* const ri = reinterpret_cast<int*>(smem + g.l0.L.buf_i);
+  load_query(qop, q, D, 0);
+  __syncthreads();
+  for (int r = warp; r < g.R; r += NW) {
+    const float pd = pool_d[r];
+    const int id = pd >= INF_DIST ? -1 : unpack(pool_i[r]);
+    const float d = id >= 0 ? rerank_dist(g, qop, qsq, min(id, g.cap - 1))
+                            : INF_DIST;
+    if (lane == 0) {
+      rd[r] = d;
+      ri[r] = id;
+    }
+  }
+  __syncthreads();
+  // a stable sort by distance (ties in pool order): each entry's rank
+  for (int r = tid; r < g.R; r += NT) {
+    const float d = rd[r];
+    int rank = 0;
+    for (int t = 0; t < g.R; ++t) {
+      const float e = rd[t];
+      rank += (e < d) || (e == d && t < r);
+    }
+    if (rank < g.k) {
+      out_d[rank] = d;
+      out_i[rank] = d >= INF_DIST ? -1 : ri[r];
+    }
+  }
+}
+#endif  // BEAM_PHASE_CLOCKS
 
 int next_pow2(int n) {
   int w = 1;
@@ -1010,6 +1252,24 @@ size_t smem_bytes(int D, int P, int E, int M, int merge_sort) {
   return (size_t)layout(D, P, E, M, merge_sort).bytes;
 }
 
+// A layer's shapes in ``p``: the candidate block, merge widths, table and
+// key slots, the hash's shift and the shared-memory layout.
+void set_shape(Params& p, int D, int P, int E, int M, int merge_sort) {
+  p.D = D;
+  p.P = P;
+  p.E = E;
+  p.M = M;
+  p.merge_sort = merge_sort;
+  p.C = E * M;
+  p.W2 = next_pow2(P + p.C);
+  p.WB = merge_sort ? P : p.W2;
+  p.H = table_slots(P, p.C, merge_sort);
+  p.NS = key_slots(p.C);
+  p.shift = 32;
+  for (int h = p.H; h > 1; h >>= 1) --p.shift;   // 32 - log2(H)
+  p.L = layout(D, P, E, M, merge_sort);
+}
+
 template <int SCORE, bool VEC>
 cudaError_t launch(const Params& p, int B, size_t smem, cudaStream_t st) {
   if (smem > 48 * 1024) {
@@ -1036,6 +1296,68 @@ long long* g_clocks = nullptr;   // the next launch's phase counters
 bool aligned(const void* ptr, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
 }
+
+#ifndef BEAM_PHASE_CLOCKS
+typedef void (*GraphKernel)(GraphParams);
+
+template <int SCORE0, int SCOREUP>
+GraphKernel graph_kernel_vec(bool vec) {
+  return vec ? graph_search_kernel<SCORE0, SCOREUP, true>
+             : graph_search_kernel<SCORE0, SCOREUP, false>;
+}
+
+// layer 0 on neighbour blocks: the upper layers and the entries on any row
+// mode
+template <int SCORE0>
+GraphKernel graph_kernel_up(int up, bool vec) {
+  switch (up) {
+    case S_F32: return graph_kernel_vec<SCORE0, S_F32>(vec);
+    case S_BF16: return graph_kernel_vec<SCORE0, S_BF16>(vec);
+    case S_Q8ROW: return graph_kernel_vec<SCORE0, S_Q8ROW>(vec);
+    case S_F16ROW: return graph_kernel_vec<SCORE0, S_F16ROW>(vec);
+    case S_B16ROW: return graph_kernel_vec<SCORE0, S_B16ROW>(vec);
+    default: return nullptr;
+  }
+}
+
+// K5's instantiation for layer 0's mode and the upper layers' (the same
+// row mode unless layer 0 is on blocks), or null for a pair it lacks
+GraphKernel graph_kernel(int score0, int up, bool vec) {
+  switch (score0) {
+    case S_I8: return graph_kernel_up<S_I8>(up, vec);
+    case S_F16: return graph_kernel_up<S_F16>(up, vec);
+    case S_F32:
+      return up == S_F32 ? graph_kernel_vec<S_F32, S_F32>(vec) : nullptr;
+    case S_BF16:
+      return up == S_BF16 ? graph_kernel_vec<S_BF16, S_BF16>(vec) : nullptr;
+    case S_Q8ROW:
+      return up == S_Q8ROW ? graph_kernel_vec<S_Q8ROW, S_Q8ROW>(vec)
+                           : nullptr;
+    case S_F16ROW:
+      return up == S_F16ROW ? graph_kernel_vec<S_F16ROW, S_F16ROW>(vec)
+                            : nullptr;
+    case S_B16ROW:
+      return up == S_B16ROW ? graph_kernel_vec<S_B16ROW, S_B16ROW>(vec)
+                            : nullptr;
+    default: return nullptr;
+  }
+}
+
+// K5's dynamic shared memory: the larger layout of the layers it searches
+// (layer 0, and the upper layers' when n_up > 0), then the entries (n_seed
+// ids and distances) at *seed_off.
+int graph_smem(int D, int P_up, int E_up, int M_up, int n_up, int P0,
+               int E0, int M0, int merge_sort, int n_seed, int* seed_off) {
+  int o = layout(D, P0, E0, M0, merge_sort).bytes;
+  if (n_up > 0) {
+    const int u = layout(D, P_up, E_up, M_up, merge_sort).bytes;
+    o = u > o ? u : o;
+  }
+  o = (o + 7) & ~7;
+  if (seed_off != nullptr) *seed_off = o;
+  return o + 8 * n_seed;
+}
+#endif  // BEAM_PHASE_CLOCKS
 
 }  // namespace
 
@@ -1082,22 +1404,10 @@ int beam_search_launch(const void* queries, const void* q_sq,
   p.blocks = blocks;
   p.block_m = block_m;
   p.block_scale = static_cast<const float*>(block_scale);
-  p.D = D;
-  p.P = P;
-  p.E = E;
-  p.M = M;
   p.max_hops = max_hops;
   p.metric = metric;
-  p.merge_sort = merge_sort;
   p.normalized = normalized;
-  p.C = E * M;
-  p.W2 = next_pow2(P + p.C);
-  p.WB = merge_sort ? P : p.W2;
-  p.H = table_slots(P, p.C, merge_sort);
-  p.NS = key_slots(p.C);
-  p.shift = 32;
-  for (int h = p.H; h > 1; h >>= 1) --p.shift;   // 32 - log2(H)
-  p.L = layout(D, P, E, M, merge_sort);
+  set_shape(p, D, P, E, M, merge_sort);
   p.out_d = static_cast<float*>(out_d);
   p.out_i = static_cast<int*>(out_i);
   p.hops = static_cast<int*>(hops);
@@ -1189,5 +1499,137 @@ int beam_search_blocks_per_sm(int score, int vec, int smem) {
     return -1;
   return n;
 }
+
+#ifndef BEAM_PHASE_CLOCKS
+// K5's dynamic shared memory of one block, in bytes (ops/graph_search.py
+// computes the same number): n_up upper layers at (P_up, E_up, M_up),
+// layer 0 at (P0, E0, M0), n_seed entries.
+int graph_search_smem_bytes(int D, int P_up, int E_up, int M_up, int n_up,
+                            int P0, int E0, int M0, int merge_sort,
+                            int n_seed) {
+  return graph_smem(D, P_up, E_up, M_up, n_up, P0, E0, M0, merge_sort,
+                    n_seed, nullptr);
+}
+
+// One launch of K5: B blocks, one query each, every layer. queries [B, D]
+// and q_sq [B] f32 as K2 takes them. entry: the
+// graph's entry slot ([] int32) where seeds is null, else seeds [B, s_in]
+// int32, -1 padded (layer 0 starts from the first min(s_in, P0)).
+// up_tables / up_rows: host arrays of the n_up upper layers' neighbour
+// tables (layer l at l - 1; rows through upper_map where it is not null)
+// and their row counts, each up_width wide; table0 [cap, width0] layer 0's.
+// vectors: the upper layers' and the entries' row store (score_up: 0 f32,
+// 1 f32 with bf16 operands, 4 int8 rows with qscale, 5 fp16, 6 bf16), and
+// layer 0's where score0 is a row mode; blocks, block_m, block_scale layer
+// 0's where score0 is 2 (int8) or 3 (fp16). rr_vectors / rr_score (0, 5 or
+// 6): the rerank's rows, over the first R entries of the pool (R = 0: the
+// pool's first k). round_up / round_0: the query rounded to bf16 on the
+// upper layers (and the entries) / on layer 0. Outputs: out_d [B, k] f32,
+// out_i [B, k] int32, hops [n_up + 1, B] int32 (the top layer first).
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a pair
+// of modes or a layer count it lacks).
+int graph_search_launch(
+    const void* queries, const void* q_sq, const void* entry,
+    const void* seeds, int s_in, int n_up, const void* const* up_tables,
+    const int* up_rows, int up_width, const void* upper_map,
+    const void* table0, int width0,
+    const void* vectors, const void* sq_norms, const void* qscale,
+    const void* blocks, int block_m, const void* block_scale,
+    const void* rr_vectors, int rr_score, int R, int k, int B, int D,
+    int cap, int P_up, int E_up, int M_up, int P0, int E0, int M0,
+    int max_hops, int metric, int score_up, int score0, int merge_sort,
+    int normalized, int round_up, int round_0, void* out_d, void* out_i,
+    void* hops, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  if (n_up < 0 || n_up > MAX_UP || is_blocks(score_up))
+    return (int)cudaErrorInvalidValue;
+  GraphParams g;
+  Params* both[2] = {&g.up, &g.l0};
+  for (Params* p : both) {
+    p->queries = static_cast<const float*>(queries);
+    p->q_sq = static_cast<const float*>(q_sq);
+    p->start_ids = nullptr;
+    p->start_d = nullptr;
+    p->s_in = 0;
+    p->vectors = vectors;
+    p->sq_norms = static_cast<const float*>(sq_norms);
+    p->qscale = static_cast<const float*>(qscale);
+    p->blocks = blocks;
+    p->block_m = block_m;
+    p->block_scale = static_cast<const float*>(block_scale);
+    p->max_hops = max_hops;
+    p->metric = metric;
+    p->normalized = normalized;
+    p->out_d = nullptr;
+    p->out_i = nullptr;
+    p->hops = nullptr;
+    p->work = nullptr;
+    p->clocks = nullptr;
+  }
+  set_shape(g.up, D, P_up, E_up, M_up, merge_sort);
+  g.up.table = nullptr;
+  g.up.width = up_width;
+  g.up.upper_map = static_cast<const int*>(upper_map);
+  g.up.n_rows = 0;
+  g.up.round_q = round_up;
+  set_shape(g.l0, D, P0, E0, M0, merge_sort);
+  g.l0.table = static_cast<const int*>(table0);
+  g.l0.width = width0;
+  g.l0.upper_map = nullptr;
+  g.l0.n_rows = cap;
+  g.l0.round_q = round_0;
+  for (int l = 0; l < MAX_UP; ++l) {
+    g.up_table[l] = l < n_up ? static_cast<const int*>(up_tables[l]) : nullptr;
+    g.up_rows[l] = l < n_up ? up_rows[l] : 0;
+  }
+  g.n_up = n_up;
+  g.entry = static_cast<const int*>(entry);
+  g.seeds = static_cast<const int*>(seeds);
+  g.s_in = s_in;
+  g.n_seed = seeds != nullptr ? (s_in < P0 ? s_in : P0) : 1;
+  if (g.n_seed < 1) return (int)cudaErrorInvalidValue;
+  g.cap = cap;
+  g.k = k;
+  g.R = R;
+  g.rr_score = rr_score;
+  g.rr_vectors = rr_vectors;
+  g.out_d = static_cast<float*>(out_d);
+  g.out_i = static_cast<int*>(out_i);
+  g.hops = static_cast<int*>(hops);
+  const size_t smem = (size_t)graph_smem(D, P_up, E_up, M_up, n_up, P0, E0,
+                                         M0, merge_sort, g.n_seed,
+                                         &g.seed_off);
+  // whole-row vector loads, as K2 takes them: D % 4 == 0 and every scored
+  // store's base aligned to 4 elements
+  const uintptr_t row_align = 4 * elem_bytes(score_up);
+  bool vec = D % 4 == 0 && aligned(vectors, row_align);
+  if (is_blocks(score0)) vec = vec && aligned(blocks, 4 * elem_bytes(score0));
+  const GraphKernel f = graph_kernel(score0, score_up, vec);
+  if (f == nullptr) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  f<<<B, NT, smem, static_cast<cudaStream_t>(stream)>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks an SM of one K5 instantiation at ``smem`` bytes of
+// dynamic shared memory, or -1 for a pair of modes it lacks.
+int graph_search_blocks_per_sm(int score0, int score_up, int vec, int smem) {
+  const GraphKernel f = graph_kernel(score0, score_up, vec != 0);
+  int n = 0;
+  if (f == nullptr) return -1;
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, f, NT, smem) !=
+      cudaSuccess)
+    return -1;
+  return n;
+}
+#endif  // BEAM_PHASE_CLOCKS
 
 }  // extern "C"

@@ -30,7 +30,8 @@ import torch
 from hnsw_tpu_torch.config import GraphConfig, canonical_dtype, \
     canonical_metric
 from hnsw_tpu_torch.core import host_build
-from hnsw_tpu_torch.core.search import pivot_seeds, search_graph
+from hnsw_tpu_torch.core.search import (pivot_seeds, results_to_host,
+                                        search_graph)
 from hnsw_tpu_torch.core.state import (DeviceGraph, _int8_block_fit,
                                        bucket_pow2, from_host)
 from hnsw_tpu_torch.index.exact import default_device
@@ -638,7 +639,9 @@ class Graph:
         q_pad = bucket_pow2(nq)
         if q_pad != nq:
             queries = np.pad(queries, ((0, q_pad - nq), (0, 0)))
-        q = torch.from_numpy(queries).to(self.device)
+        # no host sync before the results are read: a pageable copy that
+        # PyTorch need not wait for (the CUDA runtime stages it at once)
+        q = torch.from_numpy(queries).to(self.device, non_blocking=True)
         pool = max(ef, k)
         expand = self.cfg.search_expand
         hops = max(self.cfg.max_hops, -(-2 * pool // expand))
@@ -649,6 +652,8 @@ class Graph:
                                    s=min(self.seed_width, pool),
                                    metric=self.metric,
                                    fast_math=self.fast_math)
+        # the results and the hop counts come off the card in one copy
+        # (results_to_host), with no host sync before it on K5's path
         stats: dict = {}
         kw = dict(ef=ef, metric=self.metric, max_hops=hops, expand=expand,
                   fast_math=self.fast_math, seed_ids=seed_ids,
@@ -658,13 +663,13 @@ class Graph:
             # traversal-ordered pool head off the device; exact f32 rerank
             # on the host against the store
             R = min(max(2 * k, 32), max(pool, k))
-            _, i = search_graph(g, q, k=R, device_rerank=False, **kw)
+            _, i = results_to_host(*search_graph(
+                g, q, k=R, device_rerank=False, **kw), stats)
             self.last_search_hops = stats["hops"]
-            return self._host_rerank(queries[:nq], i[:nq].cpu().numpy(), k)
-        d, i = search_graph(g, q, k=k, **kw)
+            return self._host_rerank(queries[:nq], i[:nq], k)
+        d, i = results_to_host(*search_graph(g, q, k=k, **kw), stats)
         self.last_search_hops = stats["hops"]
-        return (d[:nq].cpu().numpy(),
-                i[:nq].cpu().numpy().astype(np.int64))
+        return d[:nq], i[:nq].astype(np.int64)
 
     def _pivot_slots_host(self) -> np.ndarray:
         """Host-side pivot subset for the native engine's seeded entry:

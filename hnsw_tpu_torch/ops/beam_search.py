@@ -90,10 +90,12 @@ def build(defines=(), build_dir: Optional[str] = None,
         return so
     os.makedirs(build_dir, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
+    # --split-compile=0: the optimizer runs on every core, over the
+    # source's 44 kernel instantiations (K2's 14, K5's 30)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", *(f"-D{m}" for m in defines), source,
-           "-o", tmp]
+           "--split-compile=0", "-Xptxas", "-v",
+           *(f"-D{m}" for m in defines), source, "-o", tmp]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")

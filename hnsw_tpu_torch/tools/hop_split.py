@@ -75,16 +75,23 @@ N_GRAPH, DIM, N_QUERIES = 100_000, 128, 1024
 def parse_ptxas(text: str) -> Dict[str, dict]:
     """ptxas's ``-v`` report -> {"f32/vec": {"registers", "spill_stores",
     "spill_loads", "stack"}, ...}, one entry a beam_search_kernel
-    instantiation (``SCORE_NAMES``, "vec" or "scalar" loads)."""
+    instantiation (``SCORE_NAMES``, "vec" or "scalar" loads), and "K5
+    int8+bf16/vec", ... one a graph_search_kernel instantiation (layer 0's
+    mode, then the upper layers')."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\S+?)'?(?: for|$)", line)
         if m:
             k = re.search(r"beam_search_kernelILi(\d)ELb([01])E", m.group(1))
+            k5 = re.search(r"graph_search_kernelILi(\d)ELi(\d)ELb([01])E",
+                           m.group(1))
             name = (f"{SCORE_NAMES[int(k.group(1))]}/"
-                    f"{'vec' if k.group(2) == '1' else 'scalar'}"
-                    if k else None)
+                    f"{'vec' if k.group(2) == '1' else 'scalar'}" if k
+                    else f"K5 {SCORE_NAMES[int(k5.group(1))]}+"
+                    f"{SCORE_NAMES[int(k5.group(2))]}/"
+                    f"{'vec' if k5.group(3) == '1' else 'scalar'}" if k5
+                    else None)
             continue
         if name is None:
             continue
@@ -309,6 +316,7 @@ def capture_cases(g, queries: np.ndarray, base: np.ndarray,
     graph tier Graph), as ``layer0_call`` returns it; the Graph's serving
     attributes are left as they were."""
     from hnsw_tpu_torch.core import build, search
+    from hnsw_tpu_torch.ops import graph_search
 
     def graph_case(ef, store_dtype=None, **modes):
         saved = {k: getattr(g, k) for k in modes}
@@ -319,8 +327,11 @@ def capture_cases(g, queries: np.ndarray, base: np.ndarray,
             g.cfg = dataclasses.replace(cfg, store_dtype=store_dtype)
             g._dirty = True
         try:
-            return layer0_call(
-                lambda: g.batch_search_slots(queries, 10, ef=ef), search)
+            # the plain search composes one beam_search_layer a layer, so
+            # its layer-0 call is the one K5 makes inside its launch
+            with graph_search.plain():
+                return layer0_call(
+                    lambda: g.batch_search_slots(queries, 10, ef=ef), search)
         finally:
             for k, v in saved.items():
                 setattr(g, k, v)

@@ -73,6 +73,18 @@ def device_events(path: str) -> list:
             for e in events if e.get("cat") in DEVICE_CATEGORIES]
 
 
+def host_syncs(path: str) -> int:
+    """The host's waits for the card in a Chrome trace ``device_trace``
+    wrote: its ``cudaStreamSynchronize`` runtime calls (every ``.cpu()``,
+    ``.item()`` or ``int()`` of a card tensor; ``trace_summary``'s own
+    ``torch.cuda.synchronize`` is a ``cudaDeviceSynchronize`` and is not
+    counted)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sum(e.get("cat") == "cuda_runtime"
+               and e.get("name") == "cudaStreamSynchronize" for e in events)
+
+
 def kernel_events(path: str) -> int:
     """The CUDA kernel events in a Chrome trace ``device_trace`` wrote."""
     return sum(cat == "kernel" for cat, _, _ in device_events(path))
@@ -82,9 +94,12 @@ def trace_summary(fn) -> Optional[dict]:
     """One call of ``fn`` inside ``device_trace`` (a temporary directory):
     its wall ms on the host clock (to the card's sync), the device ms of
     its kernels, copies and sets, its kernel launches, the device's idle
-    share of the wall, and the device ms by event name (``by_name``).
-    None when the card recorded no kernel event (``device_trace`` raised):
-    a trace that lost its events would give a false split."""
+    share of the wall, the device ms by event name (``by_name``), the
+    kernel launches by name (``launches_by_name``), the copies and sets by
+    name (``copies``) and the host's waits for the card (``syncs``,
+    ``host_syncs``). None when the card recorded no kernel event
+    (``device_trace`` raised): a trace that lost its events would give a
+    false split."""
     cuda = torch.cuda.is_available()
     with tempfile.TemporaryDirectory() as td:
         try:
@@ -98,16 +113,22 @@ def trace_summary(fn) -> Optional[dict]:
             if "no CUDA kernel event" not in str(e):
                 raise
             return None
-        events = [e for path in sorted(glob.glob(os.path.join(td, "*.json")))
-                  for e in device_events(path)]
+        paths = sorted(glob.glob(os.path.join(td, "*.json")))
+        events = [e for path in paths for e in device_events(path)]
+        syncs = sum(host_syncs(path) for path in paths)
     by_name: Dict[str, float] = {}
-    for _, name, us in events:
+    launches: Dict[str, int] = {}
+    copies: Dict[str, int] = {}
+    for cat, name, us in events:
         by_name[name] = by_name.get(name, 0.0) + us / 1e3
+        counts = launches if cat == "kernel" else copies
+        counts[name] = counts.get(name, 0) + 1
     device_ms = sum(by_name.values())
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "launches": sum(cat == "kernel" for cat, _, _ in events),
+            "launches": sum(launches.values()),
             "idle_share": max(0.0, 1.0 - device_ms / wall_ms) if wall_ms
-            else 0.0, "by_name": by_name}
+            else 0.0, "by_name": by_name, "launches_by_name": launches,
+            "copies": copies, "syncs": syncs}
 
 
 class Timer:

@@ -29,7 +29,7 @@ from __future__ import annotations
 import os
 import statistics
 import time
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -130,6 +130,40 @@ def hop_bound_s(n_queries: int, d: int, pool: int, starts: int, width: int,
              + 4 * width * nodes + row_bytes * rows)
     t_bytes = moved / peaks["hbm_bytes_s"]
     t_ops = 2.0 * d * scored / peaks[kind]
+    if t_ops >= t_bytes:
+        return t_ops, "operations"
+    return t_bytes, "bytes"
+
+
+def search_bound_s(n_queries: int, d: int, k: int, starts: int,
+                   layers: Sequence[Tuple[int, int, int, int, int, str]],
+                   rerank_rows: int = 0, rerank_row_bytes: int = 0,
+                   rerank_scored: int = 0) -> Tuple[float, str]:
+    """(seconds, "bytes" | "operations"): the least time on the H100 SXM of
+    a whole graph search (the K5 kernel, ops/graph_search) for
+    ``n_queries`` queries. ``layers`` holds, for each layer searched,
+    (width, nodes, rows, scored, row_bytes, kind) as ``hop_bound_s`` takes
+    them: the neighbour ids of ``nodes`` distinct nodes, ``row_bytes`` of
+    each of ``rows`` distinct rows, ``scored`` candidates scored with
+    operands of type ``kind``. The rerank reads ``rerank_row_bytes`` of
+    each of ``rerank_rows`` distinct rows and scores ``rerank_scored``
+    candidates at fp32. It is the larger of the bytes the launch must move
+    over the HBM rate (each query row and squared norm and its ``starts``
+    entry ids once, each layer's distinct node ids and rows once, the
+    rerank's rows once, the [n_queries, k] distances and ids and one hop
+    count a layer and query written once; the pools between layers never
+    leave the chip) and the operations (2 d a scored candidate) over the
+    peaks of their types, summed over the layers. At or below the sum of
+    ``hop_bound_s`` over the same layers, which writes every layer's
+    pool."""
+    peaks = PEAKS[H100_SXM]
+    moved = (n_queries * (4 * d + 4 + 4 * starts + 8 * k + 4 * len(layers))
+             + rerank_row_bytes * rerank_rows)
+    t_ops = 2.0 * d * rerank_scored / peaks["fp32"]
+    for width, nodes, rows, scored, row_bytes, kind in layers:
+        moved += 4 * width * nodes + row_bytes * rows
+        t_ops += 2.0 * d * scored / peaks[kind]
+    t_bytes = moved / peaks["hbm_bytes_s"]
     if t_ops >= t_bytes:
         return t_ops, "operations"
     return t_bytes, "bytes"

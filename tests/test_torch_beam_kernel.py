@@ -831,11 +831,14 @@ def test_kernel_odd_width_takes_scalar_loads(cuda, layout):
 @pytest.mark.parametrize("mode", ["default", "bench", "quantized", "float16",
                                   "bfloat16"])
 def test_graph_search_launches_once_per_layer(cuda, mode):
-    """Graph.batch_search_slots on the card: one launch a layer searched
-    (bench's mode: layer 0 on blocks; each hbm_mode and the bf16 store:
-    every layer in its store's mode), no layer on the twin, and the
-    results the twin gives on the same graph."""
+    """Graph.batch_search_slots on the card: since K5 one launch a batch,
+    whatever the layer count (bench's mode: layer 0 on blocks; each
+    hbm_mode and the bf16 store: every layer in its store's mode), no K2
+    launch and no search on the plain version; the same hops a layer as
+    the plain version with one K2 launch a layer; and the results the
+    plain twin (no K2, no K5) gives on the same graph."""
     import dataclasses
+    from hnsw_tpu_torch.ops import graph_search as gs
     v = _data(3, 6000)
     q = _data(4, 64)
     g = hnsw_tpu_torch.Graph(m=8, ef_construction=64, seed=0, device=cuda)
@@ -850,23 +853,34 @@ def test_graph_search_launches_once_per_layer(cuda, mode):
     elif mode == "bfloat16":
         g.cfg = dataclasses.replace(g.cfg, store_dtype="bfloat16")
         g._dirty = True
-    _reset()
+
+    def reset():
+        _reset()
+        gs.launches = 0
+        gs.launches_by_mode.update(dict.fromkeys(bs.MODES, 0))
+        gs.plain_on_cuda.update(mode=0, size=0, other=0)
+
+    reset()
     d, i = g.batch_search_slots(q, 10, ef=64)
     layers = 1 if mode == "bench" else g.device_graph().num_layers
-    assert bs.launches == layers == len(g.last_search_hops)
-    assert bs.twin_layers_on_cuda == {"mode": 0, "size": 0, "other": 0}
-    want = dict.fromkeys(bs.MODES, 0)
-    want[{"default": "rows", "bench": "blocks", "quantized": "qrows",
-          "float16": "f16rows", "bfloat16": "bf16rows"}[mode]] = layers
-    assert bs.launches_by_mode == want
-    real = bs.hop_kernel_applies
-    try:
-        bs.hop_kernel_applies = lambda *a, **k: False
-        _reset()
+    mode0 = {"default": "rows", "bench": "blocks", "quantized": "qrows",
+             "float16": "f16rows", "bfloat16": "bf16rows"}[mode]
+    assert gs.launches == 1 and bs.launches == 0
+    assert len(g.last_search_hops) == layers
+    assert gs.plain_on_cuda == {"mode": 0, "size": 0, "other": 0}
+    assert gs.launches_by_mode == {m: int(m == mode0) for m in bs.MODES}
+    hops = list(g.last_search_hops)
+    with gs.plain():
+        reset()
+        g.batch_search_slots(q, 10, ef=64)
+        assert gs.launches == 0 and bs.launches == layers
+        assert bs.twin_layers_on_cuda == {"mode": 0, "size": 0, "other": 0}
+    assert g.last_search_hops == hops
+    with gs.plain(twin=True):
+        reset()
         dt, it = g.batch_search_slots(q, 10, ef=64)
-        assert bs.launches == 0
-    finally:
-        bs.hop_kernel_applies = real
+        assert gs.launches == 0 and bs.launches == 0
+    assert g.last_search_hops == hops
     ov, err = _overlap_and_err(d, i, dt, it)
     assert ov >= 0.99 and err <= 1e-5, (ov, err)
 

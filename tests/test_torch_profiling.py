@@ -87,10 +87,22 @@ def test_device_events_lists_kernels_copies_and_sets(tmp_path):
         ("gpu_memset", "Memset", 0.5)]
 
 
+def test_host_syncs_counts_stream_synchronize_calls(tmp_path):
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": [
+        {"cat": "cuda_runtime", "name": "cudaStreamSynchronize"},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel"},
+        {"cat": "cuda_runtime", "name": "cudaDeviceSynchronize"},
+        {"cat": "cpu_op", "name": "cudaStreamSynchronize"},
+        {"cat": "cuda_runtime", "name": "cudaStreamSynchronize"}]}))
+    assert profiling.host_syncs(str(path)) == 2
+
+
 def test_trace_summary_splits_one_call(monkeypatch):
     """trace_summary: one call in device_trace, the device ms of its
-    kernels, copies and sets by name, its kernel launches and the idle
-    share of its wall time (the trace's events scripted here)."""
+    kernels, copies and sets by name, its kernel launches and copies by
+    name, the host's syncs and the idle share of its wall time (the
+    trace's device events scripted here)."""
     calls = []
     monkeypatch.setattr(profiling, "device_events", lambda path: [
         ("kernel", "k", 1000.0), ("kernel", "k", 500.0),
@@ -101,6 +113,8 @@ def test_trace_summary_splits_one_call(monkeypatch):
     assert calls == [1]
     assert s["by_name"] == {"k": 1.5, "Memcpy DtoH": 0.25}
     assert s["launches"] == 2 and s["device_ms"] == 1.75
+    assert s["launches_by_name"] == {"k": 2}
+    assert s["copies"] == {"Memcpy DtoH": 1} and s["syncs"] == 0
     assert s["wall_ms"] == pytest.approx(4.0)
     assert s["idle_share"] == pytest.approx(1 - 1.75 / 4.0)
 

@@ -162,3 +162,32 @@ def test_screen_bound_bytes_by_store(store, value_bytes, scale_bytes):
         + 8 * kk
     assert by == "bytes" and s == moved / 3.35e12
     assert roofline.STORE_BYTES[store] == value_bytes
+
+
+def test_search_bound_counts_each_layer_once_and_no_pools():
+    """K5's bound: every layer's distinct node ids and rows, the rerank's
+    rows and the outputs, once; the operations summed by type. It sits at
+    or below the sum of hop_bound_s over the same layers, which also
+    writes and reads every layer's pool."""
+    layers = [(16, 900, 4_000, 30_000, 516, "fp32"),
+              (32, 40_000, 90_000, 1_500_000, 516, "fp32")]
+    t, by = roofline.search_bound_s(1024, 128, 10, 1, layers, 18_000, 516,
+                                    20_480)
+    peaks = roofline.PEAKS[roofline.H100_SXM]
+    moved = (1024 * (4 * 128 + 4 + 4 + 8 * 10 + 4 * 2)
+             + 4 * 16 * 900 + 516 * 4_000 + 4 * 32 * 40_000
+             + 516 * 90_000 + 516 * 18_000)
+    ops_s = 2.0 * 128 * (30_000 + 1_500_000 + 20_480) / peaks["fp32"]
+    assert by == "bytes" and t == pytest.approx(moved / peaks["hbm_bytes_s"])
+    assert ops_s < t
+    per_layer = sum(roofline.hop_bound_s(1024, 128, 64, 1, w, n, r, sc, rb,
+                                         kind)[0]
+                    for w, n, r, sc, rb, kind in layers)
+    assert t <= per_layer + 516 * 18_000 / peaks["hbm_bytes_s"]
+    # int8 operands: the rows' bytes bound it
+    t8, by8 = roofline.search_bound_s(
+        1024, 128, 10, 16, [(32, 40_000, 90_000, 1_500_000, 128, "int8")])
+    assert by8 == "bytes"
+    assert t8 == pytest.approx(
+        (1024 * (4 * 128 + 4 + 4 * 16 + 8 * 10 + 4) + 4 * 32 * 40_000
+         + 128 * 90_000) / peaks["hbm_bytes_s"])
