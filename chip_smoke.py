@@ -12,8 +12,8 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    wgmma screen, fed by TMA, route "wgmma", or by cp.async, route
    "wgmma_cp"; csrc/beam_search.cu: K2, one graph layer's beam search a
    launch, and K5, a whole search a launch, and the same source with
-   -DBEAM_PHASE_CLOCKS (K2 alone) for phase 5b's
-   hop split; csrc/diverse_select.cu: K4, one call of the wave builder's
+   -DBEAM_PHASE_CLOCKS (K2 alone) and with -DGRAPH_PHASE_CLOCKS for phase
+   5b's splits of K2's hop and K5's launch; csrc/diverse_select.cu: K4, one call of the wave builder's
    neighbour selection a launch), and the native host engine;
 3. kernel vs plain: exact_topk_fused through each K1 route against the
    same wrapper with the plain torch screen in its place, on the card;
@@ -76,8 +76,12 @@ call real, and fails (non-zero exit, no result line) on any failed check:
    Graph makes (default mode ef 64 / 192, bench's mode ef 192): one
    launch each, id overlap >= 0.999, distances within 1e-5 x max(1, |d|)
    (1e-3 on int8 blocks), hops a layer equal; its ms beside its bound
-   (utils/roofline.search_bound_s), the plain version's and the parent's
-   path's ms, and its resident blocks an SM;
+   (utils/roofline.search_bound_s over the distinct node ids and rows,
+   and without reuse across queries), the plain version's and the
+   parent's path's ms, its registers and spills, its resident blocks an
+   SM (checked: 8), and where a launch's cycles go by layer group
+   and hop phase (tools/graph_split.py, the build with
+   -DGRAPH_PHASE_CLOCKS made in phase 2);
 6. exact capacity ladder at BIGANN-10M's shape (10,000,000 x 128, L2,
    k=10; synthetic rows from a seed): the float32 rung through the kernel,
    checked against a chunked numpy scan, then hbm_dtype int8, bf16 and
@@ -292,6 +296,9 @@ GRAPH_LAUNCHES = dict.fromkeys(("rows", "blocks", "qrows", "f16rows",
 #: where phase 5b builds K2 with its phase counters (tools/hop_split.py)
 HOP_SPLIT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "build", "hop_split_clocks")
+#: where phase 5b builds K5 with its phase counters (tools/graph_split.py)
+GRAPH_SPLIT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "graph_split_clocks")
 #: where phase 8b builds K4 with its phase counters (tools/select_split.py)
 SELECT_SPLIT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "build", "select_split_clocks")
@@ -360,7 +367,7 @@ def phase_build() -> None:
 
     from hnsw_tpu_torch import native
     from hnsw_tpu_torch.ops import beam_search, diverse_select, exact_screen
-    from hnsw_tpu_torch.tools import hop_split, select_split
+    from hnsw_tpu_torch.tools import graph_split, hop_split, select_split
     took, errors = {}, []
 
     def load(name, fn):
@@ -378,6 +385,8 @@ def phase_build() -> None:
                 ("diverse_select.cu", diverse_select._load),
                 ("beam_search.cu -DBEAM_PHASE_CLOCKS",
                  lambda: hop_split.clocks_library(HOP_SPLIT_DIR)),
+                ("beam_search.cu -DGRAPH_PHASE_CLOCKS",
+                 lambda: graph_split.clocks_library(GRAPH_SPLIT_DIR)),
                 ("diverse_select.cu -DSELECT_PHASE_CLOCKS",
                  lambda: diverse_select.build((select_split.CLOCKS,),
                                               SELECT_SPLIT_DIR)))]
@@ -1452,7 +1461,7 @@ def _graph_case(label: str, c: dict) -> dict:
     layer_ids = [0] if seeded else list(range(dg.num_layers - 1, -1, -1))
     P_up = kw.get("ef_upper", 0) or min(8, P0)
     precision = "default" if kw.get("fast_math") else "highest"
-    layers = []
+    layers, every_read = [], []
     for layer, t in zip(layer_ids, touched):
         P = P0 if layer == 0 else P_up
         E = max(1, min(kw.get("expand", 1), P))
@@ -1474,6 +1483,9 @@ def _graph_case(label: str, c: dict) -> dict:
         layers.append((width, int(torch.unique(nodes).numel()),
                        int(torch.unique(rows).numel()), int(rows.numel()),
                        row_bytes, kind))
+        # without reuse across queries: every node and row read again
+        every_read.append((width, int(nodes.numel()), int(rows.numel()),
+                           int(rows.numel()), row_bytes, kind))
     rr_rows = rr_scored = 0
     if len(touched) > len(layer_ids):
         rr = touched[-1]["rows"][0]
@@ -1483,15 +1495,14 @@ def _graph_case(label: str, c: dict) -> dict:
     bound_s, by = roofline.search_bound_s(len(q), dg.dim, kw["k"], S, layers,
                                           rr_rows, rr_bytes, rr_scored)
     bound = bound_s * 1e3
+    no_reuse = roofline.search_bound_s(len(q), dg.dim, kw["k"], S,
+                                       every_read, rr_scored, rr_bytes,
+                                       rr_scored)[0] * 1e3
     lib = graph_search._load()
-    n_up = 0 if seeded else dg.num_layers - 1
-    E0 = max(1, min(kw.get("expand", 1), P0))
-    E_up = max(1, min(kw.get("expand", 1), P_up))
-    nbytes = graph_search.smem_bytes(
-        dg.dim, P_up, E_up, dg.layer_width(1) if n_up else 1, n_up, P0, E0,
-        min(dg.layer_width(0), dg.nbr_blocks.shape[1]) if mode0 == "blocks"
-        else dg.layer_width(0), kw.get("merge", "sort"),
-        min(S, P0))
+    plan = graph_search.search_kernel_applies(
+        dg, metric, q, P0, P_up, kw.get("expand", 1), kw.get("merge", "sort"),
+        S if seeded else None)
+    nbytes = plan["smem"]
     up = graph_search.row_mode(dg)
     s0 = beam_search.score_code(dg, mode0, precision)
     su = beam_search.score_code(dg, up, precision)
@@ -1501,16 +1512,35 @@ def _graph_case(label: str, c: dict) -> dict:
         inst = (f"K5 {hop_split.SCORE_NAMES[s0]}+{hop_split.SCORE_NAMES[su]}"
                 f"/vec")
         regs = hop_split.parse_ptxas(f.read()).get(inst, {})
+    check(per_sm == 8, f"{label}: {inst} keeps 8 blocks an SM ({per_sm}) "
+          f"at {nbytes} B ({regs.get('registers')} registers, "
+          f"{regs.get('spill_stores')} B spill stores)")
+    split = None
+    if DEVICE == "cuda":
+        from hnsw_tpu_torch.tools import graph_split
+        split = graph_split.split_case(
+            lib, graph_split.clocks_library(GRAPH_SPLIT_DIR), c,
+            cuda_ms(lambda: search.search_graph(dg, q, **kw)))
+        for line in graph_split.format_report(f"{label} split", split):
+            print(line, flush=True)
     print(f"  {label}: K5 {ms:.3f} ms (one call, the wrapper's q_sq "
           f"included; {inst}: {per_sm} blocks an SM at {nbytes} B, "
-          f"{regs.get('registers')} registers, {regs.get('spill_stores')} "
-          f"B spill stores), bound "
-          f"{bound:.4f} ms ({by}), {bound / ms:.4f} of it; the parent's "
+          f"{regs.get('registers')} registers, "
+          f"{regs.get('spill_stores')} B spill stores), bound "
+          f"{bound:.4f} ms ({by}), {bound / ms:.4f} of it, without reuse "
+          f"across queries {no_reuse:.4f} ms ({no_reuse / ms:.4f}); the "
+          f"parent's "
           f"path (K2 a layer, a sync a layer) {parent_ms:.3f} ms; plain "
           f"version {plain_ms:.3f} ms; overlap {ov:.5f}, max rel err "
           f"{err:.2e}, hops a layer {ks['hops']}", flush=True)
     return {"mode": mode0, "ms": ms, "plain_ms": plain_ms,
+            "split": None if split is None else {
+                g: {"share": v["share"], "cycles_per_hop":
+                    v["cycles_per_hop"], "rows_per_query":
+                    v["rows_per_query"]}
+                for g, v in split["groups"].items()},
             "parent_ms": parent_ms, "bound_ms": bound, "bound_by": by,
+            "no_reuse_bound_ms": no_reuse,
             "max_abs_err": abs_err, "max_rel_err": err, "overlap": ov,
             "hops": ks["hops"], "blocks_per_sm": per_sm,
             "registers": regs.get("registers"),
@@ -1548,9 +1578,10 @@ def phase_graph_kernel(st: dict, smi: str) -> dict:
                 library_ms=None, parent_ms=head["parent_ms"],
                 blocks_per_sm=head["blocks_per_sm"],
                 cases={k: {kk: v[kk] for kk in (
-                    "mode", "ms", "plain_ms", "parent_ms", "bound_ms",
-                    "bound_by", "blocks_per_sm", "registers",
-                    "spill_stores", "hops", "max_abs_err")}
+                    "mode", "ms", "plain_ms", "parent_ms",
+                    "bound_ms", "no_reuse_bound_ms", "bound_by",
+                    "blocks_per_sm", "registers",
+                    "spill_stores", "hops", "max_abs_err", "split")}
                        for k, v in out.items()})
 
 

@@ -75,10 +75,11 @@
 //      [5; a hop of the block-wide path has 8-13]
 //
 // Block barriers a hop: 5 (4 when no candidate enters), against about 20
-// before. __launch_bounds__(128, 8): at most 64 registers a thread, so
-// eight blocks fit an SM (132 x 8 = 1,056 >= a batch of 1,024 in one
-// wave) while each needs under 28 KB of shared memory (P + E*M <= 512 at
-// D = 128, E*M = 128).
+// before. Where 32 or fewer candidates enter, R sorts them one a lane (15
+// stages, not 21 on two). __launch_bounds__(128, 8): at most 64 registers
+// a thread, so eight blocks fit an SM (132 x 8 = 1,056 >= a batch of 1,024
+// in one wave) while each needs under 28 KB of shared memory (P + E*M <=
+// 512 at D = 128, E*M = 128).
 //
 // Precision, as the twin's _score_hop / _score_blocks: f32 rows at HIGHEST
 // multiply in f32; at DEFAULT both operands are rounded to bf16 first;
@@ -140,9 +141,30 @@
 // row mode (the entries are always scored on rows); SCORE0 is the same
 // mode, or int8 / fp16 blocks over any row mode: 15 pairs.
 // __launch_bounds__(128, 8) as K2: a 1,024-query batch stays one wave.
-// At that 64-register cap ptxas spills 112-248 B a thread (two inlined
-// layer bodies and what lives across them); a form that kept the upper
-// tables in shared memory spilled more and ran 3-7% slower.
+// Nothing lives in registers across the layers: the upper layer in search
+// (its table, rows and index) is in k5_ref, a shared variable at a fixed
+// address read where it is used, and the block's and thread's index, the
+// query's row and squared norm and the entries' place are taken anew
+// where they are used. Even so ptxas spills 80-208 B a thread at the
+// 64-register cap: the kernel inlines two layer bodies (the upper layers'
+// and layer 0's), and a build with one of them spills none; a
+// non-inlined layer body makes the parameters a local copy, and loading
+// half a row group at a time halves the loads in flight. (The upper
+// layer's table must be read as a value: a conditional of two lvalues,
+// one a kernel parameter, takes the parameter's address, and the whole
+// parameter block is then copied to local memory.)
+//
+// The split of K5 (tools/graph_split.py, -DGRAPH_PHASE_CLOCKS) showed a
+// hop as a serial chain of shared work, five block barriers and L2 round
+// trips, eight blocks an SM: a batch of 8 distinct queries repeated, whose
+// rows all sit in L2, took within 10% of the cycles a hop of a random
+// batch, so device-memory bytes do not set the pace. Two redesigns of
+// that chain were built, held equal to this form bit for bit, and
+// measured slower, so they are left out: a ring of rows staged in shared
+// memory by cp.async in G and scored from there in C, and a narrow walk
+// of the 8-wide upper layers by warp 0 alone between two block barriers a
+// hop (no hash table). What stays: nothing is kept in registers across
+// the layers, and the one-key-a-lane sort.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -214,13 +236,24 @@ struct Params {
   long long* clocks;       // [B, N_PHASE] (BEAM_PHASE_CLOCKS builds only)
 };
 
-// Phase counters (BEAM_PHASE_CLOCKS builds, tools/hop_split.py): thread 0
-// adds the clock64() cycles since the last mark to the phase's counter.
-// The same-hop dedup has no phase of its own here: the table does it in
-// "gather" and "list".
+// Phase counters (BEAM_PHASE_CLOCKS builds of K2, tools/hop_split.py;
+// GRAPH_PHASE_CLOCKS builds of K5, tools/graph_split.py): thread 0 adds
+// the clock64() cycles since the last mark to the phase's counter. The
+// same-hop dedup has no phase of its own here: the table does it in
+// "gather" and "list". K5's clocked build counts a layer's set-up (pool
+// init, the hand-off to the next layer) in PH_DEDUP, and sums the counters
+// over four groups (G_*): the entries, the upper layers, layer 0, the
+// rerank.
 enum { PH_SELECT = 0, PH_GATHER, PH_DEDUP, PH_LIST, PH_SCORE, PH_RANK,
        PH_MERGE, PH_COMPACT, N_PHASE };
-#ifdef BEAM_PHASE_CLOCKS
+enum { G_ENTRY = 0, G_UPPER, G_LAYER0, G_RERANK, N_GROUP };
+#if defined(BEAM_PHASE_CLOCKS) || defined(GRAPH_PHASE_CLOCKS)
+#define PHASE_CLOCKS
+#endif
+#if defined(BEAM_PHASE_CLOCKS) && defined(GRAPH_PHASE_CLOCKS)
+#error "one clocked kernel a build: BEAM_PHASE_CLOCKS or GRAPH_PHASE_CLOCKS"
+#endif
+#ifdef PHASE_CLOCKS
 #define PHASE_MARK(ph)                                  \
   do {                                                  \
     if (threadIdx.x == 0) {                             \
@@ -357,6 +390,21 @@ __device__ __forceinline__ void sort_chunk(unsigned long long& x0,
     for (int j = k >> 1; j >= 1; j >>= 1) sort_stage(x0, x1, base, k, j, lane);
   }
   sort_chunk_tail(x0, x1, base, 64, lane);
+}
+
+// The warp's 32 keys, one a lane, sorted ascending in lane order (distinct
+// keys: the order any sort gives).
+__device__ __forceinline__ unsigned long long sort32(unsigned long long x,
+                                                     int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j >= 1; j >>= 1) {
+      const unsigned long long p = __shfl_xor_sync(FULL, x, j);
+      x = (((lane & j) == 0) == ((lane & k) == 0)) ? min(x, p) : max(x, p);
+    }
+  }
+  return x;
 }
 
 // Ascending bitonic sort of keys[0, ns) (ns a power of two >= 64) by the
@@ -648,41 +696,50 @@ __device__ __forceinline__ void score_list(
     float acc[U], ssq[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) acc[u] = ssq[u] = 0.0f;
-    if (VEC) {
-      for (int k = lane * 4; k < D; k += 128) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qop + k);
-        float x[U][4];
+    // fp16 blocks load half the rows at a time (their conversions and
+    // squared sums need the registers); each row's sums keep their order
+    constexpr int UH = SCORE == S_F16 ? U / 2 : U;
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (row[u] >= 0) {
-            elem4<SCORE>(a, (size_t)row[u] * D + k, x[u]);
-          } else {
-            x[u][0] = x[u][1] = x[u][2] = x[u][3] = 0.0f;
+    for (int h = 0; h < U; h += UH) {
+      if (VEC) {
+        for (int k = lane * 4; k < D; k += 128) {
+          const float4 q4 = *reinterpret_cast<const float4*>(qop + k);
+          float x[UH][4];
+#pragma unroll
+          for (int v = 0; v < UH; ++v) {
+            if (row[h + v] >= 0) {
+              elem4<SCORE>(a, (size_t)row[h + v] * D + k, x[v]);
+            } else {
+              x[v][0] = x[v][1] = x[v][2] = x[v][3] = 0.0f;
+            }
+          }
+#pragma unroll
+          for (int v = 0; v < UH; ++v) {
+            float& s = acc[h + v];
+            s = fmaf(q4.x, x[v][0], s);
+            s = fmaf(q4.y, x[v][1], s);
+            s = fmaf(q4.z, x[v][2], s);
+            s = fmaf(q4.w, x[v][3], s);
+            if (BLOCKS) {
+#pragma unroll
+              for (int t = 0; t < 4; ++t)
+                ssq[h + v] += sq_term<SCORE>(x[v][t]);
+            }
           }
         }
+      } else {
+        for (int k = lane; k < D; k += 32) {
+          const float qk = qop[k];
+          float x[UH];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          acc[u] = fmaf(q4.x, x[u][0], acc[u]);
-          acc[u] = fmaf(q4.y, x[u][1], acc[u]);
-          acc[u] = fmaf(q4.z, x[u][2], acc[u]);
-          acc[u] = fmaf(q4.w, x[u][3], acc[u]);
-          if (BLOCKS) {
+          for (int v = 0; v < UH; ++v)
+            x[v] = row[h + v] >= 0
+                       ? elem<SCORE>(a, (size_t)row[h + v] * D + k) : 0.0f;
 #pragma unroll
-            for (int t = 0; t < 4; ++t) ssq[u] += sq_term<SCORE>(x[u][t]);
+          for (int v = 0; v < UH; ++v) {
+            acc[h + v] = fmaf(qk, x[v], acc[h + v]);
+            if (BLOCKS) ssq[h + v] += sq_term<SCORE>(x[v]);
           }
-        }
-      }
-    } else {
-      for (int k = lane; k < D; k += 32) {
-        const float qk = qop[k];
-        float x[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          x[u] = row[u] >= 0 ? elem<SCORE>(a, (size_t)row[u] * D + k) : 0.0f;
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          acc[u] = fmaf(qk, x[u], acc[u]);
-          if (BLOCKS) ssq[u] += sq_term<SCORE>(x[u]);
         }
       }
     }
@@ -711,9 +768,152 @@ __device__ __forceinline__ void score_list(
 
 // ---- one layer -------------------------------------------------------------
 
-#ifdef BEAM_PHASE_CLOCKS
+#ifdef PHASE_CLOCKS
 __shared__ long long clk[N_PHASE + 1];
 #endif
+
+// ---- a hop's steps -------------------------------------------------------
+
+// Warp 0: the first E unexpanded finite entries of the pool in pool order
+// (the pool is ascending: they lead); those taken (distance < the pool's
+// last, largest, distance) are marked expanded (bit 30 of the id, as the
+// twin carries it) and their ids put in sel_cur. Returns how many are
+// taken; ends synced across the warp.
+__device__ __forceinline__ int select_take(const float* pool_d, int* pool_i,
+                                           int P, int E, int* sel_j,
+                                           int* sel_cur) {
+  const int lane = threadIdx.x & 31;
+  const float worst = pool_d[P - 1];
+  int found = 0;
+  for (int base = 0; base < P && found < E; base += 32) {
+    const int p = base + lane;
+    const int pi = p < P ? pool_i[p] : -1;
+    const bool elig = pi >= 0 && pi < EXP_BIT && pool_d[p] < INF_DIST;
+    const unsigned bal = __ballot_sync(FULL, elig);
+    const int r = found + __popc(bal & lanes_below(lane));
+    if (elig && r < E) sel_j[r] = p;
+    found += __popc(bal);
+  }
+  __syncwarp();
+  const int n_sel = min(found, E);
+  int n_take = 0;
+  for (int base = 0; base < n_sel; base += 32) {
+    const int e = base + lane;
+    n_take += __popc(__ballot_sync(
+        FULL, e < n_sel && pool_d[sel_j[min(e, n_sel - 1)]] < worst));
+  }
+  for (int e = lane; e < n_take; e += 32) {
+    const int p = sel_j[e];
+    sel_cur[e] = pool_i[p];
+    pool_i[p] |= EXP_BIT;
+  }
+  __syncwarp();
+  return n_take;
+}
+
+// The merge buffer before a hop's merge (warps 1.. of the block): bitonic,
+// the pool then an INF pad to WB; sort, INF.
+__device__ __forceinline__ void lay_out_buffer(const float* pool_d,
+                                               const int* pool_i,
+                                               float* buf_d, int* buf_i,
+                                               int P, int WB,
+                                               int sort_merge) {
+  for (int p = threadIdx.x - 32; p < WB; p += NT - 32) {
+    const bool keep = !sort_merge && p < P;
+    buf_d[p] = keep ? pool_d[p] : INF_DIST;
+    buf_i[p] = keep ? pool_i[p] : -1;
+  }
+}
+
+// The r-th ranked entering candidate (keys sorted): bitonic, to W2 - 1 -
+// its rank among all C slots (a scored candidate ranks before the masked
+// slots (INF, -1) unless its distance is >= INF); sort, to the ranked
+// list.
+__device__ __forceinline__ void place_ranked(
+    const unsigned long long* keys, int r, const int* ok_slot,
+    const float* ok_d, const int* cand_id, int n_masked, int W2,
+    int sort_merge, float* buf_d, int* buf_i, float* so_d, int* so_i,
+    int* so_r) {
+  const int j = static_cast<int>(keys[r] & 0xffffffffu);
+  const int slot = ok_slot[j];
+  const float d = ok_d[j];
+  const int id = cand_id[slot];
+  const int full = r + (d > INF_DIST ? n_masked
+                        : d >= INF_DIST ? slot - j : 0);
+  if (sort_merge) {
+    so_d[r] = d;
+    so_i[r] = id;
+    so_r[r] = full;
+  } else {
+    buf_d[W2 - 1 - full] = d;
+    buf_i[W2 - 1 - full] = id;
+  }
+}
+
+// The sort merge: a stable merge of the pool with the ng ranked
+// candidates (merge path: each element's output position from a binary
+// search in the other list), the first P into buf; by threads rank, rank
+// + team, ...
+__device__ __forceinline__ void merge_sorted(
+    const float* pool_d, const int* pool_i, const float* so_d,
+    const int* so_i, const int* so_r, int ng, int n_masked, int P,
+    float* buf_d, int* buf_i, int rank, int team) {
+  for (int p = rank; p < P; p += team) {
+    const float d = pool_d[p];
+    const int pos = p + lower_bound(so_d, ng, d)
+                    + (d > INF_DIST ? n_masked : 0);
+    if (pos < P) {
+      buf_d[pos] = d;
+      buf_i[pos] = pool_i[p];
+    }
+  }
+  for (int r = rank; r < ng; r += team) {
+    const int pos = so_r[r] + upper_bound(pool_d, P, so_d[r]);
+    if (pos < P) {
+      buf_d[pos] = so_d[r];
+      buf_i[pos] = so_i[r];
+    }
+  }
+}
+
+// Warp 0 alone: rank ng <= 64 entering candidates by sorting their keys in
+// registers, then merge them into the pool (bitonic: the twin's network,
+// sort: the merge path and the adjacent-duplicate mask); the pool in
+// shared memory, synced across the warp. P + C <= SOLO_WIDTH.
+__device__ __forceinline__ void rank_merge_warp(
+    const Params& a, unsigned long long* keys, int ng, const int* ok_slot,
+    const float* ok_d, const int* cand_id, int n_masked, float* buf_d,
+    int* buf_i, float* so_d, int* so_i, int* so_r, float* pool_d,
+    int* pool_i) {
+  const int lane = threadIdx.x & 31;
+  if (ng <= 32) {   // one key a lane: 15 stages in place of 21 on two
+    keys[lane] = sort32(lane < ng ? keys[lane] : KEY_PAD, lane);
+  } else {
+    unsigned long long x0 = keys[lane];
+    unsigned long long x1 = lane + 32 < ng ? keys[lane + 32] : KEY_PAD;
+    sort_chunk(x0, x1, 0, lane);
+    keys[lane] = x0;
+    keys[lane + 32] = x1;
+  }
+  __syncwarp();
+  for (int r = lane; r < ng; r += 32)
+    place_ranked(keys, r, ok_slot, ok_d, cand_id, n_masked, a.W2,
+                 a.merge_sort, buf_d, buf_i, so_d, so_i, so_r);
+  __syncwarp();
+  PHASE_MARK(PH_RANK);
+  if (!a.merge_sort) {
+    merge_network<true>(buf_d, buf_i, a.W2, a.P, pool_d, pool_i);
+    PHASE_MARK(PH_MERGE);
+  } else {
+    merge_sorted(pool_d, pool_i, so_d, so_i, so_r, ng, n_masked, a.P, buf_d,
+                 buf_i, lane, 32);
+    __syncwarp();
+    PHASE_MARK(PH_MERGE);
+    dedup_compact(buf_d, buf_i, pool_d, pool_i, a.P);
+    __syncwarp();
+    PHASE_MARK(PH_COMPACT);
+  }
+}
 
 // The query row as a scoring mode multiplies it (rounded to bf16 where
 // round_q says so) into qop, at the start of the dynamic shared memory. The
@@ -726,10 +926,21 @@ __device__ __forceinline__ void load_query(float* qop, const float* q, int D,
   }
 }
 
+// K5's upper layer in search, in shared memory at an address fixed when
+// the kernel is linked: read where it is used (volatile), so that nothing
+// of it lives in a register across a hop.
+struct LayerRef {
+  const int* table;
+  int n_rows;
+  int layer;
+};
+__shared__ LayerRef k5_ref;
+
 // One layer's beam search for the block's query: the pool starts from the
 // s_in entries (sid, sdist: global or shared memory), the hops run on the
-// layer's neighbour rows ``table`` (through a.upper_map for a compact
-// table of n_rows rows) with the shapes and layout of ``a``, the query
+// layer's neighbour rows (a.table of a.n_rows rows, or with ``upper`` K5's
+// k5_ref's; through a.upper_map for a compact table) with the shapes and
+// layout of ``a``, the query
 // (already in qop, as a.round_q has it) and its squared norm qsq. Adds the
 // nodes expanded and candidates scored to n_exp, n_scored and returns the
 // hop count. On return every thread is synced and the pool is in shared
@@ -737,8 +948,8 @@ __device__ __forceinline__ void load_query(float* qop, const float* q, int D,
 // ids with the expanded flag. K2 (beam_search_kernel) runs one layer a
 // launch; K5 (graph_search_kernel) runs every layer of a search.
 template <int SCORE, bool VEC>
-__device__ __forceinline__ int layer_search(const Params& a, const int* table,
-                                            int n_rows, const int* sid,
+__device__ __forceinline__ int layer_search(const Params& a, bool upper,
+                                            const int* sid,
                                             const float* sdist, int s_in,
                                             float qsq, int& n_exp,
                                             int& n_scored) {
@@ -807,41 +1018,21 @@ __device__ __forceinline__ int layer_search(const Params& a, const int* table,
     clk[N_PHASE] = clock64();
   }
 #endif
+#ifdef GRAPH_PHASE_CLOCKS
+  PHASE_MARK(PH_DEDUP);   // the layer's set-up
+#endif
   int hops = 0;
   while (hops < a.max_hops) {
     // S. the pool's ids into the table (cleared at init or in the last
-    // hop's scoring); warp 0 selects the first E unexpanded finite entries
-    // in pool order and marks the taken ones (the pool is ascending: they
-    // lead)
+    // hop's scoring); warp 0 selects the first E unexpanded finite
+    // entries in pool order and marks the taken ones (the pool is
+    // ascending: they lead)
     for (int p = tid; p < P; p += NT) {
       const int id = unpack(pool_i[p]);
       if (id >= 0) tab_insert_pool(tab, mask, shift, id);
     }
     if (warp == 0) {
-      const float worst = pool_d[P - 1];
-      int found = 0;
-      for (int base = 0; base < P && found < E; base += 32) {
-        const int p = base + lane;
-        const int pi = p < P ? pool_i[p] : -1;
-        const bool elig = pi >= 0 && pi < EXP_BIT && pool_d[p] < INF_DIST;
-        const unsigned bal = __ballot_sync(FULL, elig);
-        const int r = found + __popc(bal & lanes_below(lane));
-        if (elig && r < E) sel_j[r] = p;
-        found += __popc(bal);
-      }
-      __syncwarp();
-      const int n_sel = min(found, E);
-      int n_take = 0;
-      for (int base = 0; base < n_sel; base += 32) {
-        const int e = base + lane;
-        n_take += __popc(__ballot_sync(
-            FULL, e < n_sel && pool_d[sel_j[min(e, n_sel - 1)]] < worst));
-      }
-      for (int e = lane; e < n_take; e += 32) {
-        const int p = sel_j[e];
-        sel_cur[e] = pool_i[p];
-        pool_i[p] |= EXP_BIT;
-      }
+      const int n_take = select_take(pool_d, pool_i, P, E, sel_j, sel_cur);
       if (lane == 0) {
         counts[0] = n_take;
         counts[2] = 0;
@@ -855,6 +1046,13 @@ __device__ __forceinline__ int layer_search(const Params& a, const int* table,
     // G. gather ids; mask invalid and in-pool ids (and, bitonic, leave
     // each id's lowest slot of the hop in the table)
     const int Ct = n_take * M;
+    const int* table = a.table;
+    int n_rows = a.n_rows;
+    if (upper) {   // read as values: no address of a param
+      const volatile LayerRef& r = k5_ref;
+      table = r.table;
+      n_rows = r.n_rows;
+    }
     for (int c = tid; c < C; c += NT) {
       int id = -1, pos = 0;
       if (c < Ct) {
@@ -884,10 +1082,9 @@ __device__ __forceinline__ int layer_search(const Params& a, const int* table,
     __syncthreads();
     PHASE_MARK(PH_GATHER);
 
-    // L. warp 0: the list of candidates to score, in slot order (bitonic:
-    // a slot whose id's table entry names a lower slot is a later copy);
-    // the other warps lay out the merge buffer (bitonic: the pool, then an
-    // INF pad; sort: INF)
+    // L. warp 0: the list of candidates to score, in slot order
+    // (bitonic: a slot whose id's table entry names a lower slot is a
+    // later copy)
     if (warp == 0) {
       int n = 0;
       for (int base = 0; base < Ct; base += 32) {
@@ -902,11 +1099,9 @@ __device__ __forceinline__ int layer_search(const Params& a, const int* table,
       }
       if (lane == 0) counts[1] = n;
     } else {
-      for (int p = tid - 32; p < WB; p += NT - 32) {
-        const bool keep = !sort_merge && p < P;
-        buf_d[p] = keep ? pool_d[p] : INF_DIST;
-        buf_i[p] = keep ? pool_i[p] : -1;
-      }
+      // the other warps lay out the merge buffer (bitonic: the pool,
+      // then an INF pad; sort: INF)
+      lay_out_buffer(pool_d, pool_i, buf_d, buf_i, P, WB, sort_merge);
     }
     __syncthreads();
     PHASE_MARK(PH_LIST);
@@ -919,83 +1114,40 @@ __device__ __forceinline__ int layer_search(const Params& a, const int* table,
                            ok_d, n_ok, pool_d[P - 1], keys, counts + 2);
     __syncthreads();
     PHASE_MARK(PH_SCORE);
-    const int ng = counts[2];
     ++hops;
     n_exp += n_take;
     n_scored += n_ok;
+    const int ng = counts[2];
     if (ng == 0) continue;   // no candidate reaches the first P outputs
 
     // R. rank the entering candidates by (distance, slot) and merge. A
     // scored candidate ranks before the masked slots (INF, -1) unless its
     // distance is >= INF.
     const int n_masked = C - n_ok;
-    const bool solo = ng <= 64 && P + C <= SOLO_WIDTH;
-    if (solo) {
-      if (warp == 0) {
-        unsigned long long x0 = lane < ng ? keys[lane] : KEY_PAD;
-        unsigned long long x1 = lane + 32 < ng ? keys[lane + 32] : KEY_PAD;
-        sort_chunk(x0, x1, 0, lane);
-        keys[lane] = x0;
-        keys[lane + 32] = x1;
-        __syncwarp();
-      }
-    } else {
-      for (int i = ng + tid; i < NS; i += NT) keys[i] = KEY_PAD;
+    if (ng <= 64 && P + C <= SOLO_WIDTH) {
+      if (warp == 0)
+        rank_merge_warp(a, keys, ng, ok_slot, ok_d, cand_id, n_masked, buf_d,
+                        buf_i, so_d, so_i, so_r, pool_d, pool_i);
       __syncthreads();
-      block_sort(keys, max(64, 1 << (32 - __clz(ng - 1))));
+      continue;
     }
+    for (int i = ng + tid; i < NS; i += NT) keys[i] = KEY_PAD;
+    __syncthreads();
+    block_sort(keys, max(64, 1 << (32 - __clz(ng - 1))));
     // each ranked candidate: bitonic, to W2 - 1 - its rank among all C
     // slots; sort, to the ranked list
-    if (!solo || warp == 0) {
-      for (int r = solo ? lane : tid; r < ng; r += solo ? 32 : NT) {
-        const int j = static_cast<int>(keys[r] & 0xffffffffu);
-        const int slot = ok_slot[j];
-        const float d = ok_d[j];
-        const int id = cand_id[slot];
-        const int full = r + (d > INF_DIST ? n_masked
-                              : d >= INF_DIST ? slot - j : 0);
-        if (sort_merge) {
-          so_d[r] = d;
-          so_i[r] = id;
-          so_r[r] = full;
-        } else {
-          buf_d[W2 - 1 - full] = d;
-          buf_i[W2 - 1 - full] = id;
-        }
-      }
-    }
-    if (solo) __syncwarp(); else __syncthreads();
+    for (int r = tid; r < ng; r += NT)
+      place_ranked(keys, r, ok_slot, ok_d, cand_id, n_masked, W2,
+                   sort_merge, buf_d, buf_i, so_d, so_i, so_r);
+    __syncthreads();
     PHASE_MARK(PH_RANK);
     if (!sort_merge) {
-      if (!solo) {
-        merge_network<false>(buf_d, buf_i, W2, P, pool_d, pool_i);
-      } else {
-        if (warp == 0)
-          merge_network<true>(buf_d, buf_i, W2, P, pool_d, pool_i);
-        __syncthreads();
-      }
+      merge_network<false>(buf_d, buf_i, W2, P, pool_d, pool_i);
       PHASE_MARK(PH_MERGE);
     } else {
-      if (!solo || warp == 0) {
-        const int rank = solo ? lane : tid, team = solo ? 32 : NT;
-        for (int p = rank; p < P; p += team) {
-          const float d = pool_d[p];
-          const int pos = p + lower_bound(so_d, ng, d)
-                          + (d > INF_DIST ? n_masked : 0);
-          if (pos < P) {
-            buf_d[pos] = d;
-            buf_i[pos] = pool_i[p];
-          }
-        }
-        for (int r = rank; r < ng; r += team) {
-          const int pos = so_r[r] + upper_bound(pool_d, P, so_d[r]);
-          if (pos < P) {
-            buf_d[pos] = so_d[r];
-            buf_i[pos] = so_i[r];
-          }
-        }
-      }
-      if (solo) __syncwarp(); else __syncthreads();
+      merge_sorted(pool_d, pool_i, so_d, so_i, so_r, ng, n_masked, P, buf_d,
+                   buf_i, tid, NT);
+      __syncthreads();
       PHASE_MARK(PH_MERGE);
       if (warp == 0) dedup_compact(buf_d, buf_i, pool_d, pool_i, P);
       __syncthreads();
@@ -1016,7 +1168,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
              a.D, a.round_q);
   int n_exp = 0, n_scored = 0;
   const int hops = layer_search<SCORE, VEC>(
-      a, a.table, a.n_rows, a.start_ids + (size_t)b * a.s_in,
+      a, false, a.start_ids + (size_t)b * a.s_in,
       a.start_d + (size_t)b * a.s_in, a.s_in, a.q_sq[b], n_exp, n_scored);
   // the pool is ascending with its empty slots last: the twin's final
   // stable sort leaves it as it is
@@ -1063,7 +1215,46 @@ struct GraphParams {
   float* out_d;            // [B, k]
   int* out_i;              // [B, k]
   int* hops;               // [n_up + 1, B]: the top layer first
+  long long* clocks;       // [B, N_GROUP, N_PHASE + 1] (GRAPH_PHASE_CLOCKS)
 };
+
+#ifdef GRAPH_PHASE_CLOCKS
+// Each group's phase cycles, then its rows scored (thread 0 keeps them).
+__shared__ long long gclk[N_GROUP * (N_PHASE + 1)];
+
+__device__ __forceinline__ void clocks_start() {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < N_GROUP * (N_PHASE + 1); ++i) gclk[i] = 0;
+    for (int i = 0; i < N_PHASE; ++i) clk[i] = 0;
+    clk[N_PHASE] = clock64();
+  }
+}
+
+// The cycles counted since the last fold into group grp, and rows scored.
+__device__ __forceinline__ void clocks_fold(int grp, int rows) {
+  if (threadIdx.x == 0) {
+    long long* c = gclk + grp * (N_PHASE + 1);
+    for (int i = 0; i < N_PHASE; ++i) {
+      c[i] += clk[i];
+      clk[i] = 0;
+    }
+    c[N_PHASE] += rows;
+  }
+}
+
+__device__ __forceinline__ void clocks_write(long long* out) {
+  if (threadIdx.x == 0 && out != nullptr)
+    for (int i = 0; i < N_GROUP * (N_PHASE + 1); ++i)
+      out[(size_t)blockIdx.x * N_GROUP * (N_PHASE + 1) + i] = gclk[i];
+}
+
+// valid ids among ids[0, n) (thread 0's count of rows scored)
+__device__ __forceinline__ int count_valid(const int* ids, int n) {
+  int r = 0;
+  for (int i = 0; i < n; ++i) r += ids[i] >= 0;
+  return r;
+}
+#endif
 
 // The distance from the query in qop to row ``id`` of ``vectors`` in row
 // mode SCORE, by one warp (element by element, any alignment; a shuffle
@@ -1108,79 +1299,150 @@ __device__ __forceinline__ float rerank_dist(const GraphParams& g,
 // ids scored at full precision, -1 ids at INF, a stable rank by distance,
 // the first k written, -1 at INF) or the pool's first k. Each layer's hop
 // count goes to its row of ``hops``.
+// blockIdx.x, read anew where it is used (volatile: not kept in a register
+// across the layers)
+__device__ __forceinline__ int block_index() {
+  int b;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  return b;
+}
+
+// threadIdx.x, read anew where it is used after the layers (volatile)
+__device__ __forceinline__ int thread_index() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+// K5's query row in device memory
+__device__ __forceinline__ const float* query_row(const GraphParams& g) {
+  return g.l0.queries + (size_t)block_index() * g.l0.D;
+}
+
+// K5's entries in shared memory (n_seed ids, then their distances), at an
+// offset taken anew where they are used (volatile: no pointer to them is
+// kept in a register across the layers)
+__device__ __forceinline__ int* seed_ids(const GraphParams& g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int off;
+  asm volatile("mov.b32 %0, %1;" : "=r"(off) : "r"(g.seed_off));
+  return reinterpret_cast<int*>(smem + off);
+}
+__device__ __forceinline__ float* seed_dists(const GraphParams& g) {
+  return reinterpret_cast<float*>(seed_ids(g) + g.n_seed);
+}
+
 template <int SCORE0, int SCOREUP, bool VEC>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     graph_search_kernel(GraphParams g) {
+  // Each step takes the thread's and the block's index, the query's
+  // squared norm and the entries' place anew (thread_index, block_index,
+  // q_sq, seed_ids): the layers' bodies keep the registers to themselves.
   extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int D = g.l0.D, B = gridDim.x;
-  const float* q = g.l0.queries + (size_t)b * D;
   float* const qop = reinterpret_cast<float*>(smem);
-  int* const seed_i = reinterpret_cast<int*>(smem + g.seed_off);
-  float* const seed_d = reinterpret_cast<float*>(seed_i + g.n_seed);
-  const float qsq = g.l0.q_sq[b];
+  volatile LayerRef* const ref = &k5_ref;
 
   // 1. the entries, a warp each, as the upper layers score rows
-  load_query(qop, q, D, g.up.round_q);
-  __syncthreads();
-  for (int s = warp; s < g.n_seed; s += NW) {
-    const int id = g.seeds != nullptr
-                       ? __ldg(g.seeds + (size_t)b * g.s_in + s)
-                       : __ldg(g.entry);
-    float d = INF_DIST;
-    if (id >= 0)
-      d = row_dist<SCOREUP>(g.up.vectors, g.up.sq_norms, g.up.qscale,
-                            g.up.metric, D, qop, qsq, min(id, g.cap - 1));
-    if (lane == 0) {
-      seed_i[s] = id >= 0 ? id : -1;
-      seed_d[s] = d;
-    }
-  }
-  __syncthreads();
-
-  // 2. the upper layers, the top first: a pool's best entry, where it has
-  // one, is the next layer's entry
-  int n_exp = 0, n_scored = 0;
-  for (int l = g.n_up; l >= 1; --l) {
-    const int hops = layer_search<SCOREUP, VEC>(
-        g.up, g.up_table[l - 1], g.up_rows[l - 1], seed_i, seed_d, 1, qsq,
-        n_exp, n_scored);
-    if (tid == 0) {
-      g.hops[(size_t)(g.n_up - l) * B + b] = hops;
-      const float d = reinterpret_cast<const float*>(smem + g.up.L.pool_d)[0];
-      const int i = reinterpret_cast<const int*>(smem + g.up.L.pool_i)[0];
-      if (d < INF_DIST && unpack(i) >= 0) {
-        seed_i[0] = unpack(i);
-        seed_d[0] = d;
+  {
+    const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
+    const float qsq = g.l0.q_sq[block_index()];
+#ifdef GRAPH_PHASE_CLOCKS
+    clocks_start();
+#endif
+    load_query(qop, query_row(g), g.l0.D, g.up.round_q);
+    if (tid == 0) ref->layer = g.n_up;
+    __syncthreads();
+    for (int s = warp; s < g.n_seed; s += NW) {
+      const int id = g.seeds != nullptr
+                         ? __ldg(g.seeds + (size_t)block_index() * g.s_in + s)
+                         : __ldg(g.entry);
+      float d = INF_DIST;
+      if (id >= 0)
+        d = row_dist<SCOREUP>(g.up.vectors, g.up.sq_norms, g.up.qscale,
+                              g.up.metric, g.l0.D, qop, qsq,
+                              min(id, g.cap - 1));
+      if (lane == 0) {
+        seed_ids(g)[s] = id >= 0 ? id : -1;
+        seed_dists(g)[s] = d;
       }
     }
     __syncthreads();
+#ifdef GRAPH_PHASE_CLOCKS
+    PHASE_MARK(PH_SCORE);
+    clocks_fold(G_ENTRY, tid == 0 ? count_valid(seed_ids(g), g.n_seed) : 0);
+#endif
   }
 
+  // 2. the upper layers, the top first: a pool's best entry, where it has
+  // one, is the next layer's entry. The layer, its table and rows live in
+  // ref; layer_search's first barrier orders thread 0's writes.
+  int n_exp = 0, n_scored = 0;
+  for (;;) {
+    const int l = ref->layer;
+    if (l < 1) break;
+    if (thread_index() == 0) {
+      ref->table = g.up_table[l - 1];
+      ref->n_rows = g.up_rows[l - 1];
+    }
+    const int hops = layer_search<SCOREUP, VEC>(
+        g.up, true, seed_ids(g), seed_dists(g), 1, g.l0.q_sq[block_index()],
+        n_exp, n_scored);
+    if (thread_index() == 0) {
+      const int lt = ref->layer;
+      g.hops[(size_t)(g.n_up - lt) * gridDim.x + block_index()] = hops;
+      ref->layer = lt - 1;
+      const float d = reinterpret_cast<const float*>(smem + g.up.L.pool_d)[0];
+      const int i = reinterpret_cast<const int*>(smem + g.up.L.pool_i)[0];
+      if (d < INF_DIST && unpack(i) >= 0) {
+        seed_ids(g)[0] = unpack(i);
+        seed_dists(g)[0] = d;
+      }
+    }
+    __syncthreads();
+#ifdef GRAPH_PHASE_CLOCKS
+    PHASE_MARK(PH_DEDUP);
+#endif
+  }
+#ifdef GRAPH_PHASE_CLOCKS
+  clocks_fold(G_UPPER, n_scored);
+  n_scored = 0;
+#endif
+
   // 3. layer 0 (layer_search's first barrier orders the new query row)
-  load_query(qop, q, D, g.l0.round_q);
+  load_query(qop, query_row(g), g.l0.D, g.l0.round_q);
   const int hops0 = layer_search<SCORE0, VEC>(
-      g.l0, g.l0.table, g.l0.n_rows, seed_i, seed_d, g.n_seed, qsq, n_exp,
-      n_scored);
+      g.l0, false, seed_ids(g), seed_dists(g), g.n_seed,
+      g.l0.q_sq[block_index()], n_exp, n_scored);
+#ifdef GRAPH_PHASE_CLOCKS
+  clocks_fold(G_LAYER0, n_scored);
+#endif
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
   const float* pool_d = reinterpret_cast<const float*>(smem + g.l0.L.pool_d);
   const int* pool_i = reinterpret_cast<const int*>(smem + g.l0.L.pool_i);
-  float* const out_d = g.out_d + (size_t)b * g.k;
-  int* const out_i = g.out_i + (size_t)b * g.k;
-  if (tid == 0) g.hops[(size_t)g.n_up * B + b] = hops0;
+  float* const out_d = g.out_d + (size_t)block_index() * g.k;
+  int* const out_i = g.out_i + (size_t)block_index() * g.k;
+  if (tid == 0)
+    g.hops[(size_t)g.n_up * gridDim.x + block_index()] = hops0;
   if (g.R == 0) {
     for (int p = tid; p < g.k; p += NT) {
       const float d = pool_d[p];
       out_d[p] = d;
       out_i[p] = d >= INF_DIST ? -1 : unpack(pool_i[p]);
     }
+#ifdef GRAPH_PHASE_CLOCKS
+    __syncthreads();
+    PHASE_MARK(PH_RANK);
+    clocks_fold(G_RERANK, 0);
+    clocks_write(g.clocks);
+#endif
     return;
   }
 
   // 4. the f32 rerank of the pool's head, into layer 0's merge buffer
+  const float qsq = g.l0.q_sq[block_index()];
   float* const rd = reinterpret_cast<float*>(smem + g.l0.L.buf_d);
   int* const ri = reinterpret_cast<int*>(smem + g.l0.L.buf_i);
-  load_query(qop, q, D, 0);
+  load_query(qop, query_row(g), g.l0.D, 0);
   __syncthreads();
   for (int r = warp; r < g.R; r += NW) {
     const float pd = pool_d[r];
@@ -1193,6 +1455,9 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     }
   }
   __syncthreads();
+#ifdef GRAPH_PHASE_CLOCKS
+  PHASE_MARK(PH_SCORE);
+#endif
   // a stable sort by distance (ties in pool order): each entry's rank
   for (int r = tid; r < g.R; r += NT) {
     const float d = rd[r];
@@ -1206,6 +1471,12 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
       out_i[rank] = d >= INF_DIST ? -1 : ri[r];
     }
   }
+#ifdef GRAPH_PHASE_CLOCKS
+  __syncthreads();
+  PHASE_MARK(PH_RANK);
+  clocks_fold(G_RERANK, tid == 0 ? count_valid(ri, g.R) : 0);
+  clocks_write(g.clocks);
+#endif
 }
 #endif  // BEAM_PHASE_CLOCKS
 
@@ -1289,7 +1560,7 @@ cudaError_t launch_vec(const Params& p, bool vec, int B, size_t smem,
              : launch<SCORE, false>(p, B, smem, st);
 }
 
-#ifdef BEAM_PHASE_CLOCKS
+#ifdef PHASE_CLOCKS
 long long* g_clocks = nullptr;   // the next launch's phase counters
 #endif
 
@@ -1596,6 +1867,11 @@ int graph_search_launch(
   g.out_d = static_cast<float*>(out_d);
   g.out_i = static_cast<int*>(out_i);
   g.hops = static_cast<int*>(hops);
+#ifdef GRAPH_PHASE_CLOCKS
+  g.clocks = g_clocks;
+#else
+  g.clocks = nullptr;
+#endif
   const size_t smem = (size_t)graph_smem(D, P_up, E_up, M_up, n_up, P0, E0,
                                          M0, merge_sort, g.n_seed,
                                          &g.seed_off);
@@ -1614,6 +1890,16 @@ int graph_search_launch(
   f<<<B, NT, smem, static_cast<cudaStream_t>(stream)>>>(g);
   return (int)cudaGetLastError();
 }
+
+#ifdef GRAPH_PHASE_CLOCKS
+// Phase counters of the next K5 launches: [B, N_GROUP, N_PHASE + 1] int64
+// on the device (each group's phase cycles, then its rows scored), or null
+// (tools/graph_split.py).
+int graph_search_clock_cols() { return N_GROUP * (N_PHASE + 1); }
+void graph_search_set_clocks(void* clocks) {
+  g_clocks = static_cast<long long*>(clocks);
+}
+#endif
 
 // Resident blocks an SM of one K5 instantiation at ``smem`` bytes of
 // dynamic shared memory, or -1 for a pair of modes it lacks.

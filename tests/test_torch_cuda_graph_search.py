@@ -19,7 +19,10 @@ squared norms are f32 sums rounded to bf16). On integer data the results
 equal the K2 pass's bit for bit (each layer is K2's device code) and the
 twin's too, except on int8 blocks, whose rows quantised at a scale of
 2/127 sum in another order there. Hop counts a layer are equal
-everywhere. Run on a GPU machine with
+everywhere. Each of the 15 (layer 0, upper layers) mode pairs the kernel
+has runs on integer data; widths D = 7, 50, 128 and 132 at ef 64 and
+past the solo merge (P0 + E*M > 512); rows repeated four times tie in
+the upper layers at ef_upper 8 and 32. Run on a GPU machine with
 ``python3 -m pytest --noconftest tests/test_torch_cuda_graph_search.py -m
 cuda``. This file imports no JAX.
 """
@@ -339,3 +342,83 @@ def test_wrapper_raises_when_the_library_fails_to_load(cuda, hosts,
     with pytest.raises(RuntimeError, match="nvcc failed"):
         tsearch.search_graph(g, q, k=10, ef=32, metric="l2")
     assert gs.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+@pytest.mark.parametrize("D", [7, 50, 128, 132])
+def test_k5_at_its_limits(cuda, D, merge):
+    """D = 7 and 50 (no whole-row vector loads), 128 and 132 (a row one
+    16-byte unit past 128's), at ef 64 and with a pool past 512 entries
+    with the candidates (the block-wide rank and merge): the plain
+    version's ids and hops, K2 a layer and K2's twin."""
+    r = np.random.default_rng(D)
+    v = (r.standard_normal((3000, D)) / np.sqrt(D)).astype(np.float32)
+    dg = from_host(*_arrays("l2", v), metric="l2", device=cuda)
+    q = torch.from_numpy(
+        (r.standard_normal((48, D)) / np.sqrt(D)).astype(np.float32)).to(cuda)
+    kw = dict(k=10, metric="l2", expand=4, merge=merge)
+    _k5_vs_plain(dg, q, ef=64, **kw)
+    assert 480 + 4 * dg.layer_width(0) > 512
+    _k5_vs_plain(dg, q, ef=480, **kw)
+
+
+#: every pair of scoring modes K5 has (layer 0's, the upper layers'):
+#: from_host keyword arguments and fast_math
+PAIRS = {
+    "f32+f32": ({}, False),
+    "bf16+bf16": ({}, True),
+    "qrows+qrows": (dict(quantize=True, hbm_vectors=False), False),
+    "f16rows+f16rows": (dict(store_dtype="float16"), False),
+    "bf16rows+bf16rows": (dict(store_dtype="bfloat16"), False),
+    **{f"{b}+{u}": (dict(block_layout=True, block_dtype=dt, **kw), fm)
+       for b, dt in (("int8", "int8"), ("fp16", "float16"))
+       for u, kw, fm in (("f32", {}, False), ("bf16", {}, True),
+                         ("qrows", dict(hbm_vectors=False), False),
+                         ("f16rows", dict(store_dtype="float16"), False),
+                         ("bf16rows", dict(store_dtype="bfloat16"), False))}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_every_pair_of_modes_against_the_plain_version(cuda, hosts, pair):
+    """Each of the 15 (SCORE0, SCOREUP) instantiations on integer data:
+    ids and hop counts a layer equal to search_graph_reference's (K2 a
+    layer, bit for bit; K2's twin: distances within 1e-5 x max(1, |d|),
+    ids equal but on int8 blocks)."""
+    layout, fast_math = PAIRS[pair]
+    g = from_host(*hosts["int"], metric="sqeuclidean", device=cuda, **layout)
+    precision = "default" if fast_math else "highest"
+    mode0 = bs.layer_mode(g, 0, "sqeuclidean", 48, 4, "sort")
+    names = {0: "f32", 1: "bf16", 2: "int8", 3: "fp16", 4: "qrows",
+             5: "f16rows", 6: "bf16rows"}
+    assert (f"{names[bs.score_code(g, mode0, precision)]}+"
+            f"{names[bs.score_code(g, gs.row_mode(g), precision)]}") == pair
+    r = np.random.default_rng(9)
+    q = torch.from_numpy(r.integers(-2, 3, (64, 32)).astype(np.float32)
+                         ).to(cuda)
+    ki, hops = _k5_vs_plain(g, q, k=10, ef=48, metric="sqeuclidean",
+                            expand=4, merge="sort", fast_math=fast_math,
+                            exact=True,
+                            twin_exact=not pair.startswith("int8"))
+    assert (ki >= 0).all() and len(hops) == g.num_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+def test_upper_layer_ties_keep_their_order(cuda, merge):
+    """Integer rows with many equal distances (every row repeated four
+    times) at ef_upper 8 and 32: the upper layers' pools, their hand-offs
+    and layer 0's give K2's a layer and the twin's bit for bit (a rank by
+    (distance, slot), the bitonic network's tie order)."""
+    r = np.random.default_rng(13)
+    base = r.integers(-1, 2, (600, 32)).astype(np.float32)
+    v = np.concatenate([base] * 4)
+    g = from_host(*_arrays("l2", v), metric="sqeuclidean", device=cuda)
+    q = torch.from_numpy(r.integers(-1, 2, (64, 32)).astype(np.float32)
+                         ).to(cuda)
+    for ef_upper in (8, 32):
+        kw = dict(k=10, ef=32, ef_upper=ef_upper, metric="sqeuclidean",
+                  expand=4, merge=merge)
+        ki, hops = _k5_vs_plain(g, q, exact=True, **kw)
+        assert (ki >= 0).all() and len(hops) == g.num_layers > 1
