@@ -56,6 +56,7 @@ from hnsw_tpu_torch.ops.distance import (DEFAULT, HIGHEST, INF_DIST,
                                          _custom_pairwise, gathered_dist,
                                          pairwise_dist, registered)
 from hnsw_tpu_torch.ops.topk import topk_smallest
+from hnsw_tpu_torch.utils.profiling import span
 from hnsw_tpu_torch.utils.progress import BuildHeartbeat
 
 _INF = float(INF_DIST)
@@ -475,53 +476,60 @@ def bulk_insert_device(host: host_build.HostGraph, slots: np.ndarray, *,
     waves_done = 0
     w0 = start
     while w0 < n_new:
-        # ramp: a wave may be up to 4x the current graph size (the
-        # intra-wave kNN carries within-wave edges; refine() recovers
-        # any residual early-wave quality)
-        cur_wave = min(wave, max(512, bucket_pow2(4 * host.count)))
-        w1 = min(w0 + cur_wave, n_new)
-        wslots = slots[w0:w1]
-        wlevels = levels[w0:w1]
-        W = len(wslots)
-        wsl_dev = torch.from_numpy(wslots.astype(np.int32)).to(device)
+        # one wave: its descent, each layer's selection (K4) and reverse
+        # update, and the commit; spans only, no synchronisation
+        with span("build.wave"):
+            # ramp: a wave may be up to 4x the current graph size (the
+            # intra-wave kNN carries within-wave edges; refine() recovers
+            # any residual early-wave quality)
+            cur_wave = min(wave, max(512, bucket_pow2(4 * host.count)))
+            w1 = min(w0 + cur_wave, n_new)
+            wslots = slots[w0:w1]
+            wlevels = levels[w0:w1]
+            W = len(wslots)
+            wsl_dev = torch.from_numpy(wslots.astype(np.int32)).to(device)
 
-        g = _descent_graph(vectors_dev, sq_dev, nb0_dev, levels_dev,
-                           host.entry, nbU_tabs, umap_dev, quant)
-        wq = vectors_dev[wsl_dev.long()]
-        cand_d, cand_i = construction_descent(
-            g, wq, ef=max(cfg.ef_construction, n_cand), m_out=n_cand,
-            metric=metric, max_hops=cfg.max_hops)       # [L_all, W, n_cand]
-        del g   # its neighbor blocks are the largest transient
+            with span("build.descent"):
+                g = _descent_graph(vectors_dev, sq_dev, nb0_dev, levels_dev,
+                                   host.entry, nbU_tabs, umap_dev, quant)
+                wq = vectors_dev[wsl_dev.long()]
+                cand_d, cand_i = construction_descent(  # [L_all, W, n_cand]
+                    g, wq, ef=max(cfg.ef_construction, n_cand),
+                    m_out=n_cand, metric=metric, max_hops=cfg.max_hops)
+                del g   # its neighbor blocks are the largest transient
 
-        # HIGHEST so intra-wave distances rank consistently against the
-        # f32-rescored snapshot candidates in _assemble_wave_rows
-        intra = pairwise_dist(wq, wq, metric=metric, precision=HIGHEST)
-        intra.fill_diagonal_(_INF)
+            # HIGHEST so intra-wave distances rank consistently against the
+            # f32-rescored snapshot candidates in _assemble_wave_rows
+            intra = pairwise_dist(wq, wq, metric=metric, precision=HIGHEST)
+            intra.fill_diagonal_(_INF)
 
-        max_l = int(max(wlevels.max(initial=0), host.top))
-        for layer in range(0, min(max_l, L_all - 1) + 1):
-            part = np.flatnonzero(wlevels >= layer)
-            if len(part) == 0:
-                continue
-            deg = cfg.max_degree(layer)
-            part_dev = torch.from_numpy(part.astype(np.int32)).to(device)
-            in_layer = torch.from_numpy(wlevels >= layer).to(device)
-            rows = _assemble_wave_rows(
-                vectors_dev, sq_dev, cand_d[layer], cand_i[layer], intra,
-                wsl_dev, part_dev, in_layer, deg=deg, n_cand=n_cand,
-                intra_k=intra_k, metric=metric,
-                diversify=cfg.diversify)                # [P, deg]
-            _update_layer(layer, rows, wsl_dev[part_dev.long()], deg,
-                          nb0_dev, nbU_tabs, umap_dev, vectors_dev, sq_dev,
-                          metric, cfg.reverse_diversify)
+            max_l = int(max(wlevels.max(initial=0), host.top))
+            for layer in range(0, min(max_l, L_all - 1) + 1):
+                part = np.flatnonzero(wlevels >= layer)
+                if len(part) == 0:
+                    continue
+                deg = cfg.max_degree(layer)
+                part_dev = torch.from_numpy(part.astype(np.int32)).to(device)
+                in_layer = torch.from_numpy(wlevels >= layer).to(device)
+                with span("build.select"):
+                    rows = _assemble_wave_rows(
+                        vectors_dev, sq_dev, cand_d[layer], cand_i[layer],
+                        intra, wsl_dev, part_dev, in_layer, deg=deg,
+                        n_cand=n_cand, intra_k=intra_k, metric=metric,
+                        diversify=cfg.diversify)            # [P, deg]
+                with span("build.update"):
+                    _update_layer(layer, rows, wsl_dev[part_dev.long()], deg,
+                                  nb0_dev, nbU_tabs, umap_dev, vectors_dev,
+                                  sq_dev, metric, cfg.reverse_diversify)
 
-        # commit wave
-        levels_dev[wsl_dev.long()] = torch.from_numpy(wlevels).to(device)
-        host.count += W
-        wmax = int(wlevels.max())
-        if wmax > host.top:
-            host.top = wmax
-            host.entry = int(wslots[int(np.argmax(wlevels))])
+            with span("build.commit"):
+                levels_dev[wsl_dev.long()] = \
+                    torch.from_numpy(wlevels).to(device)
+                host.count += W
+                wmax = int(wlevels.max())
+                if wmax > host.top:
+                    host.top = wmax
+                    host.entry = int(wslots[int(np.argmax(wlevels))])
         w0 = w1
         waves_done += 1
         if hb.due():

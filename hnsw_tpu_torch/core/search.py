@@ -51,6 +51,7 @@ from hnsw_tpu_torch.ops.distance import (DEFAULT, HIGHEST, INF_DIST,
                                          gathered_epilogue, pairwise_dist,
                                          registered)
 from hnsw_tpu_torch.ops.topk import topk_smallest
+from hnsw_tpu_torch.utils.profiling import span
 
 _INF = float(INF_DIST)
 
@@ -412,21 +413,32 @@ def search_graph(g: DeviceGraph, queries: torch.Tensor, *, k: int, ef: int,
 
 
 def results_to_host(d: torch.Tensor, i: torch.Tensor,
-                    stats: Optional[dict] = None):
+                    stats: Optional[dict] = None, hops: bool = True):
     """``search_graph``'s results as numpy arrays (dists, slot ids). Where
     the kernel left its hop counts on the card (``stats["hops_by_query"]``)
     they come back in the same device-to-host copy (one copy of K5's
-    output buffer) and ``stats["hops"]`` gets each layer's largest count,
-    the lockstep count the plain version reports."""
+    output buffer) into ``stats["hops_by_query"]``, and with ``hops``
+    ``stats["hops"]`` gets each layer's largest count (``hop_maxima``),
+    the lockstep count the plain version reports. ``Graph`` passes
+    ``hops=False``: ``last_search_hops`` reduces the counts when read."""
     hq = None if stats is None else stats.get("hops_by_query")
     if hq is None:
         dh, ih = _graph_kernel.to_host(d, i)
     else:
         dh, ih, hq = _graph_kernel.to_host(d, i, hq)
         stats["hops_by_query"] = hq
-        stats["hops"] = (hq.amax(1).tolist() if hq.shape[1]
-                         else [0] * hq.shape[0])
+        if hops:
+            stats["hops"] = hop_maxima(hq)
     return dh.numpy(), ih.numpy()
+
+
+def hop_maxima(hops_by_query: torch.Tensor) -> list:
+    """Each layer's largest hop count of K5's [layers, B] counts (zeros
+    for an empty batch)."""
+    with span("hnsw.results.hops"):
+        if hops_by_query.shape[1]:
+            return hops_by_query.amax(1).tolist()
+        return [0] * hops_by_query.shape[0]
 
 
 def search_graph_reference(g: DeviceGraph, queries: torch.Tensor, *, k: int,

@@ -30,24 +30,30 @@ import torch
 from hnsw_tpu_torch.config import GraphConfig, canonical_dtype, \
     canonical_metric
 from hnsw_tpu_torch.core import host_build
-from hnsw_tpu_torch.core.search import (pivot_seeds, results_to_host,
-                                        search_graph)
+from hnsw_tpu_torch.core.search import (hop_maxima, pivot_seeds,
+                                        results_to_host, search_graph)
 from hnsw_tpu_torch.core.state import (DeviceGraph, _int8_block_fit,
                                        bucket_pow2, from_host)
 from hnsw_tpu_torch.index.exact import default_device
 from hnsw_tpu_torch.ops.distance import (INF_DIST, np_gram_epilogue,
                                          np_pairwise_dist, registered)
 from hnsw_tpu_torch.utils.keystore import HostVectorStore, SlotMap
+from hnsw_tpu_torch.utils.profiling import annotate, span
 from hnsw_tpu_torch.utils.rwlock import RWLock
 
 
 def _writes(fn):
     """Mutation: exclusive hold on the graph's RWLock (graph.go:328's
-    ``g.mu.Lock()``). Re-entrant."""
+    ``g.mu.Lock()``). Re-entrant. The span ``hnsw.lock`` covers taking
+    the hold, not holding it."""
     @functools.wraps(fn)
     def wrapper(self, *a, **kw):
-        with self._rw.write():
+        with span("hnsw.lock"):
+            self._rw.acquire_write()
+        try:
             return fn(self, *a, **kw)
+        finally:
+            self._rw.release_write()
     return wrapper
 
 
@@ -55,11 +61,16 @@ def _reads(fn):
     """Query/read path: shared hold (graph.go:328's ``g.mu.RLock()``).
     Lazily built serving caches (device graph, pivots) are written under
     the read hold: assignment is GIL-atomic and rebuilding twice is
-    idempotent."""
+    idempotent. The span ``hnsw.lock`` covers taking the hold, not
+    holding it."""
     @functools.wraps(fn)
     def wrapper(self, *a, **kw):
-        with self._rw.read():
+        with span("hnsw.lock"):
+            self._rw.acquire_read()
+        try:
             return fn(self, *a, **kw)
+        finally:
+            self._rw.release_read()
     return wrapper
 
 
@@ -121,11 +132,19 @@ class Graph:
         #: C++ engine on the host graph arrays, with no device round trip.
         #: 0 disables the native tier.
         self.native_serve_max_batch = 32
-        #: hop counts of the last device search, one per layer, top first
-        self.last_search_hops: List[int] = []
+        #: the last device search's hop counts: a list, one per layer,
+        #: top first, or K5's [layers, B] counts on the host
+        self._last_hops = []
         self._ef_calib: dict = {}     # (k, target) -> {ef, recall, n}
         self._ef_default: Optional[int] = None
         self._rw = RWLock()
+
+    @property
+    def last_search_hops(self) -> List[int]:
+        """Hop counts of the last device search, one per layer, top first:
+        each layer's largest, taken from K5's counts a query when read."""
+        h = self._last_hops
+        return h if isinstance(h, list) else hop_maxima(h)
 
     @property
     def ef_search(self) -> int:
@@ -618,58 +637,73 @@ class Graph:
 
     # -- search -----------------------------------------------------------
     @_reads
+    @annotate("hnsw.search")
     def batch_search_slots(self, queries: np.ndarray, k: int,
                            ef: Optional[int] = None
                            ) -> Tuple[np.ndarray, np.ndarray]:
-        if k <= 0:
-            raise ValueError(f"k must be greater than 0, got {k}")
-        queries = np.atleast_2d(np.asarray(queries, np.float32))
-        if len(self.slots) == 0:
-            q = queries.shape[0]
-            return (np.full((q, k), INF_DIST, np.float32),
-                    np.full((q, k), -1, np.int64))
-        self.store.ensure_dim(queries.shape[-1])
-        ef = ef if ef is not None else self.ef_search
-        if 0 < queries.shape[0] <= self.native_serve_max_batch:
+        with span("hnsw.prepare"):
+            if k <= 0:
+                raise ValueError(f"k must be greater than 0, got {k}")
+            queries = np.atleast_2d(np.asarray(queries, np.float32))
+            nq = queries.shape[0]
+            if len(self.slots) == 0:
+                return (np.full((nq, k), INF_DIST, np.float32),
+                        np.full((nq, k), -1, np.int64))
+            self.store.ensure_dim(queries.shape[-1])
+            ef = ef if ef is not None else self.ef_search
+            native = 0 < nq <= self.native_serve_max_batch
+            if not native:
+                g, queries = self._device_batch(queries)
+        if native:
             res = self._native_search(queries, k, ef)
             if res is not None:
                 return res
-        g = self.device_graph()
-        nq = queries.shape[0]
-        q_pad = bucket_pow2(nq)
-        if q_pad != nq:
-            queries = np.pad(queries, ((0, q_pad - nq), (0, 0)))
+            with span("hnsw.prepare"):
+                g, queries = self._device_batch(queries)
         # no host sync before the results are read: a pageable copy that
         # PyTorch need not wait for (the CUDA runtime stages it at once)
-        q = torch.from_numpy(queries).to(self.device, non_blocking=True)
+        with span("hnsw.query_copy"):
+            q = torch.from_numpy(queries).to(self.device, non_blocking=True)
         pool = max(ef, k)
         expand = self.cfg.search_expand
         hops = max(self.cfg.max_hops, -(-2 * pool // expand))
         seed_ids = None
         if self._entry_mode == "pivots":
-            pids, pvecs, psq = self._pivot_arrays()
-            seed_ids = pivot_seeds(q, pvecs, psq, pids,
-                                   s=min(self.seed_width, pool),
-                                   metric=self.metric,
-                                   fast_math=self.fast_math)
+            with span("hnsw.pivot_seeds"):
+                pids, pvecs, psq = self._pivot_arrays()
+                seed_ids = pivot_seeds(q, pvecs, psq, pids,
+                                       s=min(self.seed_width, pool),
+                                       metric=self.metric,
+                                       fast_math=self.fast_math)
         # the results and the hop counts come off the card in one copy
-        # (results_to_host), with no host sync before it on K5's path
+        # (results_to_host), with no host sync before it on K5's path;
+        # the hop counts are reduced only when last_search_hops is read
         stats: dict = {}
         kw = dict(ef=ef, metric=self.metric, max_hops=hops, expand=expand,
                   fast_math=self.fast_math, seed_ids=seed_ids,
                   merge=self.merge_strategy,
                   store_normalized=self.metric == "cosine", stats=stats)
-        if self._hbm_mode in ("quantized", "float16"):
-            # traversal-ordered pool head off the device; exact f32 rerank
-            # on the host against the store
-            R = min(max(2 * k, 32), max(pool, k))
-            _, i = results_to_host(*search_graph(
-                g, q, k=R, device_rerank=False, **kw), stats)
-            self.last_search_hops = stats["hops"]
-            return self._host_rerank(queries[:nq], i[:nq], k)
-        d, i = results_to_host(*search_graph(g, q, k=k, **kw), stats)
-        self.last_search_hops = stats["hops"]
-        return d[:nq], i[:nq].astype(np.int64)
+        capacity = self._hbm_mode in ("quantized", "float16")
+        # traversal-ordered pool head off the device; exact f32 rerank
+        # on the host against the store
+        R = min(max(2 * k, 32), max(pool, k)) if capacity else k
+        out = search_graph(g, q, k=R, device_rerank=not capacity, **kw)
+        with span("hnsw.results"):
+            d, i = results_to_host(*out, stats, hops=False)
+            self._last_hops = stats.get("hops", stats.get("hops_by_query"))
+            if capacity:
+                return self._host_rerank(queries[:nq], i[:nq], k)
+            return d[:nq], i[:nq].astype(np.int64)
+
+    def _device_batch(self, queries: np.ndarray
+                      ) -> Tuple[DeviceGraph, np.ndarray]:
+        """The device graph, and the batch padded to its bucket."""
+        g = self.device_graph()
+        nq = queries.shape[0]
+        q_pad = bucket_pow2(nq)
+        if q_pad != nq:
+            queries = np.pad(queries, ((0, q_pad - nq), (0, 0)))
+        return g, queries
 
     def _pivot_slots_host(self) -> np.ndarray:
         """Host-side pivot subset for the native engine's seeded entry:
@@ -698,8 +732,10 @@ class Graph:
         pivots = None
         if self._entry_mode == "pivots":
             pivots = self._pivot_slots_host()
-        res = native.search_batch(self.host, queries, k, ef, pivots=pivots,
-                                  n_seed=min(self.seed_width, 8))
+        with span("hnsw.native_search"):
+            res = native.search_batch(self.host, queries, k, ef,
+                                      pivots=pivots,
+                                      n_seed=min(self.seed_width, 8))
         if res is None:
             return None
         d, i = res
@@ -712,14 +748,16 @@ class Graph:
         store (one batched fetch — the GetVectorsBatch role,
         parquet/vector_ops.go:321-432)."""
         from hnsw_tpu_torch.utils.rerank import host_rerank
-        return host_rerank(self.store, self.metric, queries, cand, k)
+        with span("hnsw.host_rerank"):
+            return host_rerank(self.store, self.metric, queries, cand, k)
 
     @_reads
     def batch_search(self, queries, k: int, ef: Optional[int] = None
                      ) -> Tuple[List[List[Any]], np.ndarray]:
         """graph.go:1047 BatchSearch: (keys [Q][k], dists [Q,k])."""
         d, i = self.batch_search_slots(queries, k, ef)
-        keys = [self.slots.keys_for(row) for row in i]
+        with span("hnsw.keys"):
+            keys = [self.slots.keys_for(row) for row in i]
         return keys, d
 
     # -- ef calibration ---------------------------------------------------

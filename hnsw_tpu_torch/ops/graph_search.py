@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from hnsw_tpu_torch.ops import beam_search as bs
+from hnsw_tpu_torch.utils.profiling import span
 
 #: upper layers the kernel takes (csrc/beam_search.cu MAX_UP)
 MAX_UP = 64
@@ -219,81 +220,86 @@ def graph_search_cuda(g, queries: torch.Tensor, plan: Optional[dict], *,
                          f"{queries.device})")
     if k > P0:
         raise ValueError(f"k={k} is larger than the pool ({P0})")
-    dev = queries.device
-    queries = queries.to(torch.float32).contiguous()
-    B, D = queries.shape
-    if D != g.dim:
-        raise ValueError(f"queries {tuple(queries.shape)} do not fit a "
-                         f"D={g.dim} graph")
-    # the squared norms as the plain version takes them (two launches)
-    q_sq = torch.sum(queries * queries, dim=-1)
-    n_up = plan["n_up"]
-    mode0, mode_up = plan["mode0"], plan["mode_up"]
-    tables = upper_tables(g, n_up)
-    umap = (_i32(g.upper_map) if g.nbr_upper is not None
-            and g.upper_map is not None and n_up else None)
-    table0 = _i32(g.neighbors[0])
-    sq = g.sq_norms.to(torch.float32).contiguous()
-    qscale = None
-    if mode_up == "qrows":
-        vectors = g.qvec.contiguous()
-        qscale = g.qscale.to(torch.float32).contiguous()
-    else:
-        vectors = g.vectors.contiguous()
-    score_up = bs.score_code(g, mode_up, precision)
-    score0 = bs.score_code(g, mode0, precision)
-    blocks = scale = None
-    if mode0 == "blocks":
-        blocks = g.nbr_blocks.contiguous()
-        if score0 == bs._SCORE_I8:
-            scale = g.block_scale.to(torch.float32).reshape(()).contiguous()
-    R, rr_score, rr_vectors = 0, 0, None
-    if rerank:
-        R = min(P0, max(2 * k, 16))
-        rr_vectors = g.vectors.contiguous()
-        rr_score = _RERANK_SCORE[rr_vectors.dtype]
-    seeds = None if seed_ids is None else _i32(seed_ids)
-    if seeds is not None and seeds.shape[0] != B:
-        raise ValueError("seed ids must be [B, S]")
-    for name, t in (("neighbors", table0), ("upper_map", umap),
-                    ("vectors", vectors), ("sq_norms", sq),
-                    ("qscale", qscale), ("nbr_blocks", blocks),
-                    ("block_scale", scale), ("entry", g.entry),
-                    ("seed_ids", seeds), *(("upper table", t)
-                                           for t in tables)):
-        if t is not None and t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
-    buf = torch.empty(2 * B * k + (n_up + 1) * B, dtype=torch.int32,
-                      device=dev)
-    out_d = buf[:B * k].view(torch.float32).view(B, k)
-    out_i = buf[B * k:2 * B * k].view(B, k)
-    hops = buf[2 * B * k:].view(n_up + 1, B)
-    if B == 0:
-        return out_d, out_i, hops
+    with span("k5.prepare"):
+        dev = queries.device
+        queries = queries.to(torch.float32).contiguous()
+        B, D = queries.shape
+        if D != g.dim:
+            raise ValueError(f"queries {tuple(queries.shape)} do not fit "
+                             f"a D={g.dim} graph")
+        # the squared norms as the plain version takes them (two launches)
+        q_sq = torch.sum(queries * queries, dim=-1)
+        n_up = plan["n_up"]
+        mode0, mode_up = plan["mode0"], plan["mode_up"]
+        tables = upper_tables(g, n_up)
+        umap = (_i32(g.upper_map) if g.nbr_upper is not None
+                and g.upper_map is not None and n_up else None)
+        table0 = _i32(g.neighbors[0])
+        sq = g.sq_norms.to(torch.float32).contiguous()
+        qscale = None
+        if mode_up == "qrows":
+            vectors = g.qvec.contiguous()
+            qscale = g.qscale.to(torch.float32).contiguous()
+        else:
+            vectors = g.vectors.contiguous()
+        score_up = bs.score_code(g, mode_up, precision)
+        score0 = bs.score_code(g, mode0, precision)
+        blocks = scale = None
+        if mode0 == "blocks":
+            blocks = g.nbr_blocks.contiguous()
+            if score0 == bs._SCORE_I8:
+                scale = (g.block_scale.to(torch.float32).reshape(())
+                         .contiguous())
+        R, rr_score, rr_vectors = 0, 0, None
+        if rerank:
+            R = min(P0, max(2 * k, 16))
+            rr_vectors = g.vectors.contiguous()
+            rr_score = _RERANK_SCORE[rr_vectors.dtype]
+        seeds = None if seed_ids is None else _i32(seed_ids)
+        if seeds is not None and seeds.shape[0] != B:
+            raise ValueError("seed ids must be [B, S]")
+        for name, t in (("neighbors", table0), ("upper_map", umap),
+                        ("vectors", vectors), ("sq_norms", sq),
+                        ("qscale", qscale), ("nbr_blocks", blocks),
+                        ("block_scale", scale), ("entry", g.entry),
+                        ("seed_ids", seeds), *(("upper table", t)
+                                               for t in tables)):
+            if t is not None and t.device != dev:
+                raise ValueError(f"{name} is on {t.device}, queries on "
+                                 f"{dev}")
+        buf = torch.empty(2 * B * k + (n_up + 1) * B, dtype=torch.int32,
+                          device=dev)
+        out_d = buf[:B * k].view(torch.float32).view(B, k)
+        out_i = buf[B * k:2 * B * k].view(B, k)
+        hops = buf[2 * B * k:].view(n_up + 1, B)
+        if B == 0:
+            return out_d, out_i, hops
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+        def ptr(t):
+            return None if t is None else t.data_ptr()
 
-    lib = _load()
-    up_ptrs = (ctypes.c_void_p * max(1, n_up))(*[t.data_ptr()
-                                                 for t in tables])
-    up_rows = (ctypes.c_int * max(1, n_up))(*[t.shape[0] for t in tables])
+        lib = _load()
+        up_ptrs = (ctypes.c_void_p * max(1, n_up))(*[t.data_ptr()
+                                                     for t in tables])
+        up_rows = (ctypes.c_int * max(1, n_up))(*[t.shape[0]
+                                                   for t in tables])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.graph_search_launch(
-            ptr(queries), ptr(q_sq), ptr(g.entry), ptr(seeds), n_seed or 0,
-            n_up,
-            up_ptrs, up_rows, plan["M_up"],
-            ptr(umap), ptr(table0), table0.shape[1], ptr(vectors), ptr(sq),
-            ptr(qscale), ptr(blocks),
-            blocks.shape[1] if blocks is not None else 0, ptr(scale),
-            ptr(rr_vectors), rr_score, R, k, B, D, g.cap, P_up,
-            plan["E_up"], plan["M_up"], P0, plan["E0"], plan["M0"],
-            max_hops, bs._METRIC_CODE[metric], score_up, score0,
-            bs._MERGE_CODE[merge], int(bool(store_normalized)),
-            int(bs.rounds_operands(score_up, precision)),
-            int(bs.rounds_operands(score0, precision)), ptr(out_d),
-            ptr(out_i), ptr(hops), stream)
+        with span("k5.launch"):
+            rc = lib.graph_search_launch(
+                ptr(queries), ptr(q_sq), ptr(g.entry), ptr(seeds), n_seed or 0,
+                n_up,
+                up_ptrs, up_rows, plan["M_up"],
+                ptr(umap), ptr(table0), table0.shape[1], ptr(vectors), ptr(sq),
+                ptr(qscale), ptr(blocks),
+                blocks.shape[1] if blocks is not None else 0, ptr(scale),
+                ptr(rr_vectors), rr_score, R, k, B, D, g.cap, P_up,
+                plan["E_up"], plan["M_up"], P0, plan["E0"], plan["M0"],
+                max_hops, bs._METRIC_CODE[metric], score_up, score0,
+                bs._MERGE_CODE[merge], int(bool(store_normalized)),
+                int(bs.rounds_operands(score_up, precision)),
+                int(bs.rounds_operands(score0, precision)), ptr(out_d),
+                ptr(out_i), ptr(hops), stream)
     if rc != 0:
         raise RuntimeError(f"graph_search ({mode0}, uppers {mode_up}) "
                            f"launch failed: cudaError {rc}")
@@ -307,11 +313,13 @@ def to_host(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The tensors on the host. Views of one card buffer (the kernel's
     outputs) come back in one device-to-host copy of that buffer; others
     one copy each."""
-    stores = {t.untyped_storage().data_ptr() for t in tensors}
-    if len(stores) != 1:
-        return tuple(t.cpu() for t in tensors)
-    whole = torch.empty(0, dtype=torch.uint8, device=tensors[0].device)
-    host = whole.set_(tensors[0].untyped_storage()).cpu()
-    return tuple(torch.as_strided(host.view(t.dtype), t.shape, t.stride(),
-                                  t.storage_offset()) for t in tensors)
+    with span("hnsw.results.copy"):
+        stores = {t.untyped_storage().data_ptr() for t in tensors}
+        if len(stores) != 1:
+            return tuple(t.cpu() for t in tensors)
+        whole = torch.empty(0, dtype=torch.uint8, device=tensors[0].device)
+        host = whole.set_(tensors[0].untyped_storage()).cpu()
+        return tuple(torch.as_strided(host.view(t.dtype), t.shape,
+                                      t.stride(), t.storage_offset())
+                     for t in tensors)
 

@@ -1,8 +1,10 @@
 """Profiling and tracing hooks (port of hnsw_tpu/utils/profiling.py).
 
 Device traces come from ``torch.profiler`` (Chrome trace files, viewable
-in Perfetto or chrome://tracing); host-side timed sections feed
-telemetry.MetricsWindow.
+in Perfetto or chrome://tracing). The program names its own work in them
+with ``span``: a ``record_function`` range while a profiler session
+records, on the trace's host clock (the clock the trace places the
+card's kernels on), and nothing at all otherwise.
 """
 
 from __future__ import annotations
@@ -131,44 +133,31 @@ def trace_summary(fn) -> Optional[dict]:
             "copies": copies, "syncs": syncs}
 
 
-class Timer:
-    """Named wall-clock sections with simple aggregates."""
+#: what ``span`` returns while no profiler session records: one shared,
+#: reusable context that does nothing
+_OFF = contextlib.nullcontext()
 
-    def __init__(self) -> None:
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
 
-    @contextlib.contextmanager
-    def section(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> Dict[str, Dict[str, float]]:
-        return {
-            name: {
-                "total_s": round(self.totals[name], 4),
-                "count": self.counts[name],
-                "avg_ms": round(1000 * self.totals[name]
-                                / max(self.counts[name], 1), 3),
-            }
-            for name in sorted(self.totals)
-        }
+def span(name: str):
+    """A context that names its block ``name`` in a ``torch.profiler``
+    trace: ``record_function(name)`` while a session records, else a
+    shared do-nothing context. The gate is the profiler's own flag, so a
+    span costs a function call and one check with the profiler off (a
+    bare ``record_function`` enters the dispatcher even then). Spans keep
+    no time of their own: their times are the trace's."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def annotate(name: str):
-    """Decorator that runs a function inside
-    ``torch.profiler.record_function(name)``: the name shows up as a
-    range in ``device_trace`` profiles."""
+    """Decorator that runs a function inside ``span(name)``: the name
+    shows up as a range in ``device_trace`` profiles."""
 
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*a, **k):
-            with torch.profiler.record_function(name):
+            with span(name):
                 return fn(*a, **k)
         return wrapper
 

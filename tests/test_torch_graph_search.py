@@ -424,3 +424,53 @@ def test_results_come_back_in_one_copy_of_the_buffer():
     np.testing.assert_array_equal(dh, d.numpy())
     np.testing.assert_array_equal(ih, i.numpy())
     assert stats["hops"] == h.amax(1).tolist()
+
+
+def test_hop_maxima_can_be_left_to_the_caller():
+    """With ``hops=False`` results_to_host leaves the hop counts on the
+    host as [layers, B] and takes no maxima; ``hop_maxima`` takes them
+    (zeros for an empty batch)."""
+    h = (torch.arange(12, dtype=torch.int32).view(3, 4) * 7) % 5
+    stats = {"hops_by_query": h}
+    d = torch.zeros((4, 2))
+    i = torch.zeros((4, 2), dtype=torch.int32)
+    tsearch.results_to_host(d, i, stats, hops=False)
+    assert "hops" not in stats
+    assert torch.equal(stats["hops_by_query"], h)
+    assert tsearch.hop_maxima(h) == h.amax(1).tolist()
+    assert tsearch.hop_maxima(torch.zeros((2, 0), dtype=torch.int32)) \
+        == [0, 0]
+
+
+def test_graph_reduces_k5s_hop_counts_only_when_read(monkeypatch):
+    """On K5's path the graph keeps the hop counts a query from the one
+    copy and ``last_search_hops`` takes each layer's largest when read,
+    not on every call (here K5 is stood in for by the plain version plus
+    the counts it would leave)."""
+    from hnsw_tpu_torch.index import hnsw as thnsw
+    rng = np.random.default_rng(8)
+    g = hnsw_tpu_torch.Graph(m=4, metric="l2", seed=0, device="cpu")
+    g.build(list(range(300)), rng.standard_normal((300, 8))
+            .astype(np.float32), method="host")
+    g.native_serve_max_batch = 0
+    counts = torch.tensor([[1, 4, 2], [3, 0, 9]], dtype=torch.int32)
+    real = thnsw.search_graph
+
+    def k5(g_, q, **kw):
+        d, i = real(g_, q, **{**kw, "stats": None})
+        kw["stats"]["hops_by_query"] = counts
+        return d, i
+
+    reduced = []
+    real_max = thnsw.hop_maxima
+    monkeypatch.setattr(thnsw, "search_graph", k5)
+    monkeypatch.setattr(thnsw, "hop_maxima",
+                        lambda h: reduced.append(1) or real_max(h))
+    for _ in range(3):
+        g.batch_search_slots(rng.standard_normal((3, 8)).astype(np.float32),
+                             2)
+    assert reduced == []
+    assert g.last_search_hops == [4, 9] and reduced == [1]
+    monkeypatch.setattr(thnsw, "search_graph", real)
+    g.batch_search_slots(rng.standard_normal((3, 8)).astype(np.float32), 2)
+    assert len(g.last_search_hops) == g.device_graph().num_layers

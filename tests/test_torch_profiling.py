@@ -1,9 +1,8 @@
-"""utils/profiling of the port against hnsw_tpu/utils/profiling.py.
-
-``Timer.report()`` equals JAX's for the same sections, with
-``time.perf_counter`` replaced in both modules by the same scripted
-clock; ``device_trace`` writes a Chrome trace holding the name that
-``annotate`` gave a function (here the CPU activity only).
+"""utils/profiling of the port: ``device_trace`` writes a Chrome trace
+holding the names that ``span`` and ``annotate`` give the program's work
+(here the CPU activity only), ``span`` records nothing while no profiler
+session does, and the program's spans of a search call, a keyed search
+and a device build wave nest as they are documented.
 """
 
 import glob
@@ -15,38 +14,153 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from hnsw_tpu.utils import profiling as jprof  # noqa: E402
+import numpy as np  # noqa: E402
 
+from hnsw_tpu_torch import Graph  # noqa: E402
 from hnsw_tpu_torch.utils import profiling  # noqa: E402
 
-#: (section, start, end) in clock seconds
-SECTIONS = [("scan", 0.0, 0.0123), ("merge", 1.0, 1.5), ("scan", 2.0, 2.2),
-            ("rerank", 3.0, 3.00001), ("scan", 4.0, 4.0)]
+
+def _spans(tmp_path, fn):
+    """Run ``fn`` inside ``device_trace`` and return the trace's
+    ``record_function`` ranges as (name, start us, end us), in order."""
+    with profiling.device_trace(str(tmp_path / "spans")):
+        fn()
+    (path,) = glob.glob(os.path.join(tmp_path, "spans", "*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted((e["name"], float(e["ts"]), float(e["ts"]) + e["dur"])
+                  for e in events if e.get("cat") == "user_annotation")
 
 
-def _report(mod, monkeypatch):
-    ticks = iter(t for _, a, b in SECTIONS for t in (a, b))
-    monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
-    timer = mod.Timer()
-    for name, _, _ in SECTIONS:
-        with timer.section(name):
+def _inside(inner, outer):
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+def _of(spans, name):
+    return [s for s in spans if s[0] == name]
+
+
+@pytest.fixture(scope="module")
+def graph():
+    """A 1,200-row L2 graph on the CPU, built by the native engine, and
+    a batch of queries larger than the native engine's."""
+    rng = np.random.default_rng(3)
+    g = Graph(m=8, metric="l2", seed=0, device="cpu")
+    g.build(list(range(1200)), rng.standard_normal((1200, 16))
+            .astype(np.float32), method="host")
+    return g, rng.standard_normal((48, 16)).astype(np.float32)
+
+
+def test_span_records_nothing_without_a_profiler(monkeypatch, graph):
+    """With no profiler session recording, ``span``, ``annotate`` and a
+    whole search call make no ``record_function`` range; inside one, each
+    span makes one."""
+    made = []
+    real = torch.profiler.record_function
+
+    def counted(name):
+        made.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    g, q = graph
+    with profiling.span("port_span"):
+        pass
+    assert profiling.annotate("port_fn")(lambda x: x + 1)(1) == 2
+    g.batch_search_slots(q, 5)
+    assert made == []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.span("port_span"):
             pass
-    return timer.report()
+        g.batch_search_slots(q, 5)
+    assert made[0] == "port_span" and "hnsw.search" in made
 
 
-def test_timer_report_equals_jax(monkeypatch):
-    got = _report(profiling, monkeypatch)
-    want = _report(jprof, monkeypatch)
-    assert got == want
-    assert got["scan"]["count"] == 3
+def test_span_names_its_block_in_a_cpu_trace(tmp_path):
+    def work():
+        with profiling.span("port_outer"):
+            with profiling.span("port_inner"):
+                torch.ones((4, 4)).sum()
+
+    spans = _spans(tmp_path, work)
+    (outer,), (inner,) = _of(spans, "port_outer"), _of(spans, "port_inner")
+    assert _inside(inner, outer)
 
 
-def test_timer_counts_a_section_that_raises():
-    timer = profiling.Timer()
-    with pytest.raises(ValueError):
-        with timer.section("boom"):
-            raise ValueError
-    assert timer.report()["boom"]["count"] == 1
+def test_a_search_call_nests_its_spans(tmp_path, graph):
+    """``hnsw.search`` holds the preparation, the query copy and the
+    results (with their copy) in that order; the read hold is taken
+    before it opens (``hnsw.lock``, which ends before it)."""
+    g, q = graph
+    spans = _spans(tmp_path, lambda: g.batch_search_slots(q, 5))
+    (search,) = _of(spans, "hnsw.search")
+    parts = [_of(spans, n) for n in ("hnsw.prepare", "hnsw.query_copy",
+                                     "hnsw.results", "hnsw.results.copy")]
+    assert [len(p) for p in parts] == [1, 1, 1, 1]
+    (prep,), (copy,), (results,), (out,) = parts
+    assert all(_inside(s, search) for s in (prep, copy, results))
+    assert prep[2] <= copy[1] and copy[2] <= results[1]
+    assert _inside(out, results)
+    lock = _of(spans, "hnsw.lock")[0]
+    assert lock[2] <= search[1]
+    assert not _of(spans, "hnsw.native_search")
+
+
+@pytest.mark.parametrize("case", ["native", "capacity"])
+def test_the_other_routes_name_their_work(tmp_path, graph, case):
+    """A batch the native engine serves is ``hnsw.native_search`` inside
+    ``hnsw.search`` with no query copy; the capacity modes' host rerank is
+    ``hnsw.host_rerank`` inside ``hnsw.results``."""
+    g, q = graph
+    if case == "native":
+        spans = _spans(tmp_path, lambda: g.batch_search_slots(q[:8], 5))
+        (search,), (native,) = (_of(spans, "hnsw.search"),
+                                _of(spans, "hnsw.native_search"))
+        assert _inside(native, search)
+        assert not _of(spans, "hnsw.query_copy")
+        return
+    g.hbm_mode = "quantized"
+    try:
+        spans = _spans(tmp_path, lambda: g.batch_search_slots(q, 5))
+    finally:
+        g.hbm_mode = "full"
+    (results,), (rerank,) = (_of(spans, "hnsw.results"),
+                             _of(spans, "hnsw.host_rerank"))
+    assert _inside(rerank, results)
+
+
+def test_batch_search_adds_the_key_span(tmp_path, graph):
+    g, q = graph
+    got = []
+    spans = _spans(tmp_path, lambda: got.append(g.batch_search(q, 5)))
+    (search,), (keys,) = _of(spans, "hnsw.search"), _of(spans, "hnsw.keys")
+    assert search[2] <= keys[1]
+    assert len(got[0][0]) == len(q)
+
+
+def test_a_device_build_names_each_wave(tmp_path):
+    """Each wave of the device builder is one ``build.wave`` holding its
+    descent, a selection and a reverse update for each layer the wave
+    reaches, and its commit; the write hold is taken before the build."""
+    rng = np.random.default_rng(4)
+    rows = rng.standard_normal((700, 8)).astype(np.float32)
+    g = Graph(m=4, metric="l2", seed=1, device="cpu")
+    spans = _spans(tmp_path, lambda: g.build(list(range(700)), rows,
+                                             method="device", wave=256))
+    waves = _of(spans, "build.wave")
+    assert len(waves) >= 2
+    for name in ("build.descent", "build.commit"):
+        inner = _of(spans, name)
+        assert len(inner) == len(waves)
+        assert all(_inside(s, w) for s, w in zip(inner, waves))
+    selects = _of(spans, "build.select")
+    updates = _of(spans, "build.update")
+    assert len(selects) == len(updates) >= len(waves)
+    assert all(any(_inside(s, w) for w in waves)
+               for s in selects + updates)
+    assert _of(spans, "hnsw.lock")[0][2] <= waves[0][1]
+    assert g.search(rows[5], 1)[0][0] == 5
 
 
 def test_device_trace_holds_the_annotated_name(tmp_path):
