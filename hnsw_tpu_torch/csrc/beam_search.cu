@@ -37,10 +37,12 @@
 //      expanded (bit 30 of the id, as the twin carries it).  [barrier 1]
 //   G. one thread a candidate slot loads its neighbour id (through
 //      upper_map for a compact upper table), asks the L2 cache for its row
-//      (prefetch.global.L2), and probes the table: an id of the pool is
-//      masked (entries at INF with a valid id too: the refine seeds a node
-//      with itself at INF); under the bitonic merge it inserts the id with
-//      atomicMin of its slot, so the lowest slot of a hop's copies wins.
+//      (prefetch.global.L2: always in a block layout, in a row store K2
+//      only, see K5 below), and probes the table:
+//      an id of the pool is masked (entries at INF with a valid id too:
+//      the refine seeds a node with itself at INF); under the bitonic
+//      merge it inserts the id with atomicMin of its slot, so the lowest
+//      slot of a hop's copies wins.
 //      O(1) a candidate in place of the C x P and C^2 compares.  [2]
 //   L. warp 0 lists the surviving slots in slot order with ballots (a
 //      later copy of an id finds a lower slot in the table and drops); the
@@ -165,6 +167,27 @@
 // of the 8-wide upper layers by warp 0 alone between two block barriers a
 // hop (no hash table). What stays: nothing is kept in registers across
 // the layers, and the one-key-a-lane sort.
+//
+// K5 asks the L2 cache for no row of a row store ahead (layer_search's
+// PREFETCH false; K2, which the builder launches, still does). At a
+// million rows (512 MB of f32 rows against 50 MB of L2) the memory
+// system, not the hop's chain, sets the pace: a block's time fell only
+// 1.11x from 6 to 8 resident blocks an SM, and a hop's row loads waited
+// 8-10 us. The prefetch asked for the row of every gathered id, about 128
+// a hop at E*M = 128, of which a layer-0 hop scores about 50: the rest
+// are ids the pool holds, whose rows it does not read again. Without it a
+// launch of 8,192 queries took 5.23 / 10.59 ms at ef 64 / 192 against
+// 6.04 / 13.36 ms, with the same outputs bit for bit, and a batch whose
+// rows all sit in L2 was faster too (3.89 against 4.24 ms at ef 64); fp16
+// rows at ef 192 took 10.33 against 10.37 ms. A block layout keeps it: an
+// expanded node's block is one run of its M rows, asked for before the
+// ids are read, and int8 blocks at ef 192 (pivot seeds, fast_math) took
+// 9.39 ms without it against 8.52-8.57 ms with it. A form of one query a
+// warp, four a block (no block barrier inside a hop, 20 queries an SM at
+// ef 64 against 8), was built, held equal bit for bit and measured
+// slower: 5.73 / 15.02 ms without the prefetch. A warp keeps 8 rows in
+// flight, a block 32, and at 96 registers a thread the warps an SM held
+// fewer rows in flight than the blocks, each waiting as long.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -946,8 +969,10 @@ __shared__ LayerRef k5_ref;
 // hop count. On return every thread is synced and the pool is in shared
 // memory (a.L.pool_d, a.L.pool_i): ascending, empty slots (INF, -1) last,
 // ids with the expanded flag. K2 (beam_search_kernel) runs one layer a
-// launch; K5 (graph_search_kernel) runs every layer of a search.
-template <int SCORE, bool VEC>
+// launch; K5 (graph_search_kernel) runs every layer of a search. PREFETCH:
+// in a row store, each gathered id's row is asked of the L2 cache as the
+// id arrives (K2). A block layout always asks for its slot's row.
+template <int SCORE, bool VEC, bool PREFETCH>
 __device__ __forceinline__ int layer_search(const Params& a, bool upper,
                                             const int* sid,
                                             const float* sdist, int s_in,
@@ -1068,7 +1093,7 @@ __device__ __forceinline__ int layer_search(const Params& a, bool upper,
         }
         if (row >= 0) id = __ldg(table + (size_t)row * a.width + m);
         if (id >= 0) {
-          if (!BLOCKS)
+          if (!BLOCKS && PREFETCH)
             prefetch_l2(static_cast<const char*>(a.vectors) +
                             (size_t)id * D * ES,
                         D * ES);
@@ -1167,7 +1192,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   load_query(reinterpret_cast<float*>(smem), a.queries + (size_t)b * a.D,
              a.D, a.round_q);
   int n_exp = 0, n_scored = 0;
-  const int hops = layer_search<SCORE, VEC>(
+  const int hops = layer_search<SCORE, VEC, true>(
       a, false, a.start_ids + (size_t)b * a.s_in,
       a.start_d + (size_t)b * a.s_in, a.s_in, a.q_sq[b], n_exp, n_scored);
   // the pool is ascending with its empty slots last: the twin's final
@@ -1384,7 +1409,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
       ref->table = g.up_table[l - 1];
       ref->n_rows = g.up_rows[l - 1];
     }
-    const int hops = layer_search<SCOREUP, VEC>(
+    const int hops = layer_search<SCOREUP, VEC, false>(
         g.up, true, seed_ids(g), seed_dists(g), 1, g.l0.q_sq[block_index()],
         n_exp, n_scored);
     if (thread_index() == 0) {
@@ -1410,7 +1435,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 
   // 3. layer 0 (layer_search's first barrier orders the new query row)
   load_query(qop, query_row(g), g.l0.D, g.l0.round_q);
-  const int hops0 = layer_search<SCORE0, VEC>(
+  const int hops0 = layer_search<SCORE0, VEC, false>(
       g.l0, false, seed_ids(g), seed_dists(g), g.n_seed,
       g.l0.q_sq[block_index()], n_exp, n_scored);
 #ifdef GRAPH_PHASE_CLOCKS
@@ -1562,6 +1587,9 @@ cudaError_t launch_vec(const Params& p, bool vec, int B, size_t smem,
 
 #ifdef PHASE_CLOCKS
 long long* g_clocks = nullptr;   // the next launch's phase counters
+#endif
+#ifdef GRAPH_RESIDENCY_PAD
+int g_pad = 0;   // bytes of shared memory a K5 block takes beyond its need
 #endif
 
 bool aligned(const void* ptr, uintptr_t bytes) {
@@ -1872,9 +1900,11 @@ int graph_search_launch(
 #else
   g.clocks = nullptr;
 #endif
-  const size_t smem = (size_t)graph_smem(D, P_up, E_up, M_up, n_up, P0, E0,
-                                         M0, merge_sort, g.n_seed,
-                                         &g.seed_off);
+  size_t smem = (size_t)graph_smem(D, P_up, E_up, M_up, n_up, P0, E0, M0,
+                                   merge_sort, g.n_seed, &g.seed_off);
+#ifdef GRAPH_RESIDENCY_PAD
+  smem += g_pad;
+#endif
   // whole-row vector loads, as K2 takes them: D % 4 == 0 and every scored
   // store's base aligned to 4 elements
   const uintptr_t row_align = 4 * elem_bytes(score_up);
@@ -1899,6 +1929,13 @@ int graph_search_clock_cols() { return N_GROUP * (N_PHASE + 1); }
 void graph_search_set_clocks(void* clocks) {
   g_clocks = static_cast<long long*>(clocks);
 }
+#endif
+
+#ifdef GRAPH_RESIDENCY_PAD
+// The residency probe's build (tools/graph_split.py --resident): the next
+// K5 launches take ``bytes`` of dynamic shared memory a block beyond their
+// need, so that fewer blocks fit an SM. The results do not change.
+void graph_search_set_pad(int bytes) { g_pad = bytes > 0 ? bytes : 0; }
 #endif
 
 // Resident blocks an SM of one K5 instantiation at ``smem`` bytes of

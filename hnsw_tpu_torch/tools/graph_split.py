@@ -3,7 +3,8 @@
 on one NVIDIA GPU.
 
     python3 -m hnsw_tpu_torch.tools.graph_split [--out DIR] [--parent ROOT]
-        [--reps N] [--runs N]
+        [--reps N] [--runs N] [--rows N] [--batch N] [--cases LIST]
+        [--resident LIST]
 
 Builds ``csrc/beam_search.cu`` as the port ships it and with
 ``-DGRAPH_PHASE_CLOCKS``, where thread 0 of each block adds the
@@ -43,8 +44,24 @@ of every case) equal bit for bit (``same_outputs``). With ``--parent ROOT``
 .scratch/parent``) it builds that checkout's source too and runs parent,
 change, change, parent, each a fresh process that imports its own
 package (``--runs`` 3: parent, change, change, parent, parent, change);
-a source without ``GRAPH_PHASE_CLOCKS`` gives times and no split. Needs
-nvcc and a CUDA card; raises without one.
+a source without ``GRAPH_PHASE_CLOCKS`` gives times and no split.
+
+``--rows N`` serves, in place of phase 5's graph, the graph of the
+benchmark's cell ``ROWS_CELL`` with N rows (``rows_graph``: the cell's
+own set-up, ``portbench.run.set_up``, draws the SIFT-shaped rows from its
+configuration's generator and builds them on the card with the wave
+builder; the cell's search: L2, ``search_expand`` 4, ``max_hops`` 128),
+once, into ``--out``; at 1M rows layer 0 does not sit in L2. ``--batch``
+queries a batch (default 1,024; the benchmark's cells take 8,192),
+``--cases`` a comma-separated list of cases: ``CASES``' modes, and
+"fp16" (``hbm_mode="float16"``: fp16 rows on every layer), at any ef.
+``--resident 2,4,6,8`` is the residency probe: each case's launch again
+through a build of the source with ``-DGRAPH_RESIDENCY_PAD``, whose
+blocks take as much more dynamic shared memory (``graph_search_set_pad``)
+as leaves only N blocks an SM (``resident_pad``): µs a query at each N,
+and the occupancy API's count (a source without the macro, such as an
+older parent, is not probed). Needs nvcc and a CUDA card; raises without
+one.
 """
 
 from __future__ import annotations
@@ -64,14 +81,20 @@ import numpy as np
 #: the clocked build's macro and its counter groups (csrc/beam_search.cu
 #: G_*), in order
 CLOCKS = "GRAPH_PHASE_CLOCKS"
+#: the residency probe's build: K5 blocks padded by graph_search_set_pad
+PAD = "GRAPH_RESIDENCY_PAD"
 GROUPS = ("entries", "upper layers", "layer 0", "rerank")
 #: the phases of csrc/beam_search.cu PH_*, as K5's clocked build counts
 #: them (PH_DEDUP holds a layer's set-up: pool init and hand-off)
 PHASES = ("select", "gather + in-pool mask", "set-up", "list", "score",
           "rank", "merge", "compact")
 CASES = ("default ef=64", "default ef=192", "bench ef=192")
+#: the benchmark cell whose graph --rows serves (at another row count)
+ROWS_CELL = "sift1m-l2.b8192.ef64"
 BENCH = dict(fast_math=True, block_layout=True, block_dtype="int8",
              entry_mode="pivots")
+#: each case's serving attributes by its mode (a case is "<mode> ef=<n>")
+MODES = {"default": {}, "bench": BENCH, "fp16": dict(hbm_mode="float16")}
 #: distinct queries of the reuse probe's batch
 N_DISTINCT = 8
 #: calls back to back a timed rep of the launch
@@ -173,6 +196,78 @@ def row_bytes(dg, plan: dict, rerank_dtype_bytes: int) -> Dict[str, int]:
             "upper layers": of(plan["mode_up"]),
             "layer 0": of(plan["mode0"]),
             "rerank": rerank_dtype_bytes * D + 4}
+
+
+def rows_graph(n: int, seed: int = 1):
+    """The --rows graph: ``ROWS_CELL``'s configuration with ``n`` rows,
+    drawn and built on the card by the cell's own set-up
+    (``portbench.run.set_up``: its generator, graph configuration and
+    wave builder). Returns (the Graph, the query pool [n_pool, D] float32,
+    the rows in slot order)."""
+    import dataclasses
+
+    import torch
+    from portbench import cells, run
+    cell = cells.load(ROWS_CELL, _ROOT)
+    cell = dataclasses.replace(cell, config=dict(cell.config, rows=int(n)))
+    s = run.set_up(cell, seed, torch.device("cuda"))
+    return s.graph, s.pool, s.rows
+
+
+def prepare_rows_graph(path: str, n: int) -> None:
+    """``rows_graph(n)`` saved with its configuration, rows and query pool
+    to ``path`` (npz), for every checkout's worker to serve."""
+    import dataclasses
+    g, pool, rows = rows_graph(n)
+    nb, levels, entry, top = g.host.arrays()
+    tmp = f"{path}.{os.getpid()}.npz"
+    np.savez(tmp, n=g.slots.capacity_used, neighbors=nb, levels=levels,
+             entry=entry, top=top, rows=rows, queries=pool,
+             config=json.dumps(dataclasses.asdict(g.cfg)))
+    os.replace(tmp, path)
+
+
+def load_rows_graph(path: str):
+    """The Graph saved by ``prepare_rows_graph`` on the card, and its
+    queries."""
+    from hnsw_tpu_torch.config import GraphConfig
+    from hnsw_tpu_torch.convert import graph_from_host_arrays
+    z = np.load(path)
+    n = int(z["n"])
+    g = graph_from_host_arrays(GraphConfig(**json.loads(str(z["config"]))),
+                               list(range(n)), z["rows"][:n],
+                               np.ones(n, bool), z["neighbors"],
+                               z["levels"], int(z["entry"]), int(z["top"]),
+                               device="cuda")
+    g.native_serve_max_batch = 0
+    return g, z["queries"]
+
+
+#: an H100 SM as the occupancy API counts it: shared memory (228 KB), the
+#: reserve each block takes, the unit it is allocated in, and K5's static
+#: shared memory a block (k5_ref)
+SM_SMEM, BLOCK_RESERVED_SMEM, SMEM_UNIT, STATIC_SMEM = 233_472, 1_024, 128, 16
+
+
+def resident_pad(smem: int, blocks: int) -> int:
+    """Bytes to add to a block's ``smem`` bytes of dynamic shared memory
+    so that just ``blocks`` blocks fit an H100 SM by shared memory (228
+    KB, a block's static bytes and reserve, in 128-byte units): the
+    residency probe's cap."""
+    per_block = (SM_SMEM // blocks) // SMEM_UNIT * SMEM_UNIT
+    return max(0, per_block - BLOCK_RESERVED_SMEM - STATIC_SMEM - smem)
+
+
+def pad_library(path: str):
+    """The residency probe's build (``PAD``) at ``path``, bound, with its
+    setter typed."""
+    import ctypes
+
+    from hnsw_tpu_torch.ops import beam_search as bs
+    lib = bs.bind(path)
+    lib.graph_search_set_pad.argtypes = [ctypes.c_int]
+    lib.graph_search_set_pad.restype = None
+    return lib
 
 
 def clocks_library(build_dir: str, source: Optional[str] = None):
@@ -309,7 +404,7 @@ def capture_cases(g, queries: np.ndarray,
     out = {}
     for label in labels:
         mode, ef = label.split(" ef=")
-        attrs = BENCH if mode == "bench" else {}
+        attrs = MODES[mode]
         saved = {k: getattr(g, k) for k in attrs}
         for k, v in attrs.items():
             setattr(g, k, v)
@@ -383,12 +478,44 @@ def _clocked(lib, c: dict) -> tuple:
             np.asarray(st["hops_by_query"]))
 
 
+def resident_probe(plib, c: dict, s0: int, su: int, blocks: Sequence[int],
+                   reps: int) -> List[dict]:
+    """The residency probe of one captured search: its launch through the
+    padded build ``plib`` (``pad_library``) at each count of ``blocks`` an
+    SM (``resident_pad``), with the occupancy API's count beside it, and
+    µs a query."""
+    from hnsw_tpu_torch.ops import beam_search as bs
+    smem = _plan(c)["smem"]
+    out = []
+    saved = bs._lib
+    bs._lib = plib
+    try:
+        for n in blocks:
+            pad = resident_pad(smem, n)
+            plib.graph_search_set_pad(pad)
+            t = _times(c, reps)
+            api = plib.graph_search_blocks_per_sm(s0, su, 1, smem + pad)
+            out.append({"blocks": n, "pad": pad, "api_blocks": int(api),
+                        "launch_ms": t["launch_ms"],
+                        "us_per_query": t["launch_ms"] * 1e3 / len(c["q"])})
+    finally:
+        plib.graph_search_set_pad(0)
+        bs._lib = saved
+    return out
+
+
 def worker(out: str, lib_path: str, clocks_path: Optional[str],
-           reps: int, rescore: bool = False, tag: str = "run") -> dict:
+           reps: int, rescore: bool = False, tag: str = "run",
+           graph: Optional[str] = None, batch: Optional[int] = None,
+           cases: Sequence[str] = CASES, resident: Sequence[int] = (),
+           pad_path: Optional[str] = None) -> dict:
     """One checkout's numbers (its package on ``sys.path``, its library
     built at ``lib_path``, its clocked build, if any, at ``clocks_path``;
-    with ``rescore`` also ``measure_rescore`` on the random batch). Each
-    case's outputs (distances, ids, hop counts by query) go to
+    with ``rescore`` also ``measure_rescore`` on the random batch). The
+    graph: phase 5's, or the --rows graph saved at ``graph``; ``batch``
+    queries of it. ``resident``: the residency probe's counts of blocks an
+    SM (``resident_probe``, through the padded build at ``pad_path``).
+    Each case's outputs (distances, ids, hop counts by query) go to
     ``out/outputs_<tag>.npz``."""
     import torch
     from hnsw_tpu_torch.ops import beam_search as bs
@@ -398,58 +525,82 @@ def worker(out: str, lib_path: str, clocks_path: Optional[str],
     if clocks_path:
         clib = clocks_library(os.path.dirname(clocks_path))
     khz = bs._lib.beam_search_clock_khz()
-    st = _search_trace()
-    g, queries, _ = st._graph(os.path.join(out, "graph.npz"))
-    from hnsw_tpu_torch.core import search
+    plib = pad_library(pad_path) if resident and pad_path else None
+    if graph:
+        g, queries = load_rows_graph(graph)
+    else:
+        g, queries, _ = _search_trace()._graph(os.path.join(out,
+                                                            "graph.npz"))
+    if batch:
+        queries = queries[:batch]
     res = {"device": torch.cuda.get_device_name(0), "clock_khz": khz}
     outputs = {}
-    for batch, qs in (("random", queries), ("reuse", reuse_queries(queries))):
-        for label, c in capture_cases(g, qs).items():
-            plan = _plan(c)
-            if plan is None:
-                raise RuntimeError(f"{label}: K5 does not take the search")
-            r = dict(_times(c, reps), plan={k: v for k, v in plan.items()
-                                            if isinstance(v, (int, str))})
-            st = {}
-            d, i = search.results_to_host(
-                *search.search_graph(c["g"], c["q"], stats=st, **c["kw"]),
-                st)
-            key = f"{batch} {label}"
-            outputs.update({f"{key} dists": d, f"{key} ids": i,
-                            f"{key} hops": np.asarray(st["hops_by_query"])})
-            lib = gs._load()
-            s0 = bs.score_code(c["g"], plan["mode0"], "default"
-                               if c["kw"].get("fast_math") else "highest")
-            su = bs.score_code(c["g"], plan["mode_up"], "default"
-                               if c["kw"].get("fast_math") else "highest")
-            r["blocks_per_sm"] = int(lib.graph_search_blocks_per_sm(
-                s0, su, 1, plan["smem"]))
-            r["instantiation"] = (s0, su)
-            if clib is not None:
-                r["split"] = split_case(bs._lib, clib, c, r["launch_ms"])
-            if batch == "random" and rescore:
-                r["rescore"] = measure_rescore(c)
-            res[f"{batch} {label}"] = r
+    for name, qs in (("random", queries), ("reuse", reuse_queries(queries))):
+        for label, c in capture_cases(g, qs, cases).items():
+            key = f"{name} {label}"
+            res[key] = _case(c, reps, clib, key, outputs,
+                             rescore and name == "random")
+            if plib is not None and name == "random":
+                s0, su = res[key]["instantiation"]
+                res[key]["resident"] = resident_probe(plib, c, s0, su,
+                                                      resident, reps)
             torch.cuda.synchronize()
     np.savez(os.path.join(out, f"outputs_{tag}.npz"), **outputs)
     return res
 
 
+def _case(c: dict, reps: int, clib, key: str, outputs: dict,
+          rescore: bool) -> dict:
+    """One captured search's times, outputs (into ``outputs`` under
+    ``key``), resident blocks an SM, split and, with ``rescore``, rows
+    scored again."""
+    from hnsw_tpu_torch.core import search
+    from hnsw_tpu_torch.ops import beam_search as bs
+    from hnsw_tpu_torch.ops import graph_search as gs
+    plan = _plan(c)
+    if plan is None:
+        raise RuntimeError(f"{key}: K5 does not take the search")
+    r = dict(_times(c, reps), plan={k: v for k, v in plan.items()
+                                    if isinstance(v, (int, str))})
+    st = {}
+    d, i = search.results_to_host(
+        *search.search_graph(c["g"], c["q"], stats=st, **c["kw"]), st)
+    outputs.update({f"{key} dists": d, f"{key} ids": i,
+                    f"{key} hops": np.asarray(st["hops_by_query"])})
+    lib = gs._load()
+    precision = "default" if c["kw"].get("fast_math") else "highest"
+    s0 = bs.score_code(c["g"], plan["mode0"], precision)
+    su = bs.score_code(c["g"], plan["mode_up"], precision)
+    r["blocks_per_sm"] = int(lib.graph_search_blocks_per_sm(s0, su, 1,
+                                                            plan["smem"]))
+    r["instantiation"] = (s0, su)
+    if clib is not None:
+        r["split"] = split_case(bs._lib, clib, c, r["launch_ms"])
+    if rescore:
+        r["rescore"] = measure_rescore(c)
+    return r
+
+
 # ---- the main process ------------------------------------------------------
 
 
-def build_all(out: str, sources: Dict[str, str]) -> Dict[str, str]:
-    """Each source (name -> beam_search.cu) as shipped, and with
-    ``GRAPH_PHASE_CLOCKS`` where the source has it, every nvcc at once,
-    into ``out/<name>`` and ``out/<name>_clocks``. Returns {dir name:
-    library path}."""
+def build_all(out: str, sources: Dict[str, str],
+              pad: bool = False) -> Dict[str, str]:
+    """Each source (name -> beam_search.cu) as shipped, with
+    ``GRAPH_PHASE_CLOCKS`` where the source has it and, with ``pad``, with
+    ``GRAPH_RESIDENCY_PAD`` where it has that, every nvcc at once, into
+    ``out/<name>``, ``out/<name>_clocks`` and ``out/<name>_pad``. Returns
+    {dir name: library path}."""
     from hnsw_tpu_torch.ops import beam_search as bs
     jobs = {}
     for name, src in sources.items():
         jobs[name] = (src, ())
         with open(src) as f:
-            if CLOCKS in f.read():
-                jobs[f"{name}_clocks"] = (src, (CLOCKS,))
+            text = f.read()
+        if CLOCKS in text:
+            jobs[f"{name}_clocks"] = (src, (CLOCKS,))
+        if pad and PAD in text:
+            jobs[f"{name}_pad"] = (src, (PAD,))
     paths, errors = {}, []
 
     def one(key):
@@ -470,12 +621,19 @@ def build_all(out: str, sources: Dict[str, str]) -> Dict[str, str]:
 
 
 def _run(root: str, args, lib: str, clocks: Optional[str],
-         rescore: bool = False, tag: str = "run") -> dict:
+         rescore: bool = False, tag: str = "run",
+         pad: Optional[str] = None) -> dict:
     """``worker`` in a fresh process that imports ``root``'s package."""
     env = dict(os.environ, PYTHONPATH=root)
     cmd = [sys.executable, os.path.abspath(__file__), "--worker",
            "--out", args.out, "--reps", str(args.reps), "--lib", lib,
-           "--tag", tag]
+           "--tag", tag, "--cases", args.cases]
+    if pad and args.resident:
+        cmd += ["--resident", args.resident, "--pad-lib", pad]
+    if args.graph:
+        cmd += ["--graph", args.graph]
+    if args.batch:
+        cmd += ["--batch", str(args.batch)]
     if clocks:
         cmd += ["--clocks-lib", clocks]
     if rescore:
@@ -515,6 +673,11 @@ def report(runs: List[tuple]) -> None:
                     f"{', '.join(f'{t:.4f}' for t in c['launch_all'])}), "
                     f"{c['blocks_per_sm']} blocks an SM, plan {c['plan']}")
             print(line, flush=True)
+            for x in c.get("resident", ()):
+                print(f"    resident {x['blocks']} blocks an SM (pad "
+                      f"{x['pad']} B; occupancy API {x['api_blocks']}): "
+                      f"launch {x['launch_ms']:.4f} ms, "
+                      f"{x['us_per_query']:.4f} us a query", flush=True)
             if "rescore" in c:
                 x = c["rescore"]
                 print(f"    rows a query (64 queries, the plain version): "
@@ -529,8 +692,10 @@ def report(runs: List[tuple]) -> None:
                 q = s["request"]
                 print(f"    request rate {q['bytes_s'] / 1e12:.3f} TB/s "
                       f"({q['bytes'] / 1e9:.3f} GB of scored rows, "
-                      f"{q['share_of_hbm']:.3f} of 3.35 TB/s); most hops "
-                      f"of a query {s['max_hops']}", flush=True)
+                      f"{q['share_of_hbm']:.3f} of 3.35 TB/s; at 3.35 TB/s "
+                      f"without reuse {q['bytes'] / HBM_BYTES_S * 1e3:.3f}"
+                      f" ms); most hops of a query {s['max_hops']}",
+                      flush=True)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -542,16 +707,36 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--runs", type=int, default=2,
                     help="fresh processes of each checkout, in turns")
+    ap.add_argument("--rows", type=int, default=0,
+                    help="serve the benchmark cell ROWS_CELL's graph at N "
+                         "rows, built on the card (0: phase 5's graph)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="queries a batch (0: 1,024)")
+    ap.add_argument("--cases", default=",".join(CASES),
+                    help="comma-separated cases, '<mode> ef=<n>' (modes: "
+                         "default, bench, fp16)")
+    ap.add_argument("--resident", default="",
+                    help="residency probe: blocks an SM, e.g. 2,4,6,8")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--prepare", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--graph", default="", help=argparse.SUPPRESS)
     ap.add_argument("--lib", help=argparse.SUPPRESS)
     ap.add_argument("--clocks-lib", help=argparse.SUPPRESS)
+    ap.add_argument("--pad-lib", help=argparse.SUPPRESS)
     ap.add_argument("--rescore", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--tag", default="run", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     args.out = os.path.abspath(args.out)
+    cases = [c for c in args.cases.split(",") if c]
+    resident = [int(n) for n in args.resident.split(",") if n]
+    if args.prepare:
+        prepare_rows_graph(args.graph, args.rows)
+        return 0
     if args.worker:
         print(json.dumps(worker(args.out, args.lib, args.clocks_lib,
-                                args.reps, args.rescore, args.tag)),
+                                args.reps, args.rescore, args.tag,
+                                args.graph or None, args.batch or None,
+                                cases, resident, args.pad_lib)),
               flush=True)
         return 0
     import torch
@@ -559,14 +744,28 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise RuntimeError("graph_split needs a CUDA card: the kernel has "
                            "no CPU mode")
     os.makedirs(args.out, exist_ok=True)
+    if args.rows:
+        args.graph = os.path.join(args.out, f"rows_{args.rows}.npz")
+        if not os.path.exists(args.graph):
+            res = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--prepare",
+                 "--out", args.out, "--graph", args.graph, "--rows",
+                 str(args.rows)],
+                cwd=_ROOT, env=dict(os.environ, PYTHONPATH=_ROOT),
+                capture_output=True, text=True, timeout=1800)
+            if res.returncode != 0:
+                raise RuntimeError(f"graph_split --rows build failed:\n"
+                                   f"{res.stderr[-4000:]}")
     roots = {"change": _ROOT}
     if args.parent:
         roots["parent"] = os.path.abspath(args.parent)
     paths = build_all(args.out, {
         n: os.path.join(r, "hnsw_tpu_torch", "csrc", "beam_search.cu")
-        for n, r in roots.items()})
-    print(f"# {torch.cuda.get_device_name(0)}; K5 split, phase 5's graph, "
-          f"1,024 queries a batch", flush=True)
+        for n, r in roots.items()}, pad=bool(args.resident))
+    print(f"# {torch.cuda.get_device_name(0)}; K5 split, "
+          + (f"a {args.rows}-row SIFT-shaped graph" if args.rows
+             else "phase 5's graph")
+          + f", {args.batch or 1024} queries a batch", flush=True)
     for k in paths:
         print_ptxas(os.path.join(args.out, k), k)
     order = ((["parent", "change", "change", "parent"] * args.runs)[
@@ -574,8 +773,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             1, args.runs // 2))
     runs = [(n, _run(roots[n], args, paths[n], paths.get(f"{n}_clocks"),
                      rescore=n == "change" and order.index(n) == i,
-                     tag=f"{n}{i + 1}"))
+                     tag=f"{n}{i + 1}", pad=paths.get(f"{n}_pad")))
             for i, n in enumerate(order)]
+    with open(os.path.join(args.out, "graph_split.json"), "w") as f:
+        json.dump(runs, f)
     report(runs)
     if args.parent:
         # the first parent run's outputs against the first change run's
@@ -586,8 +787,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"# outputs equal bit for bit ({p} against {c}): "
               f"{sum(eq.values())} of {len(eq)} arrays; differ: "
               f"{[k for k, v in eq.items() if not v]}", flush=True)
-    with open(os.path.join(args.out, "graph_split.json"), "w") as f:
-        json.dump(runs, f)
     return 0
 
 

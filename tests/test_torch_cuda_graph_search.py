@@ -22,7 +22,13 @@ twin's too, except on int8 blocks, whose rows quantised at a scale of
 everywhere. Each of the 15 (layer 0, upper layers) mode pairs the kernel
 has runs on integer data; widths D = 7, 50, 128 and 132 at ef 64 and
 past the solo merge (P0 + E*M > 512); rows repeated four times tie in
-the upper layers at ef_upper 8 and 32. Run on a GPU machine with
+the upper layers at ef_upper 8 and 32. On a float batch of the
+benchmark's shape (the sift1m cell's graph at 131,072 rows, built by the
+benchmark's own set-up, ef 64 and 192, 8,192 queries) K5, which asks the
+L2 cache for no row ahead, equals K2 a layer, which does, bit for bit; a
+launch of the residency probe's build (tools/graph_split.py,
+GRAPH_RESIDENCY_PAD), padded to fewer resident blocks, gives the same
+results. Run on a GPU machine with
 ``python3 -m pytest --noconftest tests/test_torch_cuda_graph_search.py -m
 cuda``. This file imports no JAX.
 """
@@ -422,3 +428,77 @@ def test_upper_layer_ties_keep_their_order(cuda, merge):
                   expand=4, merge=merge)
         ki, hops = _k5_vs_plain(g, q, exact=True, **kw)
         assert (ki >= 0).all() and len(hops) == g.num_layers > 1
+
+
+@pytest.fixture(scope="module")
+def pad_lib(tmp_path_factory):
+    """The residency probe's build of the kernel (GRAPH_RESIDENCY_PAD)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from hnsw_tpu_torch.tools import graph_split as gsp
+    return gsp.pad_library(bs.build(
+        (gsp.PAD,), str(tmp_path_factory.mktemp("graph_split_pad"))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [2, 4])
+def test_padded_launch_caps_residency_and_changes_nothing(cuda, hosts,
+                                                          pad_lib, blocks):
+    """The probe's build padded by tools/graph_split.resident_pad leaves
+    just ``blocks`` blocks an SM by the occupancy API, and its padded
+    launch's results and hop counts equal the shipped library's bit for
+    bit."""
+    from hnsw_tpu_torch.tools.graph_split import resident_pad
+    g = from_host(*hosts["l2"], metric="l2", device=cuda)
+    q = torch.from_numpy(_data(40, 256)).to(cuda)
+    plan = gs.search_kernel_applies(g, "l2", q, 64, 8, 4, "bitonic")
+    pad = resident_pad(plan["smem"], blocks)
+    assert pad_lib.graph_search_blocks_per_sm(0, 0, 1, plan["smem"] + pad) \
+        == blocks
+    kw = dict(k=10, ef=64, metric="l2", expand=4, merge="bitonic")
+    out = []
+    shipped = gs._load()
+    for lib, n in ((shipped, 0), (pad_lib, pad)):
+        st = {}
+        bs._lib = lib
+        pad_lib.graph_search_set_pad(n)
+        try:
+            d, i = tsearch.results_to_host(
+                *tsearch.search_graph(g, q, stats=st, **kw), st)
+        finally:
+            pad_lib.graph_search_set_pad(0)
+            bs._lib = shipped
+        out.append((d, i, st["hops_by_query"].numpy()))
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ef", [64, 192])
+def test_k5_equals_k2_a_layer_on_a_float_batch_of_the_benchmarks_shape(
+        cuda, ef):
+    """The benchmark's shape on float data: the sift1m cell's graph at
+    131,072 rows (more than L2 holds), drawn and built on the card by the
+    benchmark's set-up (D 128, m 16, m0 32, L2), 8,192 queries, expand 4:
+    K5's distances, ids and hop counts equal K2 a layer's bit for bit (the
+    twin sums in another order and is held to K5 on smaller batches
+    above)."""
+    from hnsw_tpu_torch.tools.graph_split import rows_graph
+    g, pool, _ = rows_graph(131_072)
+    q = torch.from_numpy(pool[:8192]).to(cuda)
+    dg = g.device_graph()
+    kw = dict(k=10, ef=ef, metric="l2", expand=4, merge="bitonic",
+              max_hops=128)
+    _reset()
+    ks, ps = {}, {}
+    kd, ki = tsearch.results_to_host(
+        *tsearch.search_graph(dg, q, stats=ks, **kw), ks)
+    assert gs.launches == 1
+    bs.launches = 0
+    with gs.plain():
+        pd, pi = tsearch.results_to_host(
+            *tsearch.search_graph_reference(dg, q, stats=ps, **kw), ps)
+    assert bs.launches == len(ps["hops"]) == dg.num_layers
+    np.testing.assert_array_equal(ki, pi)
+    np.testing.assert_array_equal(kd, pd)
+    assert ks["hops"] == ps["hops"] and (ki >= 0).all()

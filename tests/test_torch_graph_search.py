@@ -29,7 +29,9 @@ the CPU always, it runs ``search_graph_reference`` (one
       layer_mode`` names them, the block's shared memory as the larger
       layer's layout plus the entries, the reasons it refuses a search,
       ``plain_on_cuda``'s counts; a CPU graph never loads the library;
-      the one-copy read of the kernel's output buffer.
+      the one-copy read of the kernel's output buffer; the wrapper hands
+      the launch its merge and outputs and counts it once; only K2, not
+      K5, asks the L2 cache for rows ahead.
 
 The card's tests of the kernel are ``tests/test_torch_cuda_graph_search.py``
 (marked ``cuda``).
@@ -474,3 +476,78 @@ def test_graph_reduces_k5s_hop_counts_only_when_read(monkeypatch):
     monkeypatch.setattr(thnsw, "search_graph", real)
     g.batch_search_slots(rng.standard_normal((3, 8)).astype(np.float32), 2)
     assert len(g.last_search_hops) == g.device_graph().num_layers
+
+
+class _FakeLib:
+    """Stands in for the library: records each launch's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def graph_search_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("merge", ["bitonic", "sort"])
+def test_wrapper_hands_the_launch_its_outputs_and_counts_it_once(
+        host, monkeypatch, merge):
+    """graph_search_cuda makes one launch with every argument the library
+    declares (``_load``: 19, then 20 ints, then four pointers), the merge
+    and the three outputs in their places, and counts it once (the
+    library and the card stood in for; the queries carry is_cuda)."""
+    import contextlib
+
+    class Cuda(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    _, tg, q = _graphs(host, "dense")
+    lib = _FakeLib()
+    monkeypatch.setattr(gs, "_load", lambda: lib)
+    monkeypatch.setattr(gs.torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(gs.torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+    plan, _ = gs._plan(tg, "sqeuclidean", 24, 8, 2, merge, None)
+    before = (gs.launches, dict(gs.launches_by_mode))
+    d, i, h = gs.graph_search_cuda(
+        tg, torch.from_numpy(q).as_subclass(Cuda), plan, k=8, P0=24,
+        P_up=8, expand=2, max_hops=16, metric="sqeuclidean",
+        precision=HIGHEST, merge=merge, store_normalized=False,
+        rerank=False)
+    assert d.shape == (16, 8) and h.shape == (tg.num_layers, 16)
+    (args,) = lib.calls
+    assert len(args) == 19 + 20 + 4
+    # ..., merge, normalized, round_up, round_0, out_d, out_i, hops, stream
+    assert args[-8] == bs._MERGE_CODE[merge]
+    assert args[-4] == d.data_ptr() and args[-3] == i.data_ptr()
+    assert args[-2] == h.data_ptr()
+    assert gs.launches == before[0] + 1
+    assert {m: gs.launches_by_mode[m] - before[1][m] for m in bs.MODES} \
+        == {m: int(m == "rows") for m in bs.MODES}
+    gs.launches = before[0]
+    gs.launches_by_mode.update(before[1])
+
+
+def test_only_k2_asks_l2_for_rows_ahead():
+    """In a row store the builder's K2 asks the L2 cache for each gathered
+    id's row as the id arrives; K5 asks for none (csrc/beam_search.cu:
+    layer_search's PREFETCH, true in beam_search_kernel, false in every
+    layer of graph_search_kernel). A block layout asks for its slot's row
+    in both."""
+    import re
+    with open(bs.SOURCE) as f:
+        src = f.read()
+    k2 = src[src.index("beam_search_kernel(Params a)"):
+             src.index("// ---- K5: every layer")]
+    k5 = src[src.index("graph_search_kernel(GraphParams g)"):]
+    assert re.findall(r"layer_search<[^>]*>", k2) == [
+        "layer_search<SCORE, VEC, true>"]
+    assert sorted(re.findall(r"layer_search<[^>]*>", k5)) == [
+        "layer_search<SCORE0, VEC, false>",
+        "layer_search<SCOREUP, VEC, false>"]
+    body = src[src.index("int layer_search("):src.index("// ---- K2:")]
+    conds = re.findall(r"if \(([^)]*)\)\s*prefetch_l2\(", body)
+    assert conds == ["BLOCKS", "!BLOCKS && PREFETCH"]

@@ -5,7 +5,9 @@ and the mean block, hops and cycles a hop, rows a query), the request
 rate, the reuse probe's batch, the groups and phases in the kernel's
 order, each group's row bytes, the captured searches of the cases on a
 small CPU graph, the arguments, and that the tool raises without a CUDA
-card having built nothing. No test here needs CUDA.
+card having built nothing; the --rows graph taken from the benchmark's
+set-up, and the residency probe's pad, build and launches. No test here
+needs CUDA.
 """
 
 import os
@@ -231,3 +233,120 @@ def test_same_outputs_compares_bits():
     assert gsp.same_outputs(a, b)["x dists"] is False
     b["x ids"] = np.array([1, 2], np.int32)
     assert gsp.same_outputs(a, b)["x ids"] is False
+
+
+def test_rows_graph_is_the_benchmark_cells_build_at_n_rows(monkeypatch):
+    """--rows serves ROWS_CELL's graph as the benchmark's own set-up draws
+    and builds it, with only the row count changed."""
+    import types
+
+    from portbench import cells, run
+    seen = []
+
+    def set_up(cell, seed, dev):
+        seen.append((cell, seed, dev))
+        return types.SimpleNamespace(graph="graph", pool="pool", rows="rows")
+
+    monkeypatch.setattr(run, "set_up", set_up)
+    assert gsp.rows_graph(3000) == ("graph", "pool", "rows")
+    ((cell, seed, dev),) = seen
+    real = cells.load(gsp.ROWS_CELL)
+    assert cell.config == dict(real.config, rows=3000)
+    assert cell.traffic == real.traffic and cell.name == real.name
+    assert seed == 1 and dev == torch.device("cuda")
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 4, 6, 8])
+@pytest.mark.parametrize("smem", [7_224, 10_296, 17_464])
+def test_resident_pad_leaves_just_that_many_blocks(smem, blocks):
+    """The padded block fits ``blocks`` times in an SM's 228 KB and not
+    once more (the occupancy API's count by shared memory: a block's
+    dynamic and static bytes and its 1 KB reserve, in 128-byte units)."""
+    pad = gsp.resident_pad(smem, blocks)
+    unit = -(-(smem + pad + gsp.STATIC_SMEM + gsp.BLOCK_RESERVED_SMEM)
+             // gsp.SMEM_UNIT) * gsp.SMEM_UNIT
+    assert gsp.SM_SMEM // unit == blocks
+    assert smem + pad <= bs.SMEM_LIMIT
+
+
+def test_the_pad_lives_only_in_the_probes_build():
+    """The shipped launch takes no pad: only a build with
+    GRAPH_RESIDENCY_PAD has the setter, and adds its bytes to K5's."""
+    with open(bs.SOURCE) as f:
+        src = f.read()
+    launch = src[src.index("int graph_search_launch("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "pad" not in launch[:launch.index(") {")]
+    assert re.findall(r"#ifdef GRAPH_RESIDENCY_PAD\n\s*smem \+= g_pad;",
+                      launch)
+    for name in ("int g_pad", "void graph_search_set_pad("):
+        at = src.index(name)
+        assert src.rindex("#ifdef GRAPH_RESIDENCY_PAD", 0, at) > max(
+            src.rfind("#endif", 0, at), src.rfind("#else", 0, at))
+    assert gsp.PAD == "GRAPH_RESIDENCY_PAD"
+
+
+def test_build_all_builds_the_padded_variant_only_when_asked(
+        monkeypatch, tmp_path):
+    """With pad, each source that has GRAPH_RESIDENCY_PAD is built with it
+    too; a source without it, or a run without the probe, is not."""
+    old = tmp_path / "old.cu"
+    old.write_text("// GRAPH_PHASE_CLOCKS only\n")
+    built = []
+
+    def fake(defines, build_dir, source):
+        built.append((tuple(defines), os.path.basename(build_dir)))
+        return os.path.join(build_dir, "libbeam_search.so")
+
+    monkeypatch.setattr(bs, "build", fake)
+    sources = {"change": bs.SOURCE, "parent": str(old)}
+    assert sorted(gsp.build_all(str(tmp_path), sources, pad=True)) == [
+        "change", "change_clocks", "change_pad", "parent", "parent_clocks"]
+    assert (("GRAPH_RESIDENCY_PAD",), "change_pad") in built
+    built.clear()
+    assert "change_pad" not in gsp.build_all(str(tmp_path), sources)
+    assert all(d != ("GRAPH_RESIDENCY_PAD",) for d, _ in built)
+
+
+def test_resident_probe_pads_each_launch_then_restores(monkeypatch):
+    """Each count of blocks runs its launches through the padded build,
+    with that count's pad set; then the pad is 0 and the library the
+    shipped one again."""
+    events = []
+
+    class Padded:
+        def graph_search_set_pad(self, n):
+            events.append(("pad", n))
+
+        def graph_search_blocks_per_sm(self, s0, su, vec, smem):
+            return smem                # the bytes the probe asked about
+
+    plib, shipped = Padded(), bs._lib
+    c = {"q": np.zeros((8, 4), np.float32)}
+    monkeypatch.setattr(gsp, "_plan", lambda c: {"smem": 10_296})
+
+    def times(c, reps):
+        assert bs._lib is plib
+        events.append(("time", reps))
+        return {"launch_ms": 0.5}
+
+    monkeypatch.setattr(gsp, "_times", times)
+    out = gsp.resident_probe(plib, c, 0, 0, (2, 8), reps=3)
+    assert bs._lib is shipped
+    pads = [gsp.resident_pad(10_296, n) for n in (2, 8)]
+    assert events == [("pad", pads[0]), ("time", 3), ("pad", pads[1]),
+                      ("time", 3), ("pad", 0)]
+    assert [(r["blocks"], r["pad"], r["api_blocks"]) for r in out] == [
+        (n, p, 10_296 + p) for n, p in zip((2, 8), pads)]
+    assert out[0]["us_per_query"] == pytest.approx(0.5e3 / 8)
+
+
+def test_fp16_case_serves_fp16_rows():
+    """A case of mode fp16 searches fp16 rows (hbm_mode "float16") and
+    leaves the graph's store as it was."""
+    g, q = _small_graph()
+    c = gsp.capture_cases(g, q, labels=("fp16 ef=64",))["fp16 ef=64"]
+    assert c["g"].vectors.dtype == torch.float16 and c["kw"]["ef"] == 64
+    assert g.hbm_mode == "full"
+    plan, _ = gs._plan(c["g"], "cosine", 64, 8, 1, "bitonic", None)
+    assert plan["mode0"] == plan["mode_up"] == "f16rows"

@@ -59,6 +59,28 @@ def test_parse_ptxas_reads_each_instantiation():
                             "registers": 60}}
 
 
+K5_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119graph_search_kernelILi2ELi1ELb1EEEvNS_11GraphParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119graph_search_kernelILi2ELi1ELb1EEEvNS_11GraphParamsE
+    104 bytes stack frame, 104 bytes spill stores, 104 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 1400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119graph_search_kernelILi0ELi0ELb0EEEvNS_11GraphParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119graph_search_kernelILi0ELi0ELb0EEEvNS_11GraphParamsE
+    80 bytes stack frame, 80 bytes spill stores, 80 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 1400 bytes cmem[0]
+"""
+
+
+def test_parse_ptxas_names_k5s_instantiations():
+    """K5's instantiations by layer 0's mode, the upper layers' and the
+    loads."""
+    assert hs.parse_ptxas(K5_PTXAS) == {
+        "K5 int8+bf16/vec": {"stack": 104, "spill_stores": 104,
+                             "spill_loads": 104, "registers": 64},
+        "K5 f32+f32/scalar": {"stack": 80, "spill_stores": 80,
+                              "spill_loads": 80, "registers": 64}}
+
+
 def test_score_names_follow_the_kernel_modes():
     """SCORE_NAMES names the kernel's S_* scoring modes by their codes."""
     with open(bs.SOURCE) as f:
