@@ -49,8 +49,12 @@ SELECT_MAX_C = 1024
 #: memory a block can have
 ROW_BUDGET, SMEM_MAX = 96 * 1024, 232_448
 
-#: kernel launches so far (one per call on CUDA)
+#: kernel launches so far (one per call on CUDA), in all and by how the
+#: rows were staged: "whole" (every candidate's row in shared memory at
+#: once, or no row: a call without diversify) or "slabs" (D staged in
+#: slabs, the accumulators in the workspace between them)
 launches = 0
+launches_by_layout = {"whole": 0, "slabs": 0}
 #: calls on CUDA tensors that ran the twin, by reason: "mode" (a registered
 #: metric or a row store the kernel lacks), "size" (more than SELECT_MAX_C
 #: candidates a row) or "other" (a covered call within its limits: tensors
@@ -275,4 +279,5 @@ def diverse_select_cuda(cand_i: torch.Tensor, cand_d: torch.Tensor,
         raise RuntimeError(f"diverse_select launch failed: cudaError {rc}")
     with _lock:                  # slices on one card launch from threads
         launches += 1
+        launches_by_layout["slabs" if n else "whole"] += 1
     return out

@@ -3,8 +3,8 @@
 on one NVIDIA GPU.
 
     python3 -m hnsw_tpu_torch.tools.graph_split [--out DIR] [--parent ROOT]
-        [--reps N] [--runs N] [--rows N] [--batch N] [--cases LIST]
-        [--resident LIST]
+        [--reps N] [--runs N] [--rows N] [--cell NAME] [--batch N]
+        [--cases LIST] [--resident LIST]
 
 Builds ``csrc/beam_search.cu`` as the port ships it and with
 ``-DGRAPH_PHASE_CLOCKS``, where thread 0 of each block adds the
@@ -51,7 +51,11 @@ benchmark's cell ``ROWS_CELL`` with N rows (``rows_graph``: the cell's
 own set-up, ``portbench.run.set_up``, draws the SIFT-shaped rows from its
 configuration's generator and builds them on the card with the wave
 builder; the cell's search: L2, ``search_expand`` 4, ``max_hops`` 128),
-once, into ``--out``; at 1M rows layer 0 does not sit in L2. ``--batch``
+once, into ``--out``; at 1M rows layer 0 does not sit in L2. ``--cell
+NAME`` serves another cell's graph the same way (its configuration's
+generator, width, metric and graph), at its configuration's own rows
+unless ``--rows`` gives a count (e.g. ``--cell dbpedia1536-cos.b8192.ef64``:
+990,000 x 1,536 cosine rows). ``--batch``
 queries a batch (default 1,024; the benchmark's cells take 8,192),
 ``--cases`` a comma-separated list of cases: ``CASES``' modes, and
 "fp16" (``hbm_mode="float16"``: fp16 rows on every layer), at any ef.
@@ -198,27 +202,28 @@ def row_bytes(dg, plan: dict, rerank_dtype_bytes: int) -> Dict[str, int]:
             "rerank": rerank_dtype_bytes * D + 4}
 
 
-def rows_graph(n: int, seed: int = 1):
-    """The --rows graph: ``ROWS_CELL``'s configuration with ``n`` rows,
-    drawn and built on the card by the cell's own set-up
-    (``portbench.run.set_up``: its generator, graph configuration and
-    wave builder). Returns (the Graph, the query pool [n_pool, D] float32,
-    the rows in slot order)."""
+def rows_graph(n: int, seed: int = 1, cell: str = ROWS_CELL):
+    """The --rows / --cell graph: the benchmark cell ``cell``'s
+    configuration with ``n`` rows (0: the configuration's own), drawn and
+    built on the card by the cell's own set-up (``portbench.run.set_up``:
+    its generator, graph configuration and wave builder). Returns (the
+    Graph, the query pool [n_pool, D] float32, the rows in slot order)."""
     import dataclasses
 
     import torch
     from portbench import cells, run
-    cell = cells.load(ROWS_CELL, _ROOT)
-    cell = dataclasses.replace(cell, config=dict(cell.config, rows=int(n)))
-    s = run.set_up(cell, seed, torch.device("cuda"))
+    c = cells.load(cell, _ROOT)
+    if n:
+        c = dataclasses.replace(c, config=dict(c.config, rows=int(n)))
+    s = run.set_up(c, seed, torch.device("cuda"))
     return s.graph, s.pool, s.rows
 
 
-def prepare_rows_graph(path: str, n: int) -> None:
-    """``rows_graph(n)`` saved with its configuration, rows and query pool
-    to ``path`` (npz), for every checkout's worker to serve."""
+def prepare_rows_graph(path: str, n: int, cell: str = ROWS_CELL) -> None:
+    """``rows_graph(n, cell=cell)`` saved with its configuration, rows and
+    query pool to ``path`` (npz), for every checkout's worker to serve."""
     import dataclasses
-    g, pool, rows = rows_graph(n)
+    g, pool, rows = rows_graph(n, cell=cell)
     nb, levels, entry, top = g.host.arrays()
     tmp = f"{path}.{os.getpid()}.npz"
     np.savez(tmp, n=g.slots.capacity_used, neighbors=nb, levels=levels,
@@ -710,6 +715,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--rows", type=int, default=0,
                     help="serve the benchmark cell ROWS_CELL's graph at N "
                          "rows, built on the card (0: phase 5's graph)")
+    ap.add_argument("--cell", default="",
+                    help="serve this benchmark cell's graph (at its "
+                         "configuration's rows unless --rows gives N)")
     ap.add_argument("--batch", type=int, default=0,
                     help="queries a batch (0: 1,024)")
     ap.add_argument("--cases", default=",".join(CASES),
@@ -729,8 +737,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     args.out = os.path.abspath(args.out)
     cases = [c for c in args.cases.split(",") if c]
     resident = [int(n) for n in args.resident.split(",") if n]
+    cell = args.cell or ROWS_CELL
     if args.prepare:
-        prepare_rows_graph(args.graph, args.rows)
+        prepare_rows_graph(args.graph, args.rows, cell)
         return 0
     if args.worker:
         print(json.dumps(worker(args.out, args.lib, args.clocks_lib,
@@ -744,17 +753,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise RuntimeError("graph_split needs a CUDA card: the kernel has "
                            "no CPU mode")
     os.makedirs(args.out, exist_ok=True)
-    if args.rows:
-        args.graph = os.path.join(args.out, f"rows_{args.rows}.npz")
+    if args.rows or args.cell:
+        args.graph = os.path.join(args.out,
+                                  f"{cell}_{args.rows or 'all'}.npz")
         if not os.path.exists(args.graph):
             res = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--prepare",
                  "--out", args.out, "--graph", args.graph, "--rows",
-                 str(args.rows)],
+                 str(args.rows), "--cell", cell],
                 cwd=_ROOT, env=dict(os.environ, PYTHONPATH=_ROOT),
                 capture_output=True, text=True, timeout=1800)
             if res.returncode != 0:
-                raise RuntimeError(f"graph_split --rows build failed:\n"
+                raise RuntimeError(f"graph_split --rows / --cell build "
+                                   f"failed:\n"
                                    f"{res.stderr[-4000:]}")
     roots = {"change": _ROOT}
     if args.parent:
@@ -762,9 +773,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     paths = build_all(args.out, {
         n: os.path.join(r, "hnsw_tpu_torch", "csrc", "beam_search.cu")
         for n, r in roots.items()}, pad=bool(args.resident))
+    n_rows = args.rows or "its configuration's"
     print(f"# {torch.cuda.get_device_name(0)}; K5 split, "
-          + (f"a {args.rows}-row SIFT-shaped graph" if args.rows
-             else "phase 5's graph")
+          + (f"cell {cell}'s graph at {n_rows} rows"
+             if args.graph else "phase 5's graph")
           + f", {args.batch or 1024} queries a batch", flush=True)
     for k in paths:
         print_ptxas(os.path.join(args.out, k), k)

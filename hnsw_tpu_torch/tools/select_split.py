@@ -3,6 +3,7 @@
 its time, on one NVIDIA GPU.
 
     python3 -m hnsw_tpu_torch.tools.select_split [--out DIR] [--parent SRC]
+        [--cell NAME [--rows N]]
 
 Builds ``csrc/diverse_select.cu`` twice into ``--out`` (default
 build/select_split): as the port ships it, and with
@@ -38,8 +39,18 @@ With ``--parent SRC`` (the ``csrc/diverse_select.cu`` of another checkout,
 e.g. ``git archive <commit> | tar -x -C build/parent``), it loads that
 checkout's own ``ops/diverse_select.py`` beside it, builds its kernel into
 ``--out`` and times the two through their own wrappers in turns on each
-case (parent, change, change, parent), all three ways. Needs nvcc and a
-CUDA card; raises without one.
+case (parent, change, change, parent), all three ways.
+
+With ``--cell NAME`` the inputs are a benchmark cell's own: its set-up
+(``portbench.run.set_up``: its configuration's generator, width, metric
+and wave builder) draws and builds ``--rows`` rows (default ``N_ROWS``),
+and the cases (``cell_cases``) are the builder's calls at that width: the
+layer-0 call (C 96, deg m0) with and without diversify and the reverse
+update's C 64, on the graph's float32 store in the cell's metric. It
+also times every K4 launch of that build on the card (CUDA events around
+each call, ``timed_selections``) and prints their sum beside the build's
+seconds and the launches by layout ("whole" or "slabs"). Needs nvcc and
+a CUDA card; raises without one.
 """
 
 from __future__ import annotations
@@ -239,13 +250,14 @@ def bind_clocks(path: str):
 @contextmanager
 def using(lib):
     """``ops/diverse_select.diverse_select_cuda`` launches through ``lib``
-    inside the block (the launch count is left as it was)."""
-    saved = (ds._lib, ds.launches)
+    inside the block (the launch counts are left as they were)."""
+    saved = (ds._lib, ds.launches, dict(ds.launches_by_layout))
     ds._lib = lib
     try:
         yield
     finally:
-        ds._lib, ds.launches = saved
+        ds._lib, ds.launches = saved[:2]
+        ds.launches_by_layout.update(saved[2])
 
 
 def back_to_back_ms(fn: Callable, reps: int = 5, inner: int = 20) -> float:
@@ -277,7 +289,8 @@ def device_ms(fn: Callable, calls: int = 20) -> float:
     return statistics.median(us) / 1e3
 
 
-def clocked(lib, args: tuple, deg: int, diversify: bool) -> np.ndarray:
+def clocked(lib, args: tuple, deg: int, diversify: bool,
+            metric: str = "l2") -> np.ndarray:
     """One launch of the clocked build ``lib`` (``bind_clocks``) on (ci,
     cd, vectors, sq): cycles [P, len(PHASES)] on the host."""
     P = args[0].shape[0]
@@ -287,7 +300,7 @@ def clocked(lib, args: tuple, deg: int, diversify: bool) -> np.ndarray:
         raise RuntimeError("diverse_select_set_clocks failed")
     try:
         with using(lib):
-            ds.diverse_select_cuda(*args, deg=deg, metric="l2",
+            ds.diverse_select_cuda(*args, deg=deg, metric=metric,
                                    diversify=diversify)
         torch.cuda.synchronize()
     finally:
@@ -344,18 +357,23 @@ def print_ptxas(build_dir: str, label: str) -> Dict[str, dict]:
 
 
 def make_inputs(cases=CASES, device: str = "cuda", n: int = N_ROWS,
-                dim: int = DIM) -> Dict[str, tuple]:
+                dim: int = DIM,
+                given: Optional[Dict[str, torch.Tensor]] = None,
+                metric: str = "l2") -> Dict[str, tuple]:
     """label -> (ci, cd, vectors, sq) of each case: the rows of its kind
-    (float32, cast to its store), the slate of its (P, n_cand, intra_k),
-    cut to its first C columns; norms of the stored values."""
+    (float32, cast to its store; ``given`` holds the rows of a kind made
+    elsewhere, such as a cell's store), the slate of its (P, n_cand,
+    intra_k) scored in ``metric``, cut to its first C columns; norms of
+    the stored values."""
     out, slates = {}, {}
+    given = given or {}
     for kind in dict.fromkeys(c.kind for c in cases):
-        v32 = rows(kind, n, dim, device)
+        v32 = given[kind] if kind in given else rows(kind, n, dim, device)
         sq32 = (v32 * v32).sum(-1)
         for c in (c for c in cases if c.kind == kind):
             key = (c.P, c.n_cand, c.intra_k)
             if key not in slates:
-                slates[key] = slate(v32, sq32, *key)
+                slates[key] = slate(v32, sq32, *key, metric=metric)
             ci, cd = slates[key]
             v = v32.to(c.dtype)
             sq = sq32 if c.dtype == torch.float32 else (
@@ -367,6 +385,69 @@ def make_inputs(cases=CASES, device: str = "cuda", n: int = N_ROWS,
     return out
 
 
+def cell_cases(conf: dict) -> tuple:
+    """The builder's calls at a cell's configuration ``conf``: the
+    layer-0 call (a wave of ``wave`` rows, 64 of the others and 32 of the
+    wave a row, C 96, deg m0) with and without diversify, and the reverse
+    update's C 64, on the cell's rows (kind "cell")."""
+    wave, m0 = int(conf["wave"]), int(conf["m0"])
+    return (Case("cell layer 0", "cell", torch.float32, wave, 64, 32, 96, m0),
+            Case("cell layer 0 without diversify", "cell", torch.float32,
+                 wave, 64, 32, 96, m0, False),
+            Case("cell C 64", "cell", torch.float32, wave, 64, 32, 64, m0))
+
+
+@contextmanager
+def timed_selections():
+    """Inside the block every ``ops/diverse_select.diverse_select_cuda``
+    call is timed on the card by a CUDA event pair on its stream (no host
+    sync); yields a dict whose "ms" holds, once the block has ended, the
+    sum of those times, and "calls" their number."""
+    real, pairs, out = ds.diverse_select_cuda, [], {}
+
+    def timed(*a, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        r = real(*a, **kw)
+        e1.record()
+        pairs.append((e0, e1))
+        return r
+
+    ds.diverse_select_cuda = timed
+    try:
+        yield out
+    finally:
+        ds.diverse_select_cuda = real
+        torch.cuda.synchronize()
+        out.update(calls=len(pairs),
+                   ms=sum(a.elapsed_time(b) for a, b in pairs))
+
+
+def cell_inputs(name: str, n: int):
+    """(the cases, their inputs, the metric) of ``--cell``: the cell's
+    set-up at ``n`` rows, whose build's K4 launches are timed
+    (``timed_selections``) and printed beside the build's seconds."""
+    from portbench import cells, run
+    c = cells.load(name)
+    c = dataclasses.replace(c, config=dict(c.config, rows=int(n)))
+    before = dict(ds.launches_by_layout)
+    with timed_selections() as sel:
+        s = run.set_up(c, 1, torch.device("cuda"))
+    layouts = {k: v - before[k] for k, v in ds.launches_by_layout.items()}
+    metric = c.config["metric"]
+    print(f"# cell {name}: {n} x {c.config['dim']} {metric} rows; the "
+          f"build {s.build_s:.3f} s; K4 in it and in the two-wave warm-up "
+          f"before it: {sel['calls']} launches ({layouts}), "
+          f"{sel['ms'] / 1e3:.3f} s on the card, "
+          f"{sel['ms'] / 1e3 / s.build_s:.4f} of the build's seconds",
+          flush=True)
+    dg = s.graph.device_graph()
+    vectors = dg.vectors[:n].to(torch.float32).contiguous()
+    cases = cell_cases(c.config)
+    inputs = make_inputs(cases, given={"cell": vectors}, metric=metric)
+    return cases, inputs, metric
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(
@@ -374,6 +455,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--parent", default=None,
                     help="another checkout's csrc/diverse_select.cu to time "
                          "in turns, through its own wrapper")
+    ap.add_argument("--cell", default="",
+                    help="a benchmark cell whose set-up makes the rows and "
+                         "whose configuration sets the cases")
+    ap.add_argument("--rows", type=int, default=N_ROWS,
+                    help="rows of the --cell set-up")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("select_split needs a CUDA card: the kernel has "
@@ -395,16 +481,20 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"of 20 in a torch.profiler trace)", flush=True)
     print_ptxas(ds.BUILD_DIR, "change")
     print_ptxas(clocks_dir, "change, clocked")
-    inputs = make_inputs()
+    if args.cell:
+        cases, inputs, metric = cell_inputs(args.cell, args.rows)
+    else:
+        cases, inputs, metric = CASES, make_inputs(), "l2"
     order = (["parent", "change", "change", "parent"] if args.parent
              else ["change"])
-    for c in CASES:
+    for c in cases:
         a = inputs[c.label]
         D = a[2].shape[1]
         want = build._diverse_select_reference(
-            *a, deg=c.deg, metric="l2", diversify=c.diversify).cpu().numpy()
+            *a, deg=c.deg, metric=metric,
+            diversify=c.diversify).cpu().numpy()
         calls = {n: (lambda m=m: m.diverse_select_cuda(
-            *a, deg=c.deg, metric="l2", diversify=c.diversify))
+            *a, deg=c.deg, metric=metric, diversify=c.diversify))
             for n, m in wrappers.items()}
         times = {n: [] for n in wrappers}
         for n in order:
@@ -438,8 +528,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     per_sm = ds._load().diverse_select_blocks_per_sm(
                         c.C, D, ds.STORES[c.dtype])
                     line += f"; {per_sm} blocks an SM"
-                rep = phase_report(clocked(clk, a, c.deg, c.diversify),
-                                   dev[n])
+                rep = phase_report(clocked(clk, a, c.deg, c.diversify,
+                                           metric), dev[n])
                 line += "; " + format_report(rep)
             print(line, flush=True)
     return 0

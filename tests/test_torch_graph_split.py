@@ -350,3 +350,25 @@ def test_fp16_case_serves_fp16_rows():
     assert g.hbm_mode == "full"
     plan, _ = gs._plan(c["g"], "cosine", 64, 8, 1, "bitonic", None)
     assert plan["mode0"] == plan["mode_up"] == "f16rows"
+
+
+def test_rows_graph_serves_another_cell_at_its_own_rows(monkeypatch):
+    """--cell: the named cell's configuration, at its own row count
+    unless --rows gives one."""
+    import types
+
+    from portbench import cells, run
+    seen = []
+
+    def set_up(cell, seed, dev):
+        seen.append(cell)
+        return types.SimpleNamespace(graph="graph", pool="pool", rows="rows")
+
+    monkeypatch.setattr(run, "set_up", set_up)
+    name = "dbpedia1536-cos.b8192.ef64"
+    real = cells.load(name)
+    assert gsp.rows_graph(0, cell=name) == ("graph", "pool", "rows")
+    assert gsp.rows_graph(5000, cell=name) == ("graph", "pool", "rows")
+    assert seen[0].config == real.config and seen[0].name == name
+    assert seen[1].config == dict(real.config, rows=5000)
+    assert real.config["dim"] == 1536

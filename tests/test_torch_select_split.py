@@ -230,3 +230,71 @@ def test_device_ms_refuses_a_trace_without_the_kernels_records(monkeypatch):
     with pytest.raises(RuntimeError, match="0 kernel records of 3"):
         ss.device_ms(lambda: calls.append(1), calls=3)
     assert len(calls) == 4                        # a warm-up, then 3
+
+
+CELL = "dbpedia1536-cos.b8192.ef64"
+
+
+def test_cell_cases_follow_the_configuration():
+    """--cell: the builder's layer-0 call (a wave, 64 of the others and 32
+    of the wave a row, C 96, deg m0) with and without diversify, and the
+    reverse update's C 64, on the cell's own rows."""
+    from portbench import cells
+    conf = cells.load(CELL).config
+    cases = {c.label: c for c in ss.cell_cases(conf)}
+    layer0 = cases["cell layer 0"]
+    assert (layer0.P, layer0.n_cand, layer0.intra_k, layer0.C,
+            layer0.deg) == (conf["wave"], 64, 32, 96, conf["m0"])
+    assert not cases["cell layer 0 without diversify"].diversify
+    assert cases["cell C 64"].C == 64
+    assert {c.kind for c in cases.values()} == {"cell"}
+    # at the cell's width the diversifying rows are staged in slabs
+    assert ds.layout(96, conf["dim"])["n_slabs"] > 1
+    assert ds.layout(64, conf["dim"])["n_slabs"] > 1
+
+
+def test_make_inputs_takes_given_rows_in_the_cells_metric():
+    """Rows of a kind made elsewhere (a cell's normalised store) are used
+    as given, and the slate is scored in the metric asked for."""
+    r = np.random.default_rng(4)
+    v = torch.from_numpy(r.standard_normal((600, 24)).astype(np.float32))
+    v = v / v.norm(dim=1, keepdim=True)
+    case = ss.Case("c", "cell", torch.float32, 64, 24, 8, 32, 8)
+    ((ci, cd, got, sq),) = ss.make_inputs([case], device="cpu",
+                                          given={"cell": v},
+                                          metric="cosine").values()
+    assert got is v and ci.shape == cd.shape == (64, 32)
+    anchors = torch.arange(64)
+    want = 1.0 - (v[anchors][:, None, :] * v[ci.long()]).sum(-1)
+    np.testing.assert_allclose(cd.numpy(), want.numpy(), atol=1e-5)
+    rows = tbuild._diverse_select_reference(ci, cd, v, sq, deg=8,
+                                            metric="cosine", diversify=True)
+    assert rows.shape == (64, 8)
+
+
+def test_timed_selections_sum_each_calls_event_pair(monkeypatch):
+    """Every diverse_select_cuda call inside the block is bracketed by an
+    event pair; the block's dict holds their number and summed time, and
+    the wrapper is restored."""
+    stamps = iter(range(100))
+
+    class Event:
+        def __init__(self, **kw):
+            self.t = None
+
+        def record(self):
+            self.t = next(stamps)
+
+        def elapsed_time(self, end):
+            return float(end.t - self.t)
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    real = ds.diverse_select_cuda
+    monkeypatch.setattr(ds, "diverse_select_cuda", lambda *a, **kw: a)
+    fake = ds.diverse_select_cuda
+    with ss.timed_selections() as sel:
+        assert ds.diverse_select_cuda(1, 2) == (1, 2)
+        ds.diverse_select_cuda(3)
+    assert sel == {"calls": 2, "ms": 2.0}
+    assert ds.diverse_select_cuda is fake and fake is not real
